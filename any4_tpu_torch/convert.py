@@ -1,0 +1,140 @@
+"""Carry parameter trees between the JAX package and the port, through numpy.
+
+The JAX side of a tree is numpy only, so this module needs neither JAX nor
+the JAX package:
+
+- a dense leaf is a numpy array; bfloat16 travels as its raw bits in a
+  ``uint16`` array (as ``any4_tpu/models/checkpoint.py`` stores it), and an
+  array whose dtype is named ``bfloat16`` is read the same way;
+- a JAX ``QuantizedTensor`` is a dict of its numpy fields (``packed``,
+  ``scales``, ``zeros``, ``lut``) plus ``fmt``, ``group_size``, ``shape``
+  and optionally ``dtype`` and ``row_shards``.
+
+Quantized weights are unpacked from their TPU layout to codes and repacked
+in the port's layout (:mod:`any4_tpu_torch.ops.packing`); the scales and
+zeros ``[kp/g, n]`` are the same arrays in both packages, and the LUT is
+turned to ``[n, 16]``/``[1, 16]``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .ops import packing
+from .ops.linear import LUT_FMTS, QuantizedTensor
+
+QT_FIELDS = ("packed", "scales", "zeros", "lut")
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def is_jax_qt(node: Any) -> bool:
+    return isinstance(node, dict) and "packed" in node and "fmt" in node
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[str(name).replace("torch.", "")]
+
+
+def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """A numpy leaf as a tensor; uint16 (or a numpy bfloat16) is bf16."""
+    a = np.array(a)     # a writable, contiguous copy
+    if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as its raw bits in a uint16 array."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _check_fmt(fmt: str, row_shards: int) -> None:
+    if row_shards != 1:
+        raise NotImplementedError(
+            "row_shards != 1 weights are not ported yet (ROADMAP queue 1, "
+            "item 12)")
+    if fmt not in LUT_FMTS:
+        raise NotImplementedError(
+            f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
+
+
+def qt_from_jax(d: dict, device="cpu") -> QuantizedTensor:
+    """A JAX ``QuantizedTensor`` (as a dict of numpy fields) in the port's
+    layout."""
+    fmt = d["fmt"]
+    _check_fmt(fmt, int(d.get("row_shards", 1)))
+    n, k = (int(s) for s in d["shape"])
+    packed = np.asarray(d["packed"])
+    lut = np.asarray(d["lut"], np.float32)
+    if fmt.endswith("t"):
+        kp = packed.shape[0] * packing.CODES_PER_WORD
+        codes = packing.unpack_int4_transposed(packed, kp)
+        lut = lut.T                                   # [16, n|1] -> [n|1, 16]
+    else:
+        kp = packed.shape[1] * packing.CODES_PER_WORD
+        codes = packing.unpack_int4(packed, kp)
+    f32 = (lambda a: tensor_from_numpy(np.asarray(a, np.float32), device))
+    return QuantizedTensor(
+        packing.pack_codes(torch.from_numpy(codes[:, :k].copy())).to(device),
+        f32(d["scales"]), f32(d["zeros"]), f32(lut),
+        fmt, int(d["group_size"]), (n, k),
+        torch_dtype(d.get("dtype", "bfloat16")), 1)
+
+
+def qt_to_jax(qt: QuantizedTensor) -> dict:
+    """The port's ``QuantizedTensor`` as the JAX package's fields (numpy),
+    in the TPU layout its format names."""
+    _check_fmt(qt.fmt, qt.row_shards)
+    n, k = qt.shape
+    codes = packing.unpack_codes(qt.packed.cpu(), k).numpy()
+    lut = qt.lut.detach().cpu().float().numpy()
+    if qt.fmt.endswith("t"):
+        packed = packing.pack_int4_transposed(codes)
+        lut = np.ascontiguousarray(lut.T)             # [16, n|1]
+    else:
+        packed = packing.pack_int4(codes)
+    return {"packed": packed,
+            "scales": qt.scales.detach().cpu().numpy(),
+            "zeros": qt.zeros.detach().cpu().numpy(),
+            "lut": lut, "fmt": qt.fmt, "group_size": qt.group_size,
+            "shape": (n, k), "dtype": dtype_name(qt.dtype),
+            "row_shards": 1}
+
+
+def from_jax_params(tree: Any, device="cuda") -> Any:
+    """The JAX package's parameter tree (numpy leaves, quantized weights as
+    dicts) as the port's tree on ``device``."""
+    if is_jax_qt(tree):
+        return qt_from_jax(tree, device)
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_jax_params(v, device) for v in tree]
+    if tree is None:
+        return None
+    return tensor_from_numpy(tree, device)
+
+
+def to_jax_numpy(params: Any) -> Any:
+    """Inverse of :func:`from_jax_params`: numpy leaves (bf16 as uint16),
+    quantized weights as dicts of the JAX package's fields."""
+    if isinstance(params, QuantizedTensor):
+        return qt_to_jax(params)
+    if isinstance(params, dict):
+        return {k: to_jax_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [to_jax_numpy(v) for v in params]
+    if params is None:
+        return None
+    return tensor_to_numpy(params)

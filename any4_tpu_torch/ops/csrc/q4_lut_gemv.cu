@@ -1,0 +1,287 @@
+// 4-bit LUT matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
+// with W stored as 4-bit codes, a 16-entry lookup table (per row or global) and
+// per-group affine scales/zeros.
+//
+// Kernel A, q4_lut_post, replaces the TPU kernels any4_tpu/ops/pallas/gemv.py
+// _q4t_kernel (gemv.py:230, transposed layout) and _q4post_kernel (gemv.py:172,
+// row layout). They compute the same numbers: the LUT is rounded to bf16 before
+// the dot, bf16 x times bf16 LUT values are summed in f32, and the group affine
+// is applied after the dot in f32:  y += P_g * s_g + sum(x_g) * z_g.
+// Group sizes that are multiples of 128.
+//
+// Kernel B, q4_lut_fused, replaces gemv.py:106 _q4_kernel, the fused-table
+// kernel: each weight becomes bf16(LUT[c] * s + z) (one f32 fma, then one
+// rounding to bf16), and the dot with bf16 x accumulates in f32. This keeps the
+// rounding point of dequantize-then-matmul. Group sizes 16, 32, 64 (any
+// multiple of 8 works).
+//
+// Code layout (any4_tpu_torch/ops/packing.py): int32 words [n, kp/8], row
+// major, 8 consecutive k per word (nibble j holds k = 8*word + j), kp a
+// multiple of 1024. Scales and zeros are f32 [kp/g, n]; the LUT is f32 [n, 16]
+// (lut_stride 16) or [1, 16] (lut_stride 0).
+//
+// What bounds them on this card: at m = 1 (decode) the bytes of the weight
+// read once from device memory -- 0.5 B of codes per weight plus 8 B of scale
+// and zero per group and 64 B of LUT per row -- so the least time is those
+// bytes over the memory rate (3.35 TB/s on an H100 SXM). The arithmetic (one
+// LUT lookup and one fma per weight and row of x) is far below the card's
+// rates while m is small.
+//
+// What the design does about it:
+//   - one warp per output row; each lane loads 16 bytes (32 consecutive codes)
+//     per step, so a warp reads 512 contiguous bytes of its row per step, and
+//     the next step's codes are loaded before the current ones are used, so two
+//     loads per warp are in flight;
+//   - a block of 8 warps (8 consecutive rows) shares one staged copy of x in
+//     shared memory, and one 32-byte sector of each scale/zero row serves all
+//     8 warps; each lane's 32 k sit in a padded 80-byte slot so the 16-byte
+//     shared loads of a quarter warp hit distinct banks;
+//   - the row's 16 LUT values live in a per-warp shared table: 16 entries in 16
+//     banks, so a lookup never conflicts;
+//   - kernel A applies the affine to the 32-code partial sums, not to each
+//     weight: 2 fmas per 32 codes instead of 32;
+//   - m is tiled by MT (1, 2, 4, 8 or 16 rows of x, a template parameter) along
+//     grid.y; each m tile reads the weight again, which is the cost of prefill
+//     chunks in this simple design.
+// Not done here (later work): cp.async/TMA pipelines, tensor-core mma for
+// m >= 8, split-k for the narrow layers whose n/8 blocks do not fill 132 SMs.
+//
+// Each C entry point launches on the given stream, allocates nothing, and
+// returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;                 // output rows per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 1024;              // k per step: 32 lanes x 32 codes
+constexpr int kLaneK = 32;                // consecutive k per lane and step
+constexpr int kLaneSlot = 40;             // bf16 per lane slot in shared (32 + 8 pad)
+
+template <typename T>
+__device__ __forceinline__ void store_out(T* p, float v);
+template <>
+__device__ __forceinline__ void store_out<float>(float* p, float v) { *p = v; }
+template <>
+__device__ __forceinline__ void store_out<__nv_bfloat16>(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ void store_out<__half>(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Stage x[m0 : m0+MT, k0 : k0+kChunk] (bf16) into shared memory, zero outside
+// [0, m) x [0, k). Shared layout: xs[row][lane][kLaneSlot], lane = kk / 32.
+template <int MT>
+__device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const __nv_bfloat16* __restrict__ x,
+                                        int m0, int m, int k, int k0, bool vec_ok) {
+  constexpr int kVecsPerRow = kChunk / 8;
+  for (int v = threadIdx.x; v < MT * kVecsPerRow; v += kThreads) {
+    const int r = v / kVecsPerRow;
+    const int kk = (v % kVecsPerRow) * 8;
+    const int gm = m0 + r, gk = k0 + kk;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (gm < m) {
+      const __nv_bfloat16* src = x + (size_t)gm * k + gk;
+      if (vec_ok && gk + 8 <= k) {
+        val = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const unsigned short* bits = reinterpret_cast<const unsigned short*>(src);
+        union {
+          uint4 u;
+          unsigned short h[8];
+        } tmp;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) tmp.h[j] = gk + j < k ? bits[j] : 0;  // bf16 +0.0 is 0x0000
+        val = tmp.u;
+      }
+    }
+    const int lane = kk / kLaneK, off = kk % kLaneK;
+    *reinterpret_cast<uint4*>(xs + (r * 32 + lane) * kLaneSlot + off) = val;
+  }
+}
+
+__device__ __forceinline__ uint4 load_codes(const int32_t* __restrict__ row_codes, int k0,
+                                            int lane, int kp) {
+  if (k0 >= kp) return make_uint4(0u, 0u, 0u, 0u);
+  return *reinterpret_cast<const uint4*>(row_codes + k0 / 8 + lane * 4);
+}
+
+// FUSED = false: kernel A (bf16 LUT, post-dot affine).
+// FUSED = true:  kernel B (per-weight bf16(LUT*s + z)).
+template <int MT, bool FUSED, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
+              const float* __restrict__ scales, const float* __restrict__ zeros,
+              const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k,
+              int kw, int group_size, int num_groups, int lut_stride) {
+  __shared__ __align__(16) __nv_bfloat16 xs[MT * 32 * kLaneSlot];
+  __shared__ float lut_s[kWarps][16];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + warp;
+  const int m0 = blockIdx.y * MT;
+  const bool active = row < n;  // uniform across the warp
+  const int kp = kw * 8;
+  const bool vec_ok = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
+
+  if (active && lane < 16) {
+    const float v = lut[(size_t)row * lut_stride + lane];
+    lut_s[warp][lane] = FUSED ? v : round_bf16(v);
+  }
+
+  const int32_t* row_codes = codes + (size_t)(active ? row : 0) * kw;
+  float acc[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) acc[i] = 0.f;
+
+  uint4 wv = active ? load_codes(row_codes, 0, lane, kp) : make_uint4(0u, 0u, 0u, 0u);
+  for (int k0 = 0; k0 < kp; k0 += kChunk) {
+    __syncthreads();  // the previous step's readers are done with xs
+    stage_x<MT>(xs, x, m0, m, k, k0, vec_ok);
+    __syncthreads();
+    if (!active) continue;
+    const uint4 wnext = load_codes(row_codes, k0 + kChunk, lane, kp);
+    const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
+    const int kl = k0 + lane * kLaneK;  // this lane's first k
+    const __nv_bfloat16* xl = xs + lane * kLaneSlot;
+
+    float p[MT], sx[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) p[i] = sx[i] = 0.f;
+
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      float lv[8];
+      if (FUSED) {
+        const int g = (kl + w * 8) / group_size;
+        const bool real = g < num_groups;
+        const float s = real ? scales[(size_t)g * n + row] : 0.f;
+        const float z = real ? zeros[(size_t)g * n + row] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          lv[j] = round_bf16(fmaf(lut_s[warp][(words[w] >> (4 * j)) & 0xF], s, z));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) lv[j] = lut_s[warp][(words[w] >> (4 * j)) & 0xF];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(xl + i * 32 * kLaneSlot + w * 8);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&xv);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(h[t]);
+          p[i] = fmaf(f.x, lv[2 * t], p[i]);
+          p[i] = fmaf(f.y, lv[2 * t + 1], p[i]);
+          if (!FUSED) sx[i] += f.x + f.y;
+        }
+      }
+    }
+
+    if (FUSED) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) acc[i] += p[i];
+    } else {
+      // a lane's 32 k lie in one group (group_size % 32 == 0)
+      const int g = kl / group_size;
+      const bool real = g < num_groups;
+      const float s = real ? scales[(size_t)g * n + row] : 0.f;
+      const float z = real ? zeros[(size_t)g * n + row] : 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) acc[i] += p[i] * s + sx[i] * z;
+    }
+    wv = wnext;
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float v = acc[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0 && m0 + i < m) store_out(y + (size_t)(m0 + i) * n + row, v);
+  }
+}
+
+template <int MT, bool FUSED>
+void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros,
+               const void* lut, void* y, int m, int n, int k, int kw, int group_size,
+               int num_groups, int lut_stride, int out_dtype, cudaStream_t stream) {
+  const dim3 grid((n + kWarps - 1) / kWarps, (m + MT - 1) / MT);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* cb = static_cast<const int32_t*>(codes);
+  const auto* sb = static_cast<const float*>(scales);
+  const auto* zb = static_cast<const float*>(zeros);
+  const auto* lb = static_cast<const float*>(lut);
+  switch (out_dtype) {
+    case 0:
+      q4_lut_kernel<MT, FUSED, float><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, lb, static_cast<float*>(y), m, n, k, kw, group_size, num_groups,
+          lut_stride);
+      break;
+    case 1:
+      q4_lut_kernel<MT, FUSED, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, lb, static_cast<__nv_bfloat16*>(y), m, n, k, kw, group_size,
+          num_groups, lut_stride);
+      break;
+    default:
+      q4_lut_kernel<MT, FUSED, __half><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, lb, static_cast<__half*>(y), m, n, k, kw, group_size, num_groups,
+          lut_stride);
+      break;
+  }
+}
+
+template <bool FUSED>
+int launch(const void* x, const void* codes, const void* scales, const void* zeros,
+           const void* lut, void* y, int m, int n, int k, int kw, int group_size,
+           int num_groups, int lut_stride, int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 1)
+    launch_mt<1, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                        lut_stride, out_dtype, s);
+  else if (m <= 2)
+    launch_mt<2, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                        lut_stride, out_dtype, s);
+  else if (m <= 4)
+    launch_mt<4, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                        lut_stride, out_dtype, s);
+  else if (m <= 8)
+    launch_mt<8, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                        lut_stride, out_dtype, s);
+  else
+    launch_mt<16, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                         lut_stride, out_dtype, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// out_dtype: 0 float32, 1 bfloat16, 2 float16.
+int q4_lut_post(const void* x, const void* codes, const void* scales, const void* zeros,
+                const void* lut, void* y, int m, int n, int k, int kw, int group_size,
+                int num_groups, int lut_stride, int out_dtype, void* stream) {
+  return launch<false>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                       lut_stride, out_dtype, stream);
+}
+
+int q4_lut_fused(const void* x, const void* codes, const void* scales, const void* zeros,
+                 const void* lut, void* y, int m, int n, int k, int kw, int group_size,
+                 int num_groups, int lut_stride, int out_dtype, void* stream) {
+  return launch<true>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                      lut_stride, out_dtype, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,140 @@
+"""4-bit code layouts: the port's own Hopper layout, and numpy copies of the
+TPU layouts used only to carry JAX tensors and checkpoints across.
+
+**The Hopper layout** (:func:`pack_codes` / :func:`unpack_codes`), read by
+both CUDA kernels in ``csrc/q4_lut_gemv.cu``:
+
+- codes ``[n, k]`` in ``[0, 15]`` become int32 words ``[n, kp/8]``, row
+  major, one weight row per packed row;
+- word ``w`` of a row holds the codes of **8 consecutive k**: nibble ``j``
+  (bits ``4j .. 4j+3``) is the code of ``k = 8*w + j``;
+- ``k`` is zero-padded to ``kp``, a multiple of ``PACK_BLOCK = 1024``: one
+  warp of the kernels reads 1024 codes of a row with one 16-byte load per
+  lane (4 words = 32 consecutive k per lane);
+- padded codes are 0 and the padded groups' scales and zeros are 0, so a
+  padded weight reconstructs to exactly 0.0 and adds nothing.
+
+``kp`` is the same padded length as the TPU layouts', so the group scales
+and zeros ``[kp/g, n]`` carry across unchanged.
+
+**TPU layouts** (numpy only; the CUDA kernels never read them):
+
+- :func:`unpack_int4` / :func:`pack_int4`: ``any4_tpu`` planar row layout
+  ``[n, kp/8]``; within each 1024-block, nibble ``j`` of lane word ``l``
+  holds ``k = block*1024 + j*128 + l``;
+- :func:`unpack_int4_transposed` / :func:`pack_int4_transposed`: the
+  transposed layout ``[kp/8, n]``; within each 128-wide group, word row
+  ``K`` (of 16) holds in nibble ``p`` the code of ``k = g*128 + p*16 + K``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PACK_BLOCK = 1024     # k per padded block (one warp-wide load of a row)
+CODES_PER_WORD = 8    # nibbles per int32
+LANES = 128           # TPU layouts: 128-wide k planes
+
+
+def padded_k(k: int) -> int:
+    return -(-k // PACK_BLOCK) * PACK_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# The Hopper layout (torch)
+# ---------------------------------------------------------------------------
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Codes ``[n, k]`` (values 0..15) -> int32 words ``[n, kp/8]`` with
+    8 consecutive k per word, nibble ``j`` = ``k % 8``."""
+    n, k = codes.shape
+    kp = padded_k(k)
+    c = torch.zeros((n, kp), dtype=torch.int64, device=codes.device)
+    c[:, :k] = codes.to(torch.int64)
+    c = c.reshape(n, kp // CODES_PER_WORD, CODES_PER_WORD)
+    shifts = 4 * torch.arange(CODES_PER_WORD, device=codes.device)
+    words = (c << shifts).sum(dim=-1)                  # [0, 2^32)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32)
+
+
+def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`; returns uint8 codes ``[n, k]``."""
+    n, kw = packed.shape
+    shifts = 4 * torch.arange(CODES_PER_WORD, device=packed.device,
+                              dtype=torch.int32)
+    c = (packed[:, :, None] >> shifts) & 0xF          # [n, kw, 8]
+    return c.reshape(n, kw * CODES_PER_WORD)[:, :k].to(torch.uint8)
+
+
+def pad_groups(a: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
+    """Zero-pad per-group arrays ``[n, k/g]`` to cover ``padded_k(k)``."""
+    gp = padded_k(k) // group_size
+    if a.shape[1] == gp:
+        return a
+    out = torch.zeros((a.shape[0], gp), dtype=a.dtype, device=a.device)
+    out[:, :a.shape[1]] = a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TPU layouts (numpy; import/export of JAX tensors and checkpoints only)
+# ---------------------------------------------------------------------------
+
+def _pad_np(codes: np.ndarray) -> np.ndarray:
+    n, k = codes.shape
+    c = np.zeros((n, padded_k(k)), np.uint32)
+    c[:, :k] = codes
+    return c
+
+
+def _to_int32(words: np.ndarray) -> np.ndarray:
+    return words.astype(np.uint32).view(np.int32)
+
+
+def pack_int4(codes: np.ndarray) -> np.ndarray:
+    """TPU planar row layout ``[n, kp/8]`` (``any4_tpu`` ``pack_int4``)."""
+    c = _pad_np(codes)
+    n, kp = c.shape
+    c = c.reshape(n, kp // PACK_BLOCK, CODES_PER_WORD, LANES)
+    shifts = (4 * np.arange(CODES_PER_WORD, dtype=np.uint32))[None, None, :,
+                                                                None]
+    words = np.bitwise_or.reduce(c << shifts, axis=2)
+    return _to_int32(words.reshape(n, kp // CODES_PER_WORD))
+
+
+def unpack_int4(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int4`; uint8 codes ``[n, k]``."""
+    n, kw = packed.shape
+    kp = kw * CODES_PER_WORD
+    words = np.asarray(packed).view(np.uint32).reshape(
+        n, kp // PACK_BLOCK, 1, LANES)
+    shifts = (4 * np.arange(CODES_PER_WORD, dtype=np.uint32))[None, None, :,
+                                                                None]
+    c = (words >> shifts) & 0xF
+    return c.reshape(n, kp)[:, :k].astype(np.uint8)
+
+
+def pack_int4_transposed(codes: np.ndarray) -> np.ndarray:
+    """TPU transposed layout ``[kp/8, n]`` (``any4_tpu``
+    ``pack_int4_transposed``)."""
+    c = _pad_np(codes)
+    n, kp = c.shape
+    c = c.reshape(n, kp // LANES, CODES_PER_WORD, 16)    # k = g*128+p*16+K
+    c = c.transpose(1, 3, 2, 0)                           # [g, K, p, n]
+    shifts = (4 * np.arange(CODES_PER_WORD, dtype=np.uint32))[None, None, :,
+                                                                None]
+    words = np.bitwise_or.reduce(c << shifts, axis=2)    # [g, 16, n]
+    return _to_int32(words.reshape(kp // CODES_PER_WORD, n))
+
+
+def unpack_int4_transposed(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int4_transposed`; uint8 codes ``[n, k]``."""
+    kw, n = packed.shape
+    kp = kw * CODES_PER_WORD
+    words = np.asarray(packed).view(np.uint32).reshape(kp // LANES, 16, 1, n)
+    shifts = (4 * np.arange(CODES_PER_WORD, dtype=np.uint32))[None, None, :,
+                                                                None]
+    c = (words >> shifts) & 0xF                           # [g, K, p, n]
+    c = c.transpose(3, 0, 2, 1)                           # [n, g, p, K]
+    return c.reshape(n, kp)[:, :k].astype(np.uint8)

@@ -1,0 +1,71 @@
+"""The port stands alone: importing any of its modules loads neither JAX
+nor the JAX package, and every entry point runs on the GPU unless asked."""
+import ast
+import inspect
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+import any4_tpu_torch
+from any4_tpu_torch import convert
+from any4_tpu_torch.models import checkpoint, generate, llama
+from any4_tpu_torch.quant import api
+
+PKG_DIR = os.path.dirname(any4_tpu_torch.__file__)
+REPO = os.path.dirname(PKG_DIR)
+
+
+def _modules():
+    return ["any4_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages([PKG_DIR], "any4_tpu_torch.")]
+
+
+def test_import_loads_no_jax():
+    code = ("import importlib, json, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'any4_tpu'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sources_import_no_jax():
+    bad = []
+    for root, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            tree = ast.parse(open(path).read(), path)
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                bad += [(path, n) for n in names
+                        if n.split(".")[0] in ("jax", "jaxlib", "any4_tpu",
+                                               "flax", "optax")]
+    assert bad == []
+
+
+@pytest.mark.parametrize("fn", [llama.init_params, api.quantize_model,
+                                generate.generate, checkpoint.load_params,
+                                convert.from_jax_params])
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_fails_loudly_without_gpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        llama.init_params(llama.LlamaConfig.tiny())
