@@ -42,7 +42,7 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[str(name).replace("torch.", "")]
 
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
     """A numpy leaf as a tensor; uint16 (or a numpy bfloat16) is bf16."""
     a = np.array(a)     # a writable, contiguous copy
     if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
@@ -69,7 +69,7 @@ def _check_fmt(fmt: str, row_shards: int) -> None:
             f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
 
 
-def qt_from_jax(d: dict, device="cpu") -> QuantizedTensor:
+def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
     """A JAX ``QuantizedTensor`` (as a dict of numpy fields) in the port's
     layout."""
     fmt = d["fmt"]

@@ -31,9 +31,15 @@ _I = ctypes.c_int
 # int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
 #        num_groups, lut_stride, out_dtype, stream)
 _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# int fn(q, k, ks, v, vs, seq_lens, table, out, b, h, rep, d, tokens, ps,
+#        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, stream)
+_FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
 KERNELS = {
     "q4_lut_gemv.cu": {"q4_lut_post": _Q4_ARGTYPES,
                        "q4_lut_fused": _Q4_ARGTYPES},
+    "flash_decode.cu": {name: _FLASH_ARGTYPES for name in (
+        "flash_paged_decode", "flash_paged_decode_q8",
+        "flash_contig_decode", "flash_contig_decode_q8")},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -7,7 +7,8 @@ Phases, each printing JSON lines:
 
 1. setup: the card's ``nvidia-smi`` name and power limit, the torch and CUDA
    versions, and the time to build the CUDA kernels from
-   ``any4_tpu_torch/ops/csrc`` with nvcc.
+   ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
+   parallel).
 2. kernels: kernel A (``q4_lut_post``, g=128) and kernel B
    (``q4_lut_fused``, g=64) at Llama-3.2-1B's linear shapes and m in
    {1, 16, 128}, each held against its plain PyTorch version on the card
@@ -18,7 +19,17 @@ Phases, each printing JSON lines:
    could take (``bound_ms``). Then both kernels on edge cases (odd n and
    k, a misaligned x, float32/float16 outputs, a global LUT) against their
    plain versions.
-3. main path: Llama-3.2-1B at full width and all 16 layers (``--layers``
+3. attention_kernel: the four decode-attention kernels
+   (``flash_paged_decode``/``_q8``, ``flash_contig_decode``/``_q8``) at the
+   1B serving shapes (8 kv heads, rep 4, head_dim 64, page size 16, bf16 q)
+   for b in {1, 8} at a context of 2048 and b=8 at 8192, each held against
+   its plain version (bf16 pools within 1e-2 * max, int8 pools within
+   2e-2 * max, one float32 case each within 1e-4 * max), timed as in 2,
+   beside one ``scaled_dot_product_attention`` over a prebuilt dense bf16
+   view as the yardstick; then edge cases (a seq_len of 1, seq_len equal to
+   the bucket, one not a multiple of the page size, an inactive slot on the
+   sink page, head_dim 128).
+4. main path: Llama-3.2-1B at full width and all 16 layers (``--layers``
    cuts the depth), bf16 weights from ``init_params(seed=0)``, quantized by
    ``quantize_model(fmt="any4", group_size=128, kmeans_iters=10)``; its
    prefill logits with float32 activations are held within 2e-2 * max of
@@ -27,9 +38,22 @@ Phases, each printing JSON lines:
    and 4. Kernel A must launch exactly 112 times (16 layers x 7 linears) per
    forward; the dense bf16 model's decode figures are printed beside.
    Then the same entry points at g=64, which runs kernel B (2 layers).
-4. the ``nvidia-smi`` name and power line again, then the line
+5. serving: the same any4 model behind ``serving.engine.Engine`` (8 slots,
+   max_ctx 2048, page size 16) serves 12 seeded prompts of 16-1000 tokens
+   for 32 new tokens each, in each of paged/contig x bf16/int8 pools, once
+   with ``run(burst=1)`` and once with ``run(burst=8, pipeline=True)``.
+   Checks: every request gives 32 tokens in the vocabulary; the
+   combination's attention kernel launches 16 x (decode steps), the other
+   three 0, kernel A 112 x (decode steps + prefill chunks of up to
+   ``FUSED_M_MAX`` rows); both runs give the same tokens; and a
+   teacher-forced decode step with float32 activations over the engine's
+   pool is within 2e-2 * max (5e-2 for int8 pools) of ``decode_step`` over
+   a dense float32 cache at 3 positions. Prints tokens per second, ms per
+   decode step, prefill ms, peak memory and the device's busy share
+   (``torch.profiler`` over 8 steps at 8 active slots).
+6. the ``nvidia-smi`` name and power line again, then the line
    ``{"kernels": [...]}``, one entry per kernel.
-5. ``{"ok": true, "device": {...}}`` as the last line.
+7. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -45,6 +69,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 data-sheet peaks (SXM part, dense, at the 700 W limit); the PCIe
@@ -64,6 +89,24 @@ KERNELS = {
 SOURCE = "any4_tpu_torch/ops/csrc/q4_lut_gemv.cu"
 PROMPT_LEN = 64
 NEW_TOKENS = 64
+# decode attention: (layout, int8 pool, the TPU kernel it replaces)
+ATTN_KERNELS = {
+    "flash_paged_decode": ("paged", False, (
+        "any4_tpu/serving/kv_cache.py:259 _flash_decode_kernel")),
+    "flash_paged_decode_q8": ("paged", True, (
+        "any4_tpu/serving/kv_cache.py:233 _flash_decode_kernel_q")),
+    "flash_contig_decode": ("contig", False, (
+        "any4_tpu/serving/kv_cache.py:461 _flash_contig_kernel")),
+    "flash_contig_decode_q8": ("contig", True, (
+        "any4_tpu/serving/kv_cache.py:470 _flash_contig_kernel_q")),
+}
+ATTN_SOURCE = "any4_tpu_torch/ops/csrc/flash_decode.cu"
+ATTN_HEADS, ATTN_REP, ATTN_HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16   # 1B serving
+ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
+ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
+F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
+SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
 
 
 def emit(obj) -> None:
@@ -203,6 +246,162 @@ def edge_cases(gemv, packing):
                           f"{name} edge n={n} k={k} m={m} g={g} "
                           f"lut_rows={lut_rows} {out}: {err} > {tol}")
                     cases += 1
+    return cases
+
+
+def attn_inputs(kvc, name, b, ctx, gen, pool_dtype, q_dtype, lens=None,
+                sink_slots=(), h=ATTN_HEADS, rep=ATTN_REP, d=ATTN_HEAD_DIM):
+    """(wrapper, plain version, arguments) of one attention kernel: random
+    pools in the engine's layout (int8 ones written by ``to_int8`` from
+    float), bucket ``ctx``, every slot at full length unless ``lens``; in
+    the paged layout a shuffled page table, with ``sink_slots`` on page 0."""
+    layout, q8, _ = ATTN_KERNELS[name]
+    pps = ctx // PAGE_SIZE
+    P = b * pps + 1
+    shape = (h, P, PAGE_SIZE, d) if layout == "paged" else (h, b * ctx, d)
+
+    def pool():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if q8:
+            amax = x.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+            return (kvc.to_int8(x, amax), amax[..., 0].contiguous())
+        return x.to(pool_dtype)
+    k, v = pool(), pool()
+    q = torch.randn((b, h * rep, d), generator=gen, device="cuda").to(q_dtype)
+    lens = torch.tensor([ctx] * b if lens is None else lens,
+                        dtype=torch.int32, device="cuda")
+    if layout == "contig":
+        return (kvc.flash_contig_decode, kvc.flash_contig_decode_plain,
+                (q, k, v, lens, ctx, ctx))
+    table = (torch.randperm(P - 1, generator=gen, device="cuda")[:b * pps]
+             + 1).reshape(b, pps).to(torch.int32)
+    table[list(sink_slots)] = 0
+    return (kvc.flash_paged_decode, kvc.flash_paged_decode_plain,
+            (q, k, v, lens, table))
+
+
+def sdpa_yardstick(kvc, args):
+    """One ``scaled_dot_product_attention`` (GQA, boolean length mask) over
+    a dense bf16 ``[b, h, ctx, d]`` view of the same pools, dequantized for
+    int8, built here once: the call the port never makes, for
+    ``library_ms``."""
+    q, k, v, lens = args[:4]
+    if len(args) == 5:                            # paged: gather the table
+        kd, vd = (kvc.gather_ctx_hmajor(p, args[4]) for p in (k, v))
+    else:
+        ctx = args[4]
+
+        def view(p):
+            if isinstance(p, tuple):
+                h = p[0].shape[0]
+                return kvc.from_int8(p[0].reshape(h, -1, ctx, p[0].shape[-1]),
+                                     p[1].reshape(h, -1, ctx)[..., None])
+            return p.reshape(p.shape[0], -1, ctx, p.shape[-1])
+        kd, vd = view(k), view(v)
+    kd, vd = (t.permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
+              for t in (kd, vd))
+    qd = q.to(torch.bfloat16)[:, :, None, :].contiguous()
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)
+
+
+def attn_bound(name, args, bw):
+    """(least ms, bound_by, bytes, flops) for these inputs: the K and V rows
+    (and int8 scales) of the live positions, the table entries they use,
+    q, the output and seq_lens, each read or written once, over the memory
+    rate; 4 * rep * d flops per live position and head over the float32
+    rate."""
+    layout, q8, _ = ATTN_KERNELS[name]
+    q, k = args[0], args[1]
+    kc = k[0] if q8 else k
+    b, nq, d = q.shape
+    h = kc.shape[0]
+    ctx = args[4].shape[1] * PAGE_SIZE if layout == "paged" else args[4]
+    live = [min(int(n), ctx) for n in args[3].tolist()]
+    toks = sum(live)
+    nbytes = 2 * toks * h * d * kc.element_size() + 2 * q.numel() * \
+        q.element_size() + 4 * b
+    nbytes += 2 * toks * h * 4 if q8 else 0
+    nbytes += 4 * sum(-(-n // PAGE_SIZE) for n in live) \
+        if layout == "paged" else 0
+    flops = 4 * toks * nq * d
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def attention_phase(kvc, timer, bw):
+    """Each attention kernel against its plain version at the 1B serving
+    shapes, with its times; and one float32 case each."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, (layout, q8, _) in ATTN_KERNELS.items():
+        pool_dtype = torch.int8 if q8 else torch.bfloat16
+        tol = 2e-2 if q8 else 1e-2
+        for b, ctx in ATTN_CASES:
+            fn, plain, args = attn_inputs(kvc, name, b, ctx, gen, pool_dtype,
+                                          torch.bfloat16)
+            y, ref = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            check(bool(torch.isfinite(y).all()) and err <= tol * scale,
+                  f"{name} b={b} ctx={ctx}: |kernel - plain| {err} > "
+                  f"{tol} * {scale}")
+            bound, by, nbytes, flops = attn_bound(name, args, bw)
+            row = {"phase": "attention_kernel", "name": name, "b": b,
+                   "ctx": ctx, "h": ATTN_HEADS, "rep": ATTN_REP,
+                   "d": ATTN_HEAD_DIM, "page_size": PAGE_SIZE,
+                   "pool": str(pool_dtype), "q": "torch.bfloat16",
+                   "ms": timer(lambda: fn(*args)),
+                   "plain_ms": timer(lambda: plain(*args), reps=3),
+                   "library_ms": timer(sdpa_yardstick(kvc, args)),
+                   "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                   "flops": flops, "max_abs_err": err, "rel_err": err / scale,
+                   "bar": tol}
+            row["gb_per_s"] = nbytes / row["ms"] / 1e6
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            emit(row)
+            rows.append(row)
+            del args
+        # float32: f32 pools (int8 ones stay int8) and f32 q
+        fn, plain, args = attn_inputs(kvc, name, *ATTN_TIMED, gen,
+                                      torch.int8 if q8 else torch.float32,
+                                      torch.float32)
+        err = rel_err(fn(*args), plain(*args))
+        check(err <= 1e-4, f"{name} float32: {err} > 1e-4 of max")
+        emit({"phase": "attention_kernel_f32", "name": name,
+              "b": ATTN_TIMED[0], "ctx": ATTN_TIMED[1], "rel_err": err,
+              "bar": 1e-4})
+    return rows
+
+
+def attention_edge_cases(kvc):
+    """The four kernels on lengths of 1, of the whole bucket and of no
+    whole number of pages, an inactive slot on the sink page (paged), and
+    head_dim 128, against their plain versions: float32 q within
+    1e-4 * max, bf16 q within 1e-2 * max (2e-2 for int8 pools)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = 0
+    for name, (layout, q8, _) in ATTN_KERNELS.items():
+        for h, rep, d, ctx, lens in ((8, 4, 64, 256, [1, 256, 37, 1]),
+                                     (2, 2, 128, 128, [5, 128, 100])):
+            for q_dtype, pool_dtype, tol in (
+                    (torch.float32, torch.float32, 1e-4),
+                    (torch.bfloat16, torch.bfloat16, 2e-2 if q8 else 1e-2)):
+                fn, plain, args = attn_inputs(
+                    kvc, name, len(lens), ctx, gen, pool_dtype, q_dtype,
+                    lens=lens, sink_slots=(3,) if len(lens) == 4 else (),
+                    h=h, rep=rep, d=d)
+                y = fn(*args)
+                err = rel_err(y, plain(*args))
+                check(y.shape == args[0].shape and y.dtype == q_dtype
+                      and bool(torch.isfinite(y).all()) and err <= tol,
+                      f"{name} edge h={h} rep={rep} d={d} lens={lens} "
+                      f"{q_dtype}: {err} > {tol}")
+                cases += 1
     return cases
 
 
@@ -398,7 +597,7 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
           "any4_profile_b1": prof, "dense_bf16_profile_b1": dense_prof,
           "greedy_agreement_with_dense_b1": agree,
           "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
-    del params, qparams
+    del params          # the serving phase reuses qparams
     torch.cuda.empty_cache()
 
     # the same entry points at g=64 run kernel B (depth cut to 2 layers)
@@ -416,7 +615,179 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
           "g=64 tokens in vocab")
     emit({"phase": "main_path_g64", "layers": 2, "new_tokens": 16,
           "launches": launches_b})
-    return launches, launches_b
+    del qb
+    return launches, launches_b, qparams, cfg
+
+
+def serve(teng, qparams, cfg, prompts, layout, q8, run_kw):
+    """One engine run of ``prompts``: (tokens per request in submission
+    order, the engine, host seconds ending in a synchronize)."""
+    e = teng.Engine(qparams, cfg, max_slots=SERVE_SLOTS,
+                    max_ctx=SERVE_MAX_CTX, page_size=PAGE_SIZE,
+                    kv_quantize=q8, kv_layout=layout, device="cuda")
+    uids = [e.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {r.uid: r.out_tokens for r in e.run(**run_kw)}
+    torch.cuda.synchronize()
+    return [done[u] for u in uids], e, time.perf_counter() - t0
+
+
+def teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32, layout, q8,
+                   gen, t=120, forced=3):
+    """Max over 3 positions of |logits - ref| / max|ref|: the engine's
+    ``_decode_impl`` over its pool (bf16 or int8) after its
+    ``_prefill_impl``, against ``decode_step`` over a dense float32 cache
+    after ``prefill``, on the same forced tokens, float32 activations."""
+    vocab = cfg32.vocab_size
+    prompt = torch.randint(0, vocab, (1, t), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    toks = torch.randint(0, vocab, (forced,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    pps = 8                                       # 128 positions >= bucket
+    pages = pps + (0 if layout == "contig" else 1)
+    cache = kvc.PagedKVCache.create(cfg32, pages, PAGE_SIZE,
+                                    dtype=torch.bfloat16, quantize=q8,
+                                    device="cuda")
+    alloc = kvc.PageAllocator(pages, 1, pps, contiguous=layout == "contig")
+    check(alloc.ensure(0, t + forced + 1, PAGE_SIZE), "teacher-forced pages")
+    table = torch.from_numpy(alloc.table.copy()).cuda()
+    padded = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+    padded[:, :t] = prompt
+    teng._prefill_impl(params32, cfg32, padded, t, cache.k_pages,
+                       cache.v_pages, table[0], PAGE_SIZE, kv_layout=layout)
+    caches = llama.init_kv_caches(cfg32, 1, t + forced, device="cuda")
+    gen_mod.prefill(params32, cfg32, prompt.long(), caches)
+    errs = []
+    for i in range(forced):
+        tok = toks[i:i + 1]
+        got = teng._decode_impl(
+            params32, cfg32, tok, torch.tensor([t + i], dtype=torch.int32,
+                                               device="cuda"),
+            table, cache.k_pages, cache.v_pages, PAGE_SIZE, kv_layout=layout)
+        ref, _ = gen_mod.decode_step(params32, cfg32, tok, t + i, caches)
+        errs.append(rel_err(got, ref))
+    return max(errs)
+
+
+def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
+    """ms per decode step (host clock, synchronized) over ``steps`` single
+    steps at 8 active slots, the device time of as many steps from
+    ``torch.profiler`` and their ratio, and the host time of a prefill of
+    the shortest and the longest prompt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    e = teng.Engine(qparams, cfg, max_slots=SERVE_SLOTS,
+                    max_ctx=SERVE_MAX_CTX, page_size=PAGE_SIZE,
+                    kv_quantize=q8, kv_layout=layout, device="cuda")
+    for p in prompts[:SERVE_SLOTS]:
+        e.submit(p, max_new_tokens=4 * steps)
+    e.step()                                      # admits all 8, one step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        e.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            e.step()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:       # kernels, not host ops
+            per_kernel[ev.key] = (per_kernel.get(ev.key, 0.0)
+                                  + ev.self_device_time_total)
+    device_ms = sum(per_kernel.values()) / 1e3 / steps
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    prefill = {}
+    for p in (min(prompts, key=len), max(prompts, key=len)):
+        L = e._bucket(len(p))
+        padded = torch.zeros((1, L), dtype=torch.int32, device="cuda")
+        padded[0, :len(p)] = torch.from_numpy(p).cuda()
+        row = torch.from_numpy(e.alloc.table[0].copy()).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        teng._prefill_impl(qparams, cfg, padded, len(p), e.cache.k_pages,
+                           e.cache.v_pages, row, PAGE_SIZE, kv_layout=layout)
+        torch.cuda.synchronize()
+        prefill[f"prompt_{len(p)}_bucket_{L}"] = \
+            (time.perf_counter() - t0) * 1e3
+    return {"ms_per_decode_step_8_slots": step_ms,
+            "decode_tok_s_8_slots": SERVE_SLOTS * 1e3 / step_ms,
+            "device_ms_per_step": device_ms,
+            "busy_share": device_ms / step_ms, "prefill_ms": prefill,
+            "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
+                                        for k, v in top}}
+
+
+def serving_phase(qparams, cfg, gemv, kvc, teng, llama, gen_mod, linear):
+    """The engine at full width and depth in the four pool combinations;
+    see the module docstring (phase 5) for what is checked."""
+    rng = np.random.RandomState(5)
+    lens = rng.randint(16, 1001, size=SERVE_REQUESTS)
+    if lens.max() <= 512:
+        lens[0] = 900
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    per_forward = cfg.num_hidden_layers * 7
+    params32 = to_float32(qparams, linear)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    launches = {}
+    for name, (layout, q8, _) in ATTN_KERNELS.items():
+        torch.cuda.reset_peak_memory_stats()
+        out, runs = {}, {}
+        for mode, run_kw in (("burst1", dict(burst=1)),
+                             ("burst8_pipeline", dict(burst=8,
+                                                      pipeline=True))):
+            gemv.reset_launches()
+            kvc.reset_launches()
+            out[mode], e, wall = serve(teng, qparams, cfg, prompts, layout,
+                                       q8, run_kw)
+            count = {**gemv.LAUNCHES, **kvc.LAUNCHES}
+            chunks = sum(-(-e._bucket(len(p)) // linear.FUSED_M_MAX)
+                         for p in prompts)
+            steps = e.decode_steps
+            check(all(len(t) == SERVE_NEW_TOKENS and
+                      all(0 <= x < cfg.vocab_size for x in t)
+                      for t in out[mode]),
+                  f"{name} {mode}: every request gives {SERVE_NEW_TOKENS} "
+                  f"tokens in the vocabulary")
+            check(count[name] == cfg.num_hidden_layers * steps and all(
+                count[other] == 0 for other in ATTN_KERNELS if other != name),
+                  f"{name} {mode}: attention launches {count} for {steps} "
+                  f"decode steps")
+            check(count["q4_lut_post"] == per_forward * (steps + chunks)
+                  and count["q4_lut_fused"] == 0,
+                  f"{name} {mode}: kernel A launches {count['q4_lut_post']} "
+                  f"!= {per_forward} x ({steps} steps + {chunks} prefill "
+                  f"chunks)")
+            runs[mode] = {"launches": count, "decode_steps": steps,
+                          "prefill_chunks": chunks, "wall_s": wall,
+                          "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
+            if mode == "burst1":
+                launches[name] = count[name]
+            del e
+        check(out["burst1"] == out["burst8_pipeline"],
+              f"{name}: run(burst=8, pipeline=True) tokens differ from "
+              f"run(burst=1)")
+        bar = 5e-2 if q8 else 2e-2
+        forced = teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32,
+                                layout, q8, gen)
+        check(forced <= bar, f"{name}: teacher-forced decode logits {forced} "
+              f"> {bar} of max from decode_step over a dense f32 cache")
+        emit({"phase": "serving", "kernel": name, "kv_layout": layout,
+              "kv_int8": q8, "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
+              "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
+              "prompt_lens": lens.tolist(), "new_tokens": SERVE_NEW_TOKENS,
+              "runs": runs, "burst8_pipeline_equals_burst1": True,
+              "teacher_forced_rel_err": forced, "teacher_forced_bar": bar,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              **serving_figures(teng, qparams, cfg, prompts, layout, q8)})
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -431,6 +802,7 @@ def main():
     from any4_tpu_torch.models import generate as gen_mod, llama
     from any4_tpu_torch.ops import build, gemv, linear, packing
     from any4_tpu_torch.quant import api
+    from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,9 +821,17 @@ def main():
           "bandwidth_bytes_per_s": bw, "bf16_flops_per_s": peak,
           "peaks_from": f"NVIDIA data sheet, {peak_name} (SXM unless PCIe)"})
 
-    rows = kernel_phase(gemv, packing, linear, Timer(), bw, peak)
+    timer = Timer()
+    rows = kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "kernel_edge_cases", "passed": edge_cases(gemv, packing)})
-    launches, launches_b = main_path(args, gemv, llama, gen_mod, api, linear)
+    attn_rows = attention_phase(kvc, timer, bw)
+    emit({"phase": "attention_edge_cases",
+          "passed": attention_edge_cases(kvc)})
+    del timer
+    launches, launches_b, qparams, cfg = main_path(args, gemv, llama,
+                                                   gen_mod, api, linear)
+    attn_launches = serving_phase(qparams, cfg, gemv, kvc, teng, llama,
+                                  gen_mod, linear)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -466,6 +846,21 @@ def main():
             "library_ms": summary["library_ms"],
             "timed_as": "sum over one 1B decoder layer's 7 linears at m=1",
             "group_size": spec["group_size"]})
+    for name, (layout, q8, replaces) in ATTN_KERNELS.items():
+        r = next(r for r in attn_rows if r["name"] == name
+                 and (r["b"], r["ctx"]) == ATTN_TIMED)
+        kernels.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": replaces, "launches": attn_launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in attn_rows
+                               if x["name"] == name),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "timed_as": (f"one call at b={ATTN_TIMED[0]}, ctx="
+                         f"{ATTN_TIMED[1]}, {ATTN_HEADS} kv heads, rep "
+                         f"{ATTN_REP}, d={ATTN_HEAD_DIM}; launches from "
+                         f"the engine's run(burst=1) in the {layout} "
+                         f"{'int8' if q8 else 'bf16'} combination")})
     print(smi, flush=True)      # the card's name and power limit
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -67,7 +67,7 @@ def test_qt_round_trip(fmt, g, layout):
 def test_dense_bf16_round_trip():
     a = jnp.asarray(np.random.default_rng(1).standard_normal((5, 7)),
                     jnp.bfloat16)
-    t = convert.tensor_from_numpy(jax_to_numpy(a))
+    t = convert.tensor_from_numpy(jax_to_numpy(a), device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(a.astype(jnp.float32)))

@@ -14,6 +14,7 @@ import any4_tpu_torch
 from any4_tpu_torch import convert
 from any4_tpu_torch.models import checkpoint, generate, llama
 from any4_tpu_torch.quant import api
+from any4_tpu_torch.serving import engine, kv_cache
 
 PKG_DIR = os.path.dirname(any4_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -58,7 +59,11 @@ def test_sources_import_no_jax():
 
 @pytest.mark.parametrize("fn", [llama.init_params, api.quantize_model,
                                 generate.generate, checkpoint.load_params,
-                                convert.from_jax_params])
+                                convert.from_jax_params,
+                                convert.tensor_from_numpy,
+                                convert.qt_from_jax,
+                                kv_cache.PagedKVCache.create,
+                                engine.Engine.__init__])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
