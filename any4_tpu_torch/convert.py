@@ -7,13 +7,16 @@ the JAX package:
   ``uint16`` array (as ``any4_tpu/models/checkpoint.py`` stores it), and an
   array whose dtype is named ``bfloat16`` is read the same way;
 - a JAX ``QuantizedTensor`` is a dict of its numpy fields (``packed``,
-  ``scales``, ``zeros``, ``lut``) plus ``fmt``, ``group_size``, ``shape``
-  and optionally ``dtype`` and ``row_shards``.
+  ``scales``, ``zeros``, ``lut``; ``lut`` is None for the integer formats)
+  plus ``fmt``, ``group_size``, ``shape`` and optionally ``dtype`` and
+  ``row_shards``.
 
 Quantized weights are unpacked from their TPU layout to codes and repacked
 in the port's layout (:mod:`any4_tpu_torch.ops.packing`); the scales and
 zeros ``[kp/g, n]`` are the same arrays in both packages, and the LUT is
-turned to ``[n, 16]``/``[1, 16]``.
+turned to ``[n, 16]``/``[1, 16]``. The TPU layouts: planar ``[n, kp/8]``
+for ``any4``/``nf4``/``fp4``/``int4``, transposed ``[kp/8, n]`` for the
+``t`` formats, pair words for ``int4p`` and quad words for ``w4a8``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from .ops import packing
-from .ops.linear import LUT_FMTS, QuantizedTensor
+from .ops.linear import FMTS, QuantizedTensor
 
 QT_FIELDS = ("packed", "scales", "zeros", "lut")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -64,9 +67,17 @@ def _check_fmt(fmt: str, row_shards: int) -> None:
         raise NotImplementedError(
             "row_shards != 1 weights are not ported yet (ROADMAP queue 1, "
             "item 12)")
-    if fmt not in LUT_FMTS:
+    if fmt not in FMTS:
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
+
+
+# format -> (unpack, pack) of its TPU layout, for the row-major ones
+_TPU_LAYOUTS = {
+    "int4p": (packing.unpack_int4_pair, packing.pack_int4_pair),
+    "w4a8": (packing.unpack_int4_quad, packing.pack_int4_quad),
+}
+_PLANAR = (packing.unpack_int4, packing.pack_int4)
 
 
 def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
@@ -76,18 +87,18 @@ def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
     _check_fmt(fmt, int(d.get("row_shards", 1)))
     n, k = (int(s) for s in d["shape"])
     packed = np.asarray(d["packed"])
-    lut = np.asarray(d["lut"], np.float32)
+    lut = d.get("lut")
+    lut = None if lut is None else np.asarray(lut, np.float32)
     if fmt.endswith("t"):
         kp = packed.shape[0] * packing.CODES_PER_WORD
         codes = packing.unpack_int4_transposed(packed, kp)
         lut = lut.T                                   # [16, n|1] -> [n|1, 16]
     else:
-        kp = packed.shape[1] * packing.CODES_PER_WORD
-        codes = packing.unpack_int4(packed, kp)
+        codes = _TPU_LAYOUTS.get(fmt, _PLANAR)[0](packed, k)
     f32 = (lambda a: tensor_from_numpy(np.asarray(a, np.float32), device))
     return QuantizedTensor(
         packing.pack_codes(torch.from_numpy(codes[:, :k].copy())).to(device),
-        f32(d["scales"]), f32(d["zeros"]), f32(lut),
+        f32(d["scales"]), f32(d["zeros"]), None if lut is None else f32(lut),
         fmt, int(d["group_size"]), (n, k),
         torch_dtype(d.get("dtype", "bfloat16")), 1)
 
@@ -98,12 +109,12 @@ def qt_to_jax(qt: QuantizedTensor) -> dict:
     _check_fmt(qt.fmt, qt.row_shards)
     n, k = qt.shape
     codes = packing.unpack_codes(qt.packed.cpu(), k).numpy()
-    lut = qt.lut.detach().cpu().float().numpy()
+    lut = None if qt.lut is None else qt.lut.detach().cpu().float().numpy()
     if qt.fmt.endswith("t"):
         packed = packing.pack_int4_transposed(codes)
         lut = np.ascontiguousarray(lut.T)             # [16, n|1]
     else:
-        packed = packing.pack_int4(codes)
+        packed = _TPU_LAYOUTS.get(qt.fmt, _PLANAR)[1](codes)
     return {"packed": packed,
             "scales": qt.scales.detach().cpu().numpy(),
             "zeros": qt.zeros.detach().cpu().numpy(),

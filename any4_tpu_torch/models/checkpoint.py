@@ -33,11 +33,12 @@ def save_params(path: str, params: Dict, cfg=None) -> None:
     for name, leaf in _walk_jax(tree):
         if convert.is_jax_qt(leaf):
             for field in convert.QT_FIELDS:
-                put(f"{name}.{field}", leaf[field], str(leaf[field].dtype))
+                if leaf[field] is not None:
+                    put(f"{name}.{field}", leaf[field], str(leaf[field].dtype))
             qt_meta[name] = {
                 "fmt": leaf["fmt"], "group_size": leaf["group_size"],
                 "shape": list(leaf["shape"]), "dtype": leaf["dtype"],
-                "has_lut": True, "row_shards": 1,
+                "has_lut": leaf["lut"] is not None, "row_shards": 1,
             }
         elif leaf is not None:
             put(name, leaf, "bfloat16" if leaf.dtype == np.uint16
@@ -99,12 +100,9 @@ def load_params(path: str, device="cuda") -> Tuple[Dict, "llama.LlamaConfig"]:
 
         consumed = set()
         for qname, m in qt_meta.items():
-            if not m.get("has_lut", True):
-                raise NotImplementedError(
-                    f"{qname}: format {m['fmt']!r} has no LUT and is not "
-                    "ported yet (ROADMAP queue 1, item 8)")
             d = {field: array(f"{qname}.{field}")
-                 for field in convert.QT_FIELDS}
+                 for field in convert.QT_FIELDS
+                 if field != "lut" or m.get("has_lut", True)}
             d.update(fmt=m["fmt"], group_size=m["group_size"],
                      shape=m["shape"], dtype=m.get("dtype", "bfloat16"),
                      row_shards=m.get("row_shards", 1))

@@ -31,12 +31,16 @@ _I = ctypes.c_int
 # int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
 #        num_groups, lut_stride, out_dtype, stream)
 _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# int fn(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+#        x_dtype, out_dtype, stream)
+_W4A8_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # int fn(q, k, ks, v, vs, seq_lens, table, out, b, h, rep, d, tokens, ps,
 #        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, stream)
 _FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
 KERNELS = {
-    "q4_lut_gemv.cu": {"q4_lut_post": _Q4_ARGTYPES,
-                       "q4_lut_fused": _Q4_ARGTYPES},
+    "q4_lut_gemv.cu": {name: _Q4_ARGTYPES for name in (
+        "q4_lut_post", "q4_lut_fused", "q4_int4_magic", "q4_lut_select")},
+    "w4a8_gemv.cu": {"w4a8": _W4A8_ARGTYPES, "w4a8_fused": _W4A8_ARGTYPES},
     "flash_decode.cu": {name: _FLASH_ARGTYPES for name in (
         "flash_paged_decode", "flash_paged_decode_q8",
         "flash_contig_decode", "flash_contig_decode_q8")},

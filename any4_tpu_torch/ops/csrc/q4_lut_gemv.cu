@@ -1,6 +1,6 @@
 // 4-bit LUT matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
 // with W stored as 4-bit codes, a 16-entry lookup table (per row or global) and
-// per-group affine scales/zeros.
+// per-group affine scales/zeros, in four modes of one templated body.
 //
 // Kernel A, q4_lut_post, replaces the TPU kernels any4_tpu/ops/pallas/gemv.py
 // _q4t_kernel (gemv.py:230, transposed layout) and _q4post_kernel (gemv.py:172,
@@ -13,19 +13,33 @@
 // kernel: each weight becomes bf16(LUT[c] * s + z) (one f32 fma, then one
 // rounding to bf16), and the dot with bf16 x accumulates in f32. This keeps the
 // rounding point of dequantize-then-matmul. Group sizes 16, 32, 64 (any
-// multiple of 8 works).
+// multiple of 8 works). Row-layout int4 runs here too, with the ramp LUT
+// c - 8 (global).
+//
+// Kernel C, q4_int4_magic, replaces gemv.py:457 _q4pair_kernel (int4p, the
+// default uniform-int4 format): (w >> 4p) & 0x000F000F | 0x43004300, read as
+// two bf16, is 128 + c for k = 8w+p and 8w+p+4 -- the magic-number dequant of
+// the reference's int4 path (two mask/or steps, no table) -- and the affine
+// runs after the dot on each lane's 32-k partial: y += P*s + sum(x)*(z - 136s),
+// P the f32 sum of bf16 x times 128 + c (exact products). The 128*sum(x)*s
+// terms cancel in f32, as on the TPU. Group sizes that are multiples of 128.
+//
+// Kernel E, q4_lut_select, replaces gemv.py:63 _q4select_kernel: kernel B's
+// function, bf16(LUT[c] * s + z) and the same f32 dot in the same order, with
+// LUT[c] picked from 16 registers by 16 compare-selects instead of a shared
+// table read. On the same operands it equals kernel B bit for bit.
 //
 // Code layout (any4_tpu_torch/ops/packing.py): int32 words [n, kp/8], row
 // major, 8 consecutive k per word (nibble j holds k = 8*word + j), kp a
 // multiple of 1024. Scales and zeros are f32 [kp/g, n]; the LUT is f32 [n, 16]
-// (lut_stride 16) or [1, 16] (lut_stride 0).
+// (lut_stride 16) or [1, 16] (lut_stride 0); kernel C reads no LUT.
 //
 // What bounds them on this card: at m = 1 (decode) the bytes of the weight
 // read once from device memory -- 0.5 B of codes per weight plus 8 B of scale
-// and zero per group and 64 B of LUT per row -- so the least time is those
-// bytes over the memory rate (3.35 TB/s on an H100 SXM). The arithmetic (one
-// LUT lookup and one fma per weight and row of x) is far below the card's
-// rates while m is small.
+// and zero per group and 64 B of LUT per row (none for kernel C) -- so the
+// least time is those bytes over the memory rate (3.35 TB/s on an H100 SXM).
+// The arithmetic (one LUT lookup, or one mask/or, or 16 selects, and one fma
+// per weight and row of x) is far below the card's rates while m is small.
 //
 // What the design does about it:
 //   - one warp per output row; each lane loads 16 bytes (32 consecutive codes)
@@ -37,9 +51,9 @@
 //     8 warps; each lane's 32 k sit in a padded 80-byte slot so the 16-byte
 //     shared loads of a quarter warp hit distinct banks;
 //   - the row's 16 LUT values live in a per-warp shared table: 16 entries in 16
-//     banks, so a lookup never conflicts;
-//   - kernel A applies the affine to the 32-code partial sums, not to each
-//     weight: 2 fmas per 32 codes instead of 32;
+//     banks, so a lookup never conflicts (kernel E keeps them in registers);
+//   - kernels A and C apply the affine to the 32-code partial sums, not to
+//     each weight: 2 fmas per 32 codes instead of 32;
 //   - m is tiled by MT (1, 2, 4, 8 or 16 rows of x, a template parameter) along
 //     grid.y; each m tile reads the weight again, which is the cost of prefill
 //     chunks in this simple design.
@@ -79,6 +93,9 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The four modes of the body.
+enum Mode { kPost = 0, kFused = 1, kMagic = 2, kSelect = 3 };
+
 // Stage x[m0 : m0+MT, k0 : k0+kChunk] (bf16) into shared memory, zero outside
 // [0, m) x [0, k). Shared layout: xs[row][lane][kLaneSlot], lane = kk / 32.
 template <int MT>
@@ -116,14 +133,17 @@ __device__ __forceinline__ uint4 load_codes(const int32_t* __restrict__ row_code
   return *reinterpret_cast<const uint4*>(row_codes + k0 / 8 + lane * 4);
 }
 
-// FUSED = false: kernel A (bf16 LUT, post-dot affine).
-// FUSED = true:  kernel B (per-weight bf16(LUT*s + z)).
-template <int MT, bool FUSED, typename OutT>
+// MODE kPost: kernel A (bf16 LUT, post-dot affine).
+// MODE kFused: kernel B (per-weight bf16(LUT*s + z), LUT read from shared).
+// MODE kMagic: kernel C (128 + c by mask/or, post-dot affine with z - 136s).
+// MODE kSelect: kernel E (kernel B with the LUT read by 16 selects).
+template <int MT, int MODE, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
               const float* __restrict__ scales, const float* __restrict__ zeros,
               const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k,
               int kw, int group_size, int num_groups, int lut_stride) {
+  constexpr bool kPerWeight = MODE == kFused || MODE == kSelect;
   __shared__ __align__(16) __nv_bfloat16 xs[MT * 32 * kLaneSlot];
   __shared__ float lut_s[kWarps][16];
 
@@ -134,9 +154,14 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
   const int kp = kw * 8;
   const bool vec_ok = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
 
-  if (active && lane < 16) {
+  if ((MODE == kPost || MODE == kFused) && active && lane < 16) {
     const float v = lut[(size_t)row * lut_stride + lane];
-    lut_s[warp][lane] = FUSED ? v : round_bf16(v);
+    lut_s[warp][lane] = MODE == kFused ? v : round_bf16(v);
+  }
+  float lreg[16];  // kernel E: the row's LUT in registers
+  if (MODE == kSelect) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) lreg[j] = active ? lut[(size_t)row * lut_stride + j] : 0.f;
   }
 
   const int32_t* row_codes = codes + (size_t)(active ? row : 0) * kw;
@@ -162,14 +187,31 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       float lv[8];
-      if (FUSED) {
+      if (kPerWeight) {
         const int g = (kl + w * 8) / group_size;
         const bool real = g < num_groups;
         const float s = real ? scales[(size_t)g * n + row] : 0.f;
         const float z = real ? zeros[(size_t)g * n + row] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          lv[j] = round_bf16(fmaf(lut_s[warp][(words[w] >> (4 * j)) & 0xF], s, z));
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t c = (words[w] >> (4 * j)) & 0xF;
+          float val;
+          if (MODE == kSelect) {
+            val = 0.f;
+#pragma unroll
+            for (int v = 0; v < 16; ++v) val = c == (uint32_t)v ? lreg[v] : val;
+          } else {
+            val = lut_s[warp][c];
+          }
+          lv[j] = round_bf16(fmaf(val, s, z));
+        }
+      } else if (MODE == kMagic) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t t = ((words[w] >> (4 * q)) & 0x000F000Fu) | 0x43004300u;
+          lv[q] = __uint_as_float(t << 16);              // 128 + c of k = 8w + q
+          lv[q + 4] = __uint_as_float(t & 0xFFFF0000u);  // 128 + c of k = 8w + q + 4
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) lv[j] = lut_s[warp][(words[w] >> (4 * j)) & 0xF];
@@ -183,12 +225,12 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
           const float2 f = __bfloat1622float2(h[t]);
           p[i] = fmaf(f.x, lv[2 * t], p[i]);
           p[i] = fmaf(f.y, lv[2 * t + 1], p[i]);
-          if (!FUSED) sx[i] += f.x + f.y;
+          if (!kPerWeight) sx[i] += f.x + f.y;
         }
       }
     }
 
-    if (FUSED) {
+    if (kPerWeight) {
 #pragma unroll
       for (int i = 0; i < MT; ++i) acc[i] += p[i];
     } else {
@@ -196,7 +238,8 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
       const int g = kl / group_size;
       const bool real = g < num_groups;
       const float s = real ? scales[(size_t)g * n + row] : 0.f;
-      const float z = real ? zeros[(size_t)g * n + row] : 0.f;
+      float z = real ? zeros[(size_t)g * n + row] : 0.f;
+      if (MODE == kMagic) z -= 136.f * s;
 #pragma unroll
       for (int i = 0; i < MT; ++i) acc[i] += p[i] * s + sx[i] * z;
     }
@@ -213,7 +256,7 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
   }
 }
 
-template <int MT, bool FUSED>
+template <int MT, int MODE>
 void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros,
                const void* lut, void* y, int m, int n, int k, int kw, int group_size,
                int num_groups, int lut_stride, int out_dtype, cudaStream_t stream) {
@@ -225,43 +268,43 @@ void launch_mt(const void* x, const void* codes, const void* scales, const void*
   const auto* lb = static_cast<const float*>(lut);
   switch (out_dtype) {
     case 0:
-      q4_lut_kernel<MT, FUSED, float><<<grid, kThreads, 0, stream>>>(
+      q4_lut_kernel<MT, MODE, float><<<grid, kThreads, 0, stream>>>(
           xb, cb, sb, zb, lb, static_cast<float*>(y), m, n, k, kw, group_size, num_groups,
           lut_stride);
       break;
     case 1:
-      q4_lut_kernel<MT, FUSED, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+      q4_lut_kernel<MT, MODE, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
           xb, cb, sb, zb, lb, static_cast<__nv_bfloat16*>(y), m, n, k, kw, group_size,
           num_groups, lut_stride);
       break;
     default:
-      q4_lut_kernel<MT, FUSED, __half><<<grid, kThreads, 0, stream>>>(
+      q4_lut_kernel<MT, MODE, __half><<<grid, kThreads, 0, stream>>>(
           xb, cb, sb, zb, lb, static_cast<__half*>(y), m, n, k, kw, group_size, num_groups,
           lut_stride);
       break;
   }
 }
 
-template <bool FUSED>
+template <int MODE>
 int launch(const void* x, const void* codes, const void* scales, const void* zeros,
            const void* lut, void* y, int m, int n, int k, int kw, int group_size,
            int num_groups, int lut_stride, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 1)
-    launch_mt<1, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                        lut_stride, out_dtype, s);
+    launch_mt<1, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                       lut_stride, out_dtype, s);
   else if (m <= 2)
-    launch_mt<2, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                        lut_stride, out_dtype, s);
+    launch_mt<2, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                       lut_stride, out_dtype, s);
   else if (m <= 4)
-    launch_mt<4, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                        lut_stride, out_dtype, s);
+    launch_mt<4, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                       lut_stride, out_dtype, s);
   else if (m <= 8)
-    launch_mt<8, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                        lut_stride, out_dtype, s);
+    launch_mt<8, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                       lut_stride, out_dtype, s);
   else
-    launch_mt<16, FUSED>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                         lut_stride, out_dtype, s);
+    launch_mt<16, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
+                        lut_stride, out_dtype, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,18 +313,17 @@ int launch(const void* x, const void* codes, const void* scales, const void* zer
 extern "C" {
 
 // out_dtype: 0 float32, 1 bfloat16, 2 float16.
-int q4_lut_post(const void* x, const void* codes, const void* scales, const void* zeros,
-                const void* lut, void* y, int m, int n, int k, int kw, int group_size,
-                int num_groups, int lut_stride, int out_dtype, void* stream) {
-  return launch<false>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                       lut_stride, out_dtype, stream);
-}
+#define Q4_ENTRY(NAME, MODE)                                                                    \
+  int NAME(const void* x, const void* codes, const void* scales, const void* zeros,           \
+           const void* lut, void* y, int m, int n, int k, int kw, int group_size,             \
+           int num_groups, int lut_stride, int out_dtype, void* stream) {                     \
+    return launch<MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups, \
+                        lut_stride, out_dtype, stream);                                       \
+  }
 
-int q4_lut_fused(const void* x, const void* codes, const void* scales, const void* zeros,
-                 const void* lut, void* y, int m, int n, int k, int kw, int group_size,
-                 int num_groups, int lut_stride, int out_dtype, void* stream) {
-  return launch<true>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                      lut_stride, out_dtype, stream);
-}
+Q4_ENTRY(q4_lut_post, kPost)
+Q4_ENTRY(q4_lut_fused, kFused)
+Q4_ENTRY(q4_int4_magic, kMagic)
+Q4_ENTRY(q4_lut_select, kSelect)
 
 }  // extern "C"

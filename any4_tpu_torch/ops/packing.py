@@ -1,8 +1,17 @@
 """4-bit code layouts: the port's own Hopper layout, and numpy copies of the
 TPU layouts used only to carry JAX tensors and checkpoints across.
 
-**The Hopper layout** (:func:`pack_codes` / :func:`unpack_codes`), read by
-both CUDA kernels in ``csrc/q4_lut_gemv.cu``:
+**The Hopper layout** (:func:`pack_codes` / :func:`unpack_codes`) is the one
+layout of every 4-bit format in the port, whatever TPU layout its format
+name records: the LUT formats (``csrc/q4_lut_gemv.cu`` kernels A, B and E),
+uniform int4 (``int4``/``int4p``, kernel C there) and W4A8 (``w4a8``,
+``csrc/w4a8_gemv.cu``). One warp per weight row reads contiguous k, so a
+word of 8 consecutive k serves all of them: ``(w >> 4p) & 0x000F000F |
+0x43004300`` read as two bf16 is ``128 + c`` for ``k = 8w+p`` and
+``8w+p+4`` (int4), and ``w & 0x0F0F0F0F`` / ``(w >> 4) & 0x0F0F0F0F`` are
+the four int8 codes of the even and of the odd k of the word (W4A8). The
+TPU's pair and quad words only tiled two or four weight rows across its
+lanes.
 
 - codes ``[n, k]`` in ``[0, 15]`` become int32 words ``[n, kp/8]``, row
   major, one weight row per packed row;
@@ -24,7 +33,13 @@ and zeros ``[kp/g, n]`` carry across unchanged.
   holds ``k = block*1024 + j*128 + l``;
 - :func:`unpack_int4_transposed` / :func:`pack_int4_transposed`: the
   transposed layout ``[kp/8, n]``; within each 128-wide group, word row
-  ``K`` (of 16) holds in nibble ``p`` the code of ``k = g*128 + p*16 + K``.
+  ``K`` (of 16) holds in nibble ``p`` the code of ``k = g*128 + p*16 + K``;
+- :func:`unpack_int4_pair` / :func:`pack_int4_pair` (``int4p``): two rows
+  per word, ``[n/2, kp/4]``; bits ``4p + 16h`` of word ``[r, kb*128 + l]``
+  hold row ``2r + h`` at ``k = kb*512 + p*128 + l``;
+- :func:`unpack_int4_quad` / :func:`pack_int4_quad` (``w4a8``): four rows
+  per word, ``[n/4, kp/2]``; bits ``8b + 4p`` of word ``[r, kb*128 + l]``
+  hold row ``4r + b`` at ``k = kb*256 + p*128 + l``.
 """
 from __future__ import annotations
 
@@ -138,3 +153,58 @@ def unpack_int4_transposed(packed: np.ndarray, k: int) -> np.ndarray:
     c = (words >> shifts) & 0xF                           # [g, K, p, n]
     c = c.transpose(3, 0, 2, 1)                           # [n, g, p, K]
     return c.reshape(n, kp)[:, :k].astype(np.uint8)
+
+
+# Multi-row words: ``rows`` weight rows per word, each ``bits`` wide, split
+# into ``planes`` nibbles that cover consecutive 128-wide k slices.
+_MULTI_ROW = {"pair": (2, 16, 4), "quad": (4, 8, 2)}    # rows, bits, planes
+
+
+def _multi_shifts(kind):
+    rows, bits, planes = _MULTI_ROW[kind]
+    return ((bits * np.arange(rows, dtype=np.uint32))[None, :, None, None,
+                                                       None]
+            + (4 * np.arange(planes, dtype=np.uint32))[None, None, None, :,
+                                                       None])
+
+
+def _pack_multi(codes: np.ndarray, kind: str) -> np.ndarray:
+    rows, _, planes = _MULTI_ROW[kind]
+    n = codes.shape[0]
+    if n % rows:
+        raise ValueError(f"{kind} packing needs n % {rows} == 0, got {n}")
+    c = _pad_np(codes)
+    kp = c.shape[1]
+    c = c.reshape(n // rows, rows, kp // (planes * LANES), planes, LANES)
+    words = np.bitwise_or.reduce(c << _multi_shifts(kind), axis=(1, 3))
+    return _to_int32(words.reshape(n // rows, kp // planes))
+
+
+def _unpack_multi(packed: np.ndarray, k: int, kind: str) -> np.ndarray:
+    rows, _, planes = _MULTI_ROW[kind]
+    nr, kw = packed.shape
+    kp = kw * planes
+    words = np.asarray(packed).view(np.uint32).reshape(
+        nr, 1, kp // (planes * LANES), 1, LANES)
+    c = (words >> _multi_shifts(kind)) & 0xF           # [n/r, r, kb, p, 128]
+    return c.reshape(nr * rows, kp)[:, :k].astype(np.uint8)
+
+
+def pack_int4_pair(codes: np.ndarray) -> np.ndarray:
+    """TPU pair layout ``[n/2, kp/4]`` (``any4_tpu`` ``pack_int4_pair``)."""
+    return _pack_multi(codes, "pair")
+
+
+def unpack_int4_pair(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int4_pair`; uint8 codes ``[n, k]``."""
+    return _unpack_multi(packed, k, "pair")
+
+
+def pack_int4_quad(codes: np.ndarray) -> np.ndarray:
+    """TPU quad layout ``[n/4, kp/2]`` (``any4_tpu`` ``pack_int4_quad``)."""
+    return _pack_multi(codes, "quad")
+
+
+def unpack_int4_quad(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int4_quad`; uint8 codes ``[n, k]``."""
+    return _unpack_multi(packed, k, "quad")

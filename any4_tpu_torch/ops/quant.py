@@ -5,8 +5,8 @@ zeros come back in the natural ``[n, k/g]`` layout; :mod:`.linear` stores
 them transposed as ``[kp/g, n]``.
 
 Every function here is elementwise IEEE arithmetic (subtract, divide,
-compare), so in float32 it gives the same bits as the JAX functions run
-eagerly on the CPU.
+compare, round half to even), so in float32 it gives the same bits as the
+JAX functions run eagerly on the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ import torch
 from .formats import get_table
 
 SCALE_EPS = 1e-6  # (max - min) is clamped to this before dividing
+# per-row int8 activation quantization of the W4A8 format
+ACT_QMAX = 127.0
+ACT_EPS = 1e-8
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -24,6 +27,13 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once. On CUDA, PyTorch divides by a Python number
+    as a multiply by its reciprocal, which rounds twice; a 0-d tensor on
+    ``a``'s device is divided exactly, as XLA does."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
 def _group_view(w: torch.Tensor, group_size: int) -> torch.Tensor:
     n, k = w.shape
     if group_size <= 0:
@@ -31,6 +41,65 @@ def _group_view(w: torch.Tensor, group_size: int) -> torch.Tensor:
     if k % group_size:
         raise ValueError(f"k={k} not divisible by group_size={group_size}")
     return w.reshape(n, k // group_size, group_size)
+
+
+def group_quantize(w: torch.Tensor, n_bit: int = 4, group_size: int = 128,
+                   symmetric: bool = False, int_zeros: bool = False):
+    """Per-group uniform quantization, asymmetric by default.
+
+    Returns ``(codes [n, k] uint8, scales [n, k/g], zeros [n, k/g])``;
+    reconstruction is ``(code - 2^(n-1)) * scale + zero``.
+
+    - asymmetric: ``scales = max(max - min, 1e-6) / (2^n - 1)``, ``zeros =
+      min + scales * 2^(n-1)``, ``codes = clip(round((w - min) / scales))``;
+    - ``symmetric`` (scale only): ``scales = max(absmax, 1e-6) /
+      (2^(n-1) - 1)``, ``zeros = 0``;
+    - ``int_zeros``: the zero point is the integer ``zq = clip(round(-min /
+      scales))``, codes are ``clip(round(w / scales) + zq)``, and it is
+      folded back as ``zeros = (2^(n-1) - zq) * scales``.
+    """
+    wg = _group_view(w.float(), group_size)
+    half = 2 ** (n_bit - 1)
+    max_int = 2 ** n_bit - 1
+    if symmetric:
+        absmax = wg.abs().amax(dim=-1, keepdim=True)
+        scales = div(torch.clamp(absmax, min=SCALE_EPS), half - 1)
+        zeros = torch.zeros_like(scales)
+        codes = torch.round(wg / scales) + half
+    else:
+        max_val = wg.amax(dim=-1, keepdim=True)
+        min_val = wg.amin(dim=-1, keepdim=True)
+        scales = div(torch.clamp(max_val - min_val, min=SCALE_EPS), max_int)
+        if int_zeros:
+            zq = torch.clamp(torch.round(-min_val / scales), 0, max_int)
+            codes = torch.round(wg / scales) + zq
+            zeros = (half - zq) * scales
+        else:
+            zeros = min_val + scales * half
+            codes = torch.round((wg - min_val) / scales)
+    codes = torch.clamp(codes, 0, max_int).to(torch.uint8).reshape(w.shape)
+    return codes, scales[..., 0], zeros[..., 0]
+
+
+def quantize_activations(x: torch.Tensor, eps: float = ACT_EPS):
+    """Per-row absmax int8 quantization of activations, in float32 on ``x``
+    as it comes (no bf16 cast): ``sx = max(max|x|, eps) / 127`` over the
+    last axis and ``xq = clip(round(x / sx), -127, 127)``, rounding half to
+    even. Returns ``(xq int8, sx f32 [..., 1])`` with ``x ~= xq * sx``."""
+    xf = x.float()
+    sx = div(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=eps),
+             ACT_QMAX)
+    xq = torch.clamp(torch.round(xf / sx), -ACT_QMAX, ACT_QMAX)
+    return xq.to(torch.int8), sx
+
+
+def group_dequantize(codes: torch.Tensor, scales: torch.Tensor,
+                     zeros: torch.Tensor, n_bit: int = 4,
+                     group_size: int = 128) -> torch.Tensor:
+    """Inverse of :func:`group_quantize` (float32 output)."""
+    cg = _group_view(codes.float(), group_size)
+    w = (cg - 2 ** (n_bit - 1)) * scales[..., None] + zeros[..., None]
+    return w.reshape(codes.shape)
 
 
 def group_codes_float(w: torch.Tensor, n_bit: int = 4, group_size: int = 128,
@@ -46,13 +115,14 @@ def group_codes_float(w: torch.Tensor, n_bit: int = 4, group_size: int = 128,
     half = 2 ** (n_bit - 1)
     if symmetric:
         absmax = wg.abs().amax(dim=-1, keepdim=True)
-        scales = torch.clamp(absmax, min=SCALE_EPS) / (half - 1)
+        scales = div(torch.clamp(absmax, min=SCALE_EPS), half - 1)
         zeros = torch.zeros_like(scales)
         wq = wg / scales + half
     else:
         max_val = wg.amax(dim=-1, keepdim=True)
         min_val = wg.amin(dim=-1, keepdim=True)
-        scales = torch.clamp(max_val - min_val, min=SCALE_EPS) / (2**n_bit - 1)
+        scales = div(torch.clamp(max_val - min_val, min=SCALE_EPS),
+                     2**n_bit - 1)
         zeros = min_val + scales * half
         wq = (wg - min_val) / scales
     return wq.reshape(w.shape), scales[..., 0], zeros[..., 0]

@@ -99,7 +99,7 @@ def quantize_model(
             "row_parallel_shards is not ported yet (ROADMAP queue 1, item 12)")
     if isinstance(skip_modules, str):
         skip_modules = [s.strip() for s in skip_modules.split(",")]
-    f = "any4" if fmt == "anyq" else fmt
+    f = {"anyq": "any4", "intq": "int4"}.get(fmt, fmt)
     out = _copy_tree(params)
     targets = [(n, l, s) for n, l, s in _walk(out) if layer_filter(n, l)
                and n.split(".")[-1] not in skip_modules
@@ -159,5 +159,6 @@ def model_size_bytes(params: Dict) -> int:
 
 quant_methods = {
     name: functools.partial(quantize_model, fmt=name)
-    for name in ("any4", "any4t", "anyq", "nf4", "nf4t", "fp4", "fp4t")
+    for name in ("int4", "int4p", "w4a8", "intq", "any4", "any4t", "anyq",
+                 "nf4", "nf4t", "fp4", "fp4t")
 }

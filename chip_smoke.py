@@ -51,9 +51,45 @@ Phases, each printing JSON lines:
    a dense float32 cache at 3 positions. Prints tokens per second, ms per
    decode step, prefill ms, peak memory and the device's busy share
    (``torch.profiler`` over 8 steps at 8 active slots).
-6. the ``nvidia-smi`` name and power line again, then the line
-   ``{"kernels": [...]}``, one entry per kernel.
-7. ``{"ok": true, "device": {...}}`` as the last line.
+6. int kernels (slice 3): kernel C (``q4_int4_magic``), D (``w4a8``,
+   int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
+   int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
+   C and D at m in {1, 16, 128}, D-fused at {1, 16, 64}, E at {1, 16},
+   timed and held against their plain versions as in 2: bf16 outputs
+   within 1e-2 * max, float32 within 1e-4 * max (C, E) and 1e-5 * max (D,
+   D-fused: exact integer dots); E equal to kernel B bit for bit. Then edge
+   cases: n not a multiple of 8 with k = 1408 and 1407, x misaligned by one
+   element, float32 x for D-fused, an all-zero x row (the 1e-8 floor), a
+   row whose x / sx lands on k + 0.5 (checked against
+   ``quantize_activations``, which rounds half to even), and float32,
+   bf16 and float16 outputs.
+7. int4 and w4a8 main paths: the 1B model at full width and depth
+   (``--layers`` cuts it) quantized by ``quantize_model(fmt=..., group_size
+   =128)``; every one of the 112 linears must be ``int4p`` or ``w4a8``.
+   The int4 model's prefill logits with float32 activations are held within
+   2e-2 * max of the dequantized weights' dense float32 forward. In the
+   w4a8 model's prefill (float32 activations; m=16 runs D-fused, m=128
+   runs D) every linear is held within 1e-5 * max of the same linear on the
+   CPU through the plain versions, which quantize the activations the same
+   way, on the activations the card gave it; the whole-model difference
+   from the CPU forward is printed beside (one int8 code flipped by a 1e-7
+   difference elsewhere moves an activation by 1/127 of its row's absmax,
+   so that difference measures flips). ``generate`` at batch 1 and 4 as in
+   4, with
+   exact launch counts: C once per linear per forward (per 512-row chunk);
+   D-fused once per linear per forward of at most 64 rows, D once per
+   linear per larger forward (per ``_int8_m_tile(k)`` chunk above 1024
+   rows). Then each model behind the engine (paged bf16 pools, the prompts
+   of 5) at ``run(burst=1)`` and ``run(burst=8, pipeline=True)``: tokens in
+   the vocabulary, both runs equal, exact launch counts, and the figures of
+   5.
+8. select path: row-layout int4 at g=128 (2 layers): ``llama.forward(...,
+   use_gather=False)`` runs kernel E on every linear, the default runs
+   kernel B with the ramp LUT (not kernel A), and the logits of the two are
+   equal bit for bit.
+9. the ``nvidia-smi`` name and power line again, then the line
+   ``{"kernels": [...]}``, one entry per kernel (ten).
+10. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -61,6 +97,7 @@ Without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,6 +124,19 @@ KERNELS = {
         "any4_tpu/ops/pallas/gemv.py:106 _q4_kernel")),
 }
 SOURCE = "any4_tpu_torch/ops/csrc/q4_lut_gemv.cu"
+W4A8_SOURCE = "any4_tpu_torch/ops/csrc/w4a8_gemv.cu"
+# slice 3: name -> (source, the TPU kernel it replaces, m of the kernel phase)
+INT_KERNELS = {
+    "q4_int4_magic": (SOURCE, "any4_tpu/ops/pallas/gemv.py:457 "
+                      "_q4pair_kernel", (1, 16, 128)),
+    "w4a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel",
+             (1, 16, 128)),
+    "w4a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:550 "
+                   "_w4a8f_kernel", (1, 16, 64)),
+    "q4_lut_select": (SOURCE, "any4_tpu/ops/pallas/gemv.py:63 "
+                      "_q4select_kernel", (1, 16)),
+}
+INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core rate
 PROMPT_LEN = 64
 NEW_TOKENS = 64
 # decode attention: (layout, int8 pool, the TPU kernel it replaces)
@@ -249,6 +299,178 @@ def edge_cases(gemv, packing):
     return cases
 
 
+def int_operands(packing, n, k, gen):
+    """Random codes in the port's layout, g=128 scales and zeros, and a
+    sorted per-row LUT."""
+    G = packing.padded_k(k) // 128
+    codes = torch.randint(0, 16, (n, k), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 + 1e-3
+    zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+    lut = torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
+                     dim=1).values * 15.0 - 8.0
+    return packing.pack_codes(codes), scales, zeros, lut.contiguous()
+
+
+def int_calls(gemv, name, x, packed, scales, zeros, lut, out):
+    """(kernel call, plain call) of one slice-3 kernel on these operands."""
+    if name == "q4_int4_magic":
+        args = (x, packed, scales, zeros, 128, out)
+        return (lambda: gemv.q4_int4_magic(*args),
+                lambda: gemv.q4_int4_magic_plain(x, packed, scales, zeros,
+                                                 None, 128, out))
+    if name == "q4_lut_select":
+        args = (x, packed, scales, zeros, lut, 128, out)
+        return (lambda: gemv.q4_lut_select(*args),
+                lambda: gemv.q4_lut_select_plain(*args))
+    args = (x, packed, scales, zeros, 128, out)
+    return (lambda: getattr(gemv, name)(*args),
+            lambda: getattr(gemv, name + "_plain")(*args))
+
+
+def int_kernel_phase(gemv, packing, linear, timer, bw, peak):
+    """Kernels C, D, D-fused and E at the 1B linear shapes against their
+    plain versions, timed beside a bf16 ``torch.matmul`` on the dequantized
+    weight; E also bit for bit against kernel B."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for n, k in KERNEL_SHAPES:
+        packed, scales, zeros, lut_row = int_operands(packing, n, k, gen)
+        ramp = gemv.int4_ramp("cuda")
+        G = scales.shape[0]
+        for name, (_, _, ms) in INT_KERNELS.items():
+            for lut_kind, lut in ((("ramp", ramp), ("per_row", lut_row))
+                                  if name == "q4_lut_select"
+                                  else (("none", None),)):
+                qt = linear.QuantizedTensor(packed, scales, zeros, lut,
+                                            "int4", 128, (n, k))
+                w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+                for m in ms:
+                    x = torch.randn((m, k), generator=gen, device="cuda")
+                    if name == "w4a8":
+                        x = torch.randint(-127, 128, (m, k), generator=gen,
+                                          device="cuda", dtype=torch.int8)
+                        out, tol = torch.float32, 1e-5
+                    else:
+                        x = x.to(torch.bfloat16)
+                        out, tol = torch.bfloat16, 1e-2
+                    fn, plain = int_calls(gemv, name, x, packed, scales,
+                                          zeros, lut, out)
+                    y, ref = fn(), plain()
+                    torch.cuda.synchronize()
+                    err = float((y.float() - ref.float()).abs().max())
+                    scale = float(ref.float().abs().max())
+                    check(bool(torch.isfinite(y).all()) and err <= tol * scale,
+                          f"{name} {lut_kind} n={n} k={k} m={m}: |kernel - "
+                          f"plain| {err} > {tol} * {scale}")
+                    e32 = None
+                    if out == torch.bfloat16:   # and in float32
+                        f32, p32 = int_calls(gemv, name, x, packed, scales,
+                                             zeros, lut, torch.float32)
+                        bar = 1e-5 if name == "w4a8_fused" else 1e-4
+                        e32 = rel_err(f32(), p32())
+                        check(e32 <= bar, f"{name} {lut_kind} n={n} k={k} "
+                              f"m={m} float32: {e32} > {bar}")
+                    if name == "q4_lut_select":
+                        for o in (torch.bfloat16, torch.float32):
+                            args = (x, packed, scales, zeros, lut, 128, o)
+                            check(torch.equal(gemv.q4_lut_select(*args),
+                                              gemv.q4_lut_fused(*args)),
+                                  f"kernel E != kernel B bit for bit, "
+                                  f"{lut_kind} n={n} k={k} m={m} {o}")
+                    nbytes = (packed.numel() * 4 + 2 * G * n * 4
+                              + x.numel() * x.element_size()
+                              + m * n * y.element_size()
+                              + (0 if lut is None else lut.numel() * 4))
+                    flops = 2 * m * n * k
+                    rate = INT8_OPS if name.startswith("w4a8") else peak
+                    t_bytes, t_ops = nbytes / bw * 1e3, flops / rate * 1e3
+                    xb = x.to(torch.bfloat16)
+                    row = {
+                        "phase": "int_kernel", "name": name, "lut": lut_kind,
+                        "n": n, "k": k, "m": m, "group_size": 128,
+                        "x": str(x.dtype), "out": str(out),
+                        "ms": timer(fn), "plain_ms": timer(plain, reps=5),
+                        "library_ms": timer(lambda: torch.matmul(
+                            xb, w_bf16.t())),
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations",
+                        "bytes": nbytes, "flops": flops,
+                        "max_abs_err": err, "rel_err": err / scale,
+                        "bar": tol, "rel_err_f32": e32}
+                    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+                    row["bound_share"] = row["bound_ms"] / row["ms"]
+                    emit(row)
+                    rows.append(row)
+                del qt, w_bf16
+    return rows
+
+
+def int_edge_cases(gemv, packing, quant):
+    """Kernels C, D, D-fused and E on what the 1B path does not give them:
+    n not a multiple of 8 and k = 1408 (a k that is no multiple of 1024), a
+    misaligned x (offset by one element) and k not a multiple of 8, float32
+    x for D-fused, an all-zero x row (the 1e-8 floor), a row whose x / sx
+    lands on k + 0.5 (round half to even), and float32, bf16 and float16
+    outputs. float32 outputs within 1e-5 * max of the plain version for
+    D/D-fused and 1e-4 for C/E, bf16/f16 within 1e-2; E equal to kernel B
+    bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = 0
+    for n, k, m, offset in ((1000, 1408, 3, 0), (130, 1408, 17, 1),
+                            (7, 1407, 40, 1), (132, 2056, 64, 0)):
+        packed, scales, zeros, lut = int_operands(packing, n, k, gen)
+        flat = torch.randn(m * k + 1, generator=gen, device="cuda") * 3
+        base = flat[offset:offset + m * k].reshape(m, k)
+        base[0] = 0.0                                     # the 1e-8 floor
+        ties = torch.arange(1, k, device="cuda") % 100 + 0.5
+        base[m - 1, 0] = 127.0                            # sx = 1 exactly
+        base[m - 1, 1:] = ties * (1 - 2 * (torch.arange(1, k,
+                                                        device="cuda") % 2))
+        for name in INT_KERNELS:
+            for out, tol in ((torch.float32,
+                              1e-5 if name.startswith("w4a8") else 1e-4),
+                             (torch.bfloat16, 1e-2), (torch.float16, 1e-2)):
+                xdts = (torch.float32, torch.bfloat16) \
+                    if name == "w4a8_fused" else (torch.bfloat16,)
+                for xdt in xdts:
+                    if name == "w4a8":
+                        flat8 = quant.quantize_activations(
+                            flat.reshape(1, -1))[0].reshape(-1)
+                        x = flat8[offset:offset + m * k].reshape(m, k)
+                    else:
+                        x = (flat.to(xdt)[offset:offset + m * k]
+                             .reshape(m, k))
+                        x.copy_(base.to(xdt))
+                    fn, plain = int_calls(gemv, name, x, packed, scales,
+                                          zeros, lut, out)
+                    y, ref = fn(), plain()
+                    torch.cuda.synchronize()
+                    err = rel_err(y, ref)
+                    check(y.shape == (m, n) and y.dtype == out
+                          and bool(torch.isfinite(y).all()) and err <= tol,
+                          f"{name} edge n={n} k={k} m={m} offset={offset} "
+                          f"x {xdt} {out}: {err} > {tol}")
+                    if name == "w4a8_fused":
+                        check(bool((y[0] == 0).all()),
+                              "w4a8_fused: an all-zero row gives 0")
+                        xq, sx = quant.quantize_activations(x)
+                        ext = (gemv.w4a8(xq, packed, scales, zeros, 128)
+                               * sx).to(out)
+                        e = rel_err(y, ext)
+                        check(e <= tol, f"w4a8_fused vs quantize_activations"
+                              f" + w4a8 (half to even) {xdt} {out}: {e}")
+                    if name == "q4_lut_select":
+                        for lt in (lut, gemv.int4_ramp("cuda")):
+                            args = (x, packed, scales, zeros, lt, 128, out)
+                            check(torch.equal(gemv.q4_lut_select(*args),
+                                              gemv.q4_lut_fused(*args)),
+                                  f"kernel E != kernel B edge n={n} k={k}")
+                    cases += 1
+    return cases
+
+
 def attn_inputs(kvc, name, b, ctx, gen, pool_dtype, q_dtype, lens=None,
                 sink_slots=(), h=ATTN_HEADS, rep=ATTN_REP, d=ATTN_HEAD_DIM):
     """(wrapper, plain version, arguments) of one attention kernel: random
@@ -405,11 +627,12 @@ def attention_edge_cases(kvc):
     return cases
 
 
-def layer_summary(rows, name):
-    """One Llama-3.2-1B decoder layer's 7 linears at m=1."""
+def layer_summary(rows, name, lut=None):
+    """One Llama-3.2-1B decoder layer's 7 linears at m=1 (rows of one LUT
+    variant when ``lut`` is given)."""
     out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for r in rows:
-        if r["name"] == name and r["m"] == 1:
+        if r["name"] == name and r["m"] == 1 and r.get("lut", lut) == lut:
             for key in out:
                 out[key] += LAYER_LINEARS[(r["n"], r["k"])] * r[key]
     mine = [r for r in rows if r["name"] == name]
@@ -619,6 +842,265 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
     return launches, launches_b, qparams, cfg
 
 
+def to_device(tree, device, linear):
+    """A parameter tree (quantized weights included) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device, linear) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device, linear) for v in tree]
+    if isinstance(tree, linear.QuantizedTensor):
+        return dataclasses.replace(tree, **{
+            f: None if getattr(tree, f) is None
+            else getattr(tree, f).to(device)
+            for f in ("packed", "scales", "zeros", "lut")})
+    return tree.to(device)
+
+
+@contextlib.contextmanager
+def held_linears(linear):
+    """While active, every quantized ``linear`` call also runs on the CPU
+    through the plain versions with the same inputs; yields the list of
+    their max|y - ref| / max|ref|."""
+    errs = []
+    orig = linear.linear
+
+    def held(x, w, bias=None, **kw):
+        y = orig(x, w, bias, **kw)
+        if isinstance(w, linear.QuantizedTensor):
+            ref = orig(x.cpu(), to_device(w, "cpu", linear),
+                       None if bias is None else bias.cpu(), **kw)
+            errs.append(rel_err(y.cpu(), ref))
+        return y
+
+    linear.linear = held
+    try:
+        yield errs
+    finally:
+        linear.linear = orig
+
+
+def int_layer_launches(gemv, linear, fmt, ms):
+    """Expected launches per decoder layer (its 7 linears) over forwards of
+    ``ms`` rows each: int4p one kernel C call per ``FUSED_M_MAX`` rows;
+    w4a8 one D-fused call at m <= ``FUSED_ACT_M_MAX``, else one D call, or
+    one per ``_int8_m_tile(k)`` rows once m exceeds ``max(FUSED_M_MAX,
+    tile)`` (the tile is 512 for down_proj's k = 8192, 1024 below)."""
+    out = {}
+    for (_, k), count in LAYER_LINEARS.items():
+        tile = linear._int8_m_tile(k)
+        for m in ms:
+            if fmt == "int4":
+                name, calls = "q4_int4_magic", -(-m // linear.FUSED_M_MAX)
+            elif m <= gemv.FUSED_ACT_M_MAX:
+                name, calls = "w4a8_fused", 1
+            else:
+                name = "w4a8"
+                calls = 1 if m <= max(linear.FUSED_M_MAX, tile) \
+                    else -(-m // tile)
+            out[name] = out.get(name, 0) + count * calls
+    return out
+
+
+def check_launches(gemv, want, layers, what):
+    """Each kernel of ``gemv.LAUNCHES`` launched exactly ``layers`` x its
+    per-layer count in ``want`` (0 when absent), and each one in ``want``
+    at least once."""
+    for name, count in gemv.LAUNCHES.items():
+        expect = layers * want.get(name, 0)
+        check(count == expect and (name not in want or count > 0),
+              f"{what}: {name} launches {count} != {expect}")
+
+
+def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
+    """Llama-3.2-1B at full width (``--layers`` cuts the depth), bf16
+    weights from ``init_params(seed=0)``, quantized to ``fmt`` (int4 or
+    w4a8) at g=128; see the module docstring (phase 7)."""
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    per_forward = cfg.num_hidden_layers * 7
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = api.quantize_model(params, fmt=fmt, group_size=128)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del params
+    kind = "int4p" if fmt == "int4" else fmt
+    quantized = [l for l in qparams["layers"] for l in l.values()
+                 if isinstance(l, linear.QuantizedTensor)]
+    check(len(quantized) == per_forward
+          and all(q.fmt == kind and q.lut is None for q in quantized),
+          f"every linear is {kind} at g=128")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    q32 = to_float32(qparams, linear)
+    info = {}
+    if fmt == "int4":
+        # as for any4: float32 activations (the kernel rounds x to bf16)
+        # against the float32 forward of the exactly dequantized weights
+        ids = prompt[:1]
+        got = llama.forward(q32, cfg32, ids)[0]
+        ref = llama.forward(to_float32(qparams, linear, dequantize=True),
+                            cfg32, ids)[0]
+        errs = {"rel_err_int4_f32_vs_dense_f32": rel_err(got, ref)}
+        bar = 2e-2
+    else:
+        # W4A8 rounds every activation to an int8 code, so the first 1e-7
+        # difference between the card's and the CPU's non-kernel ops (sum
+        # order, rsqrt, sin/cos) flips a code somewhere and moves that
+        # activation by 1/127 of its row's absmax; a whole-model
+        # comparison therefore measures those flips (1.1-2.7e-2 of max at
+        # 2 layers), not the port. Each linear of the forward is instead
+        # held against the same linear on the CPU through the plain
+        # versions, on the very activations the card gave it: m=16 runs
+        # D-fused, m=128 (two rows of 64) runs D. The whole-model
+        # difference is printed beside.
+        errs = {}
+        for name, ids in (("m16_fused", prompt[:1, :16]),
+                          ("m128_external", prompt[:2])):
+            with held_linears(linear) as per_linear:
+                got = llama.forward(q32, cfg32, ids)[0]
+            check(bool(torch.isfinite(got).all()) and len(per_linear)
+                  == per_forward, f"w4a8 {name}: finite, every linear held")
+            errs[f"max_rel_err_w4a8_{name}_per_linear_vs_cpu_plain"] = max(
+                per_linear)
+            cpu = to_device(q32, "cpu", linear)
+            info[f"rel_err_w4a8_{name}_model_vs_cpu_plain"] = rel_err(
+                got.cpu(), llama.forward(cpu, cfg32, ids.cpu())[0])
+            del cpu
+        bar = 1e-5
+    torch.cuda.synchronize()
+    emit({"phase": f"main_path_check_{fmt}", "bar": bar, **errs, **info})
+    check(all(e <= bar for e in errs.values()),
+          f"{fmt} prefill: {errs} > {bar} of max")
+    del q32
+
+    torch.cuda.reset_peak_memory_stats()
+    gemv.reset_launches()
+    gen_ms, tokens = {}, {}
+    for b in (1, 4):
+        tokens[b], gen_ms[b] = timed_generate(gen_mod, qparams, cfg,
+                                              prompt[:b])
+    launches = dict(gemv.LAUNCHES)
+    ms = [b * PROMPT_LEN for b in (1, 4)] + [b for b in (1, 4)
+                                             for _ in range(NEW_TOKENS - 1)]
+    check_launches(gemv, int_layer_launches(gemv, linear, fmt, ms),
+                   cfg.num_hidden_layers, f"{fmt} generate")
+    for b, tok in tokens.items():
+        check(tok.shape == (b, PROMPT_LEN + NEW_TOKENS)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+              and torch.equal(tok[:, :PROMPT_LEN], prompt[:b]),
+              f"{fmt} tokens b={b}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    figs = decode_figures(gen_mod, llama, qparams, cfg, prompt)
+    prof = device_profile(gen_mod, llama, qparams, cfg, prompt)
+    prof["busy_share_b1"] = (prof["device_ms_per_step"]
+                             / figs[1]["decode_ms_per_token"])
+    emit({"phase": f"main_path_{fmt}", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "fmt": kind, "group_size": 128,
+          "quantize_s": quantize_s, "launches": launches,
+          "launches_per_forward": per_forward, "generate_ms": gen_ms,
+          "max_memory_allocated": peak_mem,
+          "model_bytes": api.model_size_bytes(qparams), fmt: figs,
+          "profile_b1": prof,
+          "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
+    return launches, qparams, cfg
+
+
+def select_path(args, gemv, llama, api, linear):
+    """Row-layout int4 at g=128 (2 layers of the 1B model): ``forward`` with
+    ``use_gather=False`` runs kernel E on every linear, the default runs
+    kernel B with the ramp LUT (not kernel A), and the two give the same
+    logits bit for bit."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama_3_2_1b(),
+                              num_hidden_layers=2)
+    q = api.quantize_model(llama.init_params(cfg, seed=0, device="cuda"),
+                           fmt="int4", group_size=128, layout="row")
+    check(all(l.fmt == "int4" for l in q["layers"][0].values()
+              if isinstance(l, linear.QuantizedTensor)), "row-layout int4")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ids = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    logits = {}
+    launches = {}
+    for use_gather in (False, True):
+        gemv.reset_launches()
+        logits[use_gather] = torch.cat([
+            llama.forward(q, cfg, ids[:, :t], use_gather=use_gather)[0][:, -1]
+            for t in (16, 1)])
+        torch.cuda.synchronize()
+        launches[use_gather] = dict(gemv.LAUNCHES)
+        check_launches(gemv, {"q4_lut_fused" if use_gather
+                              else "q4_lut_select": 2 * 7}, 2,
+                       f"row int4 use_gather={use_gather}")
+    check(torch.equal(logits[False], logits[True]),
+          "use_gather=False logits != use_gather=True logits")
+    emit({"phase": "main_path_select", "layers": 2, "fmt": "int4",
+          "layout": "row", "group_size": 128, "forwards": [16, 1],
+          "launches_use_gather_false": launches[False],
+          "launches_use_gather_true": launches[True],
+          "logits_bit_equal": True})
+    return launches[False]
+
+
+def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts):
+    """The engine over an int4 or w4a8 model, paged bf16 pools, once with
+    ``run(burst=1)`` and once with ``run(burst=8, pipeline=True)``: tokens
+    in the vocabulary, both runs equal, exact launch counts."""
+    out, runs = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode, run_kw in (("burst1", dict(burst=1)),
+                         ("burst8_pipeline", dict(burst=8, pipeline=True))):
+        gemv.reset_launches()
+        kvc.reset_launches()
+        out[mode], e, wall = serve(teng, qparams, cfg, prompts, "paged",
+                                   False, run_kw)
+        steps = e.decode_steps
+        buckets = [e._bucket(len(p)) for p in prompts]
+        check(all(len(t) == SERVE_NEW_TOKENS and
+                  all(0 <= x < cfg.vocab_size for x in t)
+                  for t in out[mode]),
+              f"{fmt} {mode}: every request gives {SERVE_NEW_TOKENS} tokens "
+              f"in the vocabulary")
+        check(kvc.LAUNCHES["flash_paged_decode"] == cfg.num_hidden_layers
+              * steps and sum(kvc.LAUNCHES.values()) ==
+              kvc.LAUNCHES["flash_paged_decode"],
+              f"{fmt} {mode}: attention launches {kvc.LAUNCHES}")
+        check_launches(gemv, int_layer_launches(
+            gemv, linear, fmt, buckets + [SERVE_SLOTS] * steps),
+            cfg.num_hidden_layers, f"{fmt} {mode} engine")
+        runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
+                      "decode_steps": steps, "prefill_buckets": buckets,
+                      "wall_s": wall,
+                      "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
+        del e
+    check(out["burst1"] == out["burst8_pipeline"],
+          f"{fmt}: run(burst=8, pipeline=True) tokens differ from "
+          f"run(burst=1)")
+    emit({"phase": f"serving_{fmt}", "kv_layout": "paged", "kv_int8": False,
+          "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
+          "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
+          "new_tokens": SERVE_NEW_TOKENS, "runs": runs,
+          "burst8_pipeline_equals_burst1": True,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **serving_figures(teng, qparams, cfg, prompts, "paged", False)})
+    return runs["burst1"]["launches"]
+
+
+def serve_prompts(cfg):
+    """12 seeded prompts of 16-1000 tokens, one above 512."""
+    rng = np.random.RandomState(5)
+    lens = rng.randint(16, 1001, size=SERVE_REQUESTS)
+    if lens.max() <= 512:
+        lens[0] = 900
+    return [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in lens]
+
+
 def serve(teng, qparams, cfg, prompts, layout, q8, run_kw):
     """One engine run of ``prompts``: (tokens per request in submission
     order, the engine, host seconds ending in a synchronize)."""
@@ -725,12 +1207,8 @@ def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
 def serving_phase(qparams, cfg, gemv, kvc, teng, llama, gen_mod, linear):
     """The engine at full width and depth in the four pool combinations;
     see the module docstring (phase 5) for what is checked."""
-    rng = np.random.RandomState(5)
-    lens = rng.randint(16, 1001, size=SERVE_REQUESTS)
-    if lens.max() <= 512:
-        lens[0] = 900
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(cfg)
+    lens = np.array([len(p) for p in prompts])
     per_forward = cfg.num_hidden_layers * 7
     params32 = to_float32(qparams, linear)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -800,7 +1278,7 @@ def main():
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from any4_tpu_torch.models import generate as gen_mod, llama
-    from any4_tpu_torch.ops import build, gemv, linear, packing
+    from any4_tpu_torch.ops import build, gemv, linear, packing, quant
     from any4_tpu_torch.quant import api
     from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
 
@@ -824,6 +1302,9 @@ def main():
     timer = Timer()
     rows = kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "kernel_edge_cases", "passed": edge_cases(gemv, packing)})
+    int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
+    emit({"phase": "int_kernel_edge_cases",
+          "passed": int_edge_cases(gemv, packing, quant)})
     attn_rows = attention_phase(kvc, timer, bw)
     emit({"phase": "attention_edge_cases",
           "passed": attention_edge_cases(kvc)})
@@ -832,6 +1313,17 @@ def main():
                                                    gen_mod, api, linear)
     attn_launches = serving_phase(qparams, cfg, gemv, kvc, teng, llama,
                                   gen_mod, linear)
+    del qparams
+    torch.cuda.empty_cache()
+    for fmt in ("int4", "w4a8"):
+        got, qf, cfg = int_main_path(args, fmt, gemv, llama, gen_mod, api,
+                                     linear)
+        launches.update({k: v for k, v in got.items() if v})
+        int_serving(teng, gemv, kvc, linear, qf, cfg, fmt, serve_prompts(cfg))
+        del qf
+        torch.cuda.empty_cache()
+    launches.update({k: v for k, v in select_path(
+        args, gemv, llama, api, linear).items() if v})
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -861,6 +1353,22 @@ def main():
                          f"{ATTN_REP}, d={ATTN_HEAD_DIM}; launches from "
                          f"the engine's run(burst=1) in the {layout} "
                          f"{'int8' if q8 else 'bf16'} combination")})
+    for name, (source, replaces, _) in INT_KERNELS.items():
+        lut = "ramp" if name == "q4_lut_select" else "none"
+        summary = layer_summary(int_rows, name, lut)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            **{k: summary[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+            "timed_as": ("sum over one 1B decoder layer's 7 linears at m=1"
+                         + (", int4 ramp LUT" if lut == "ramp" else "")),
+            "launches_from": ("row-layout int4 forward, use_gather=False"
+                              if lut == "ramp" else
+                              f"generate at b=1 and 4 over the "
+                              f"{'int4' if name == 'q4_int4_magic' else 'w4a8'}"
+                              f" model")})
     print(smi, flush=True)      # the card's name and power limit
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,7 +63,9 @@ def test_sources_import_no_jax():
                                 convert.tensor_from_numpy,
                                 convert.qt_from_jax,
                                 kv_cache.PagedKVCache.create,
-                                engine.Engine.__init__])
+                                engine.Engine.__init__,
+                                api.quant_methods["int4"],
+                                api.quant_methods["w4a8"]])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
