@@ -15,8 +15,13 @@ Quantized weights are unpacked from their TPU layout to codes and repacked
 in the port's layout (:mod:`any4_tpu_torch.ops.packing`); the scales and
 zeros ``[kp/g, n]`` are the same arrays in both packages, and the LUT is
 turned to ``[n, 16]``/``[1, 16]``. The TPU layouts: planar ``[n, kp/8]``
-for ``any4``/``nf4``/``fp4``/``int4``, transposed ``[kp/8, n]`` for the
-``t`` formats, pair words for ``int4p`` and quad words for ``w4a8``.
+for ``any4``/``nf4``/``fp4``/``int4``, transposed ``[kp/8, n]`` for
+``any4t``/``nf4t``/``fp4t``, pair words for ``int4p`` and quad words for
+``w4a8``; for the int8 formats row ``[n, kp]`` (``int8``/``w8a8``), quad
+words ``[n/4, kp]`` (``int8q``/``w8a8q``/``any4q8``), transposed ``[kp,
+n]`` (``int8t``/``w8a8t``) and grouped ``[kp/128, n, 128]``
+(``int8g``/``w8a8g``/``any4q8g``). Each format name selects its layout from
+an explicit table: ``int8t`` and ``w8a8t`` end in ``t`` but have no LUT.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from .ops import packing
-from .ops.linear import FMTS, QuantizedTensor
+from .ops.linear import FMTS, TRANSPOSED_LUT_FMTS, QuantizedTensor
 
 QT_FIELDS = ("packed", "scales", "zeros", "lut")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -72,10 +77,20 @@ def _check_fmt(fmt: str, row_shards: int) -> None:
             f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
 
 
-# format -> (unpack, pack) of its TPU layout, for the row-major ones
+# format -> (unpack, pack) of its TPU layout, besides the 4-bit planar one
 _TPU_LAYOUTS = {
     "int4p": (packing.unpack_int4_pair, packing.pack_int4_pair),
     "w4a8": (packing.unpack_int4_quad, packing.pack_int4_quad),
+    **{f: (packing.unpack_int4_transposed, packing.pack_int4_transposed)
+       for f in TRANSPOSED_LUT_FMTS},
+    **{f: (packing.unpack_int8, packing.pack_int8)
+       for f in ("int8", "w8a8")},
+    **{f: (packing.unpack_int8_quad, packing.pack_int8_quad)
+       for f in ("int8q", "w8a8q", "any4q8")},
+    **{f: (packing.unpack_int8_transposed, packing.pack_int8_transposed)
+       for f in ("int8t", "w8a8t")},
+    **{f: (packing.unpack_int8_grouped, packing.pack_int8_grouped)
+       for f in ("int8g", "w8a8g", "any4q8g")},
 }
 _PLANAR = (packing.unpack_int4, packing.pack_int4)
 
@@ -86,18 +101,18 @@ def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
     fmt = d["fmt"]
     _check_fmt(fmt, int(d.get("row_shards", 1)))
     n, k = (int(s) for s in d["shape"])
-    packed = np.asarray(d["packed"])
     lut = d.get("lut")
     lut = None if lut is None else np.asarray(lut, np.float32)
-    if fmt.endswith("t"):
-        kp = packed.shape[0] * packing.CODES_PER_WORD
-        codes = packing.unpack_int4_transposed(packed, kp)
+    if fmt in TRANSPOSED_LUT_FMTS:
         lut = lut.T                                   # [16, n|1] -> [n|1, 16]
-    else:
-        codes = _TPU_LAYOUTS.get(fmt, _PLANAR)[0](packed, k)
+    codes = torch.from_numpy(
+        _TPU_LAYOUTS.get(fmt, _PLANAR)[0](np.asarray(d["packed"]), k)[:, :k]
+        .copy())
+    pack = packing.pack_codes8 if codes.dtype == torch.int8 \
+        else packing.pack_codes
     f32 = (lambda a: tensor_from_numpy(np.asarray(a, np.float32), device))
     return QuantizedTensor(
-        packing.pack_codes(torch.from_numpy(codes[:, :k].copy())).to(device),
+        pack(codes).to(device),
         f32(d["scales"]), f32(d["zeros"]), None if lut is None else f32(lut),
         fmt, int(d["group_size"]), (n, k),
         torch_dtype(d.get("dtype", "bfloat16")), 1)
@@ -108,13 +123,13 @@ def qt_to_jax(qt: QuantizedTensor) -> dict:
     in the TPU layout its format names."""
     _check_fmt(qt.fmt, qt.row_shards)
     n, k = qt.shape
-    codes = packing.unpack_codes(qt.packed.cpu(), k).numpy()
+    packed = qt.packed.detach().cpu()
+    codes = (packed[:, :k] if packed.dtype == torch.int8
+             else packing.unpack_codes(packed, k)).numpy()
     lut = None if qt.lut is None else qt.lut.detach().cpu().float().numpy()
-    if qt.fmt.endswith("t"):
-        packed = packing.pack_int4_transposed(codes)
+    packed = _TPU_LAYOUTS.get(qt.fmt, _PLANAR)[1](codes)
+    if qt.fmt in TRANSPOSED_LUT_FMTS:
         lut = np.ascontiguousarray(lut.T)             # [16, n|1]
-    else:
-        packed = _TPU_LAYOUTS.get(qt.fmt, _PLANAR)[1](codes)
     return {"packed": packed,
             "scales": qt.scales.detach().cpu().numpy(),
             "zeros": qt.zeros.detach().cpu().numpy(),

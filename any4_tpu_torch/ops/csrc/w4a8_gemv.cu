@@ -1,6 +1,7 @@
-// W4A8 matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
-// with W stored as 4-bit uniform codes c (weight (c - 8) * s + z, per-group f32
-// scales/zeros) and x quantized per row to int8, x ~= xq * sx.
+// W4A8 and W8A8 matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
+// with x quantized per row to int8, x ~= xq * sx, and W stored as 4-bit uniform
+// codes c (weight (c - 8) * s + z) or as centered int8 codes q (weight q * s + z),
+// per-group f32 scales/zeros. One templated body, four entry points.
 //
 // Kernel D, w4a8, replaces any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel: x
 // arrives as int8 (quantized outside the kernel) and y is written as the f32
@@ -11,33 +12,47 @@
 // the whole row (IEEE division), xq = clamp(rint(x / sx), -127, 127) (round
 // half to even, IEEE division; the build has no fast-math flags), and
 // y = acc * sx is written in the requested type.
-// Both compute, per 128-wide k slice, the exact int32 dot P of xq with the
-// codes and the exact int32 sum of xq, then in f32
-//   acc += float(P) * s + float(sum xq) * (z - 8 s),
-// the TPU kernels' epilogue order.
+// w8a8 replaces gemv.py:650 _w8a8_kernel (row layout), gemv.py:685
+// _w8a8q_kernel (quad words) and gemv.py:799 _w8a8t_kernel (transposed): kernel
+// D on int8 codes. w8a8_fused replaces gemv.py:612 _w8a8f_kernel, gemv.py:725
+// _w8a8qf_kernel and gemv.py:838 _w8a8tf_kernel: kernel D-fused on int8 codes.
+// The three TPU kernels of each compute the same numbers over three TPU
+// layouts; here all read one layout.
+// All four compute, per 128-wide k slice, the exact int32 dot P of xq with the
+// codes and the exact int32 sum of xq (|P| <= 128 * 128 * 127 < 2^24 for int8
+// codes, so float(P) is exact too), then in f32
+//   acc += float(P) * s + float(sum xq) * (z - 8 s)   (4-bit codes)
+//   acc += float(P) * s + float(sum xq) * z           (int8 codes, -128 included),
+// the TPU kernels' epilogue order, applied per slice and not to one sum over k.
 //
-// Code layout (any4_tpu_torch/ops/packing.py): int32 words [n, kp/8], 8
-// consecutive k per word (nibble j holds k = 8*word + j). w & 0x0F0F0F0F
-// holds the codes of the word's even k as four bytes and (w >> 4) &
+// Code layouts (any4_tpu_torch/ops/packing.py): 4-bit codes are int32 words
+// [n, kp/8], 8 consecutive k per word (nibble j holds k = 8*word + j); w &
+// 0x0F0F0F0F holds the codes of the word's even k as four bytes and (w >> 4) &
 // 0x0F0F0F0F those of its odd k, so __dp4a multiplies them with x staged as
-// the even and the odd bytes of each 8-k run. Scales and zeros are f32
-// [kp/g, n], g a multiple of 128.
+// the even and the odd bytes of each 8-k run. int8 codes are [n, kp] bytes,
+// row major: four consecutive k per 32-bit word, which __dp4a multiplies with
+// x staged as plain bytes. Scales and zeros are f32 [kp/g, n], g a multiple of
+// 128.
 //
-// What bounds them on this card: at small m the weight bytes -- 0.5 B per
-// weight plus 8 B per group -- read once from device memory at 3.35 TB/s
-// (H100 SXM); at the 1024-row prefill chunks the int8 dot products, which
-// __dp4a runs on the CUDA cores, far below the tensor cores' int8 rate.
+// What bounds them on this card: at small m the weight bytes -- 0.5 B (4-bit)
+// or 1 B (int8) per weight plus 8 B per group -- read once from device memory
+// at 3.35 TB/s (H100 SXM); at the 1024-row prefill chunks the int8 dot
+// products, which __dp4a runs on the CUDA cores, far below the tensor cores'
+// int8 rate.
 //
 // What the design does about it (simple and right first):
-//   - one warp per output row, 8 rows per block; each lane loads 16 bytes
-//     (32 consecutive codes) per 1024-k step, and the next step's codes are
-//     loaded before the current ones are used;
+//   - one warp per output row, 8 rows per block; per 1024-k step each lane
+//     loads its 32 consecutive k of the row (one 16-byte load of nibbles, two
+//     of bytes), and the next step's codes are loaded before the current ones
+//     are used;
 //   - the block stages its MT rows of x for the step in shared memory, once
-//     for its 8 rows, split into even and odd bytes, so a lane reads its 32 k
-//     of each row with two 16-byte loads that hit distinct banks;
+//     for its 8 rows, so that a lane reads its 32 k of each row with two
+//     16-byte loads that hit distinct banks: split into even and odd bytes for
+//     4-bit codes, as the first and the second 16 k of the lane for int8 ones;
 //   - 4 lanes cover one 128-wide slice; two xor shuffles add their integer
 //     partials exactly before one lane applies the slice's affine;
-//   - D-fused computes each row's absmax once per block, before the k loop.
+//   - the fused entry points compute each row's absmax once per block, before
+//     the k loop.
 // Not done here (later work): tensor-core mma (s8 m16n8k32) for m >= 16,
 // cp.async/TMA pipelines, split-k for the narrow layers.
 //
@@ -126,23 +141,42 @@ __device__ __forceinline__ void load8(const XT* __restrict__ src, int gk, int k,
   }
 }
 
-// XT int8_t: kernel D. XT float or __nv_bfloat16: kernel D-fused.
-template <int MT, typename XT>
+// A lane's 32 consecutive k of its row from k index k0: one 16-byte load of
+// 4-bit words (w[1] unused), or two of int8 codes; zero past kp.
+template <bool kBytes>
+__device__ __forceinline__ void load_lane(const int32_t* __restrict__ row_codes, int k0, int lane,
+                                          int kp, uint4 (&w)[2]) {
+  w[0] = w[1] = make_uint4(0u, 0u, 0u, 0u);
+  if (k0 >= kp) return;
+  if (kBytes) {
+    const uint4* p = reinterpret_cast<const uint4*>(row_codes + k0 / 4 + lane * 8);
+    w[0] = p[0];
+    w[1] = p[1];
+  } else {
+    w[0] = *reinterpret_cast<const uint4*>(row_codes + k0 / 8 + lane * 4);
+  }
+}
+
+// XT int8_t: kernels D and w8a8. XT float or __nv_bfloat16: kernels D-fused and
+// w8a8_fused. kBytes: int8 codes (w8a8*), else 4-bit codes (w4a8*).
+template <int MT, typename XT, bool kBytes>
 __global__ void __launch_bounds__(kThreads)
-w4a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
-            const float* __restrict__ scales, const float* __restrict__ zeros,
-            void* __restrict__ y, int m, int n, int k, int kw, int group_size, int num_groups,
-            int out_dtype) {
+a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
+          const float* __restrict__ scales, const float* __restrict__ zeros,
+          void* __restrict__ y, int m, int n, int k, int kw, int group_size, int num_groups,
+          int out_dtype) {
   constexpr bool kFused = !std::is_same_v<XT, int8_t>;
-  __shared__ __align__(16) int32_t xe[MT][kWords];  // even-k bytes of each 8-k run
-  __shared__ __align__(16) int32_t xo[MT][kWords];  // odd-k bytes
+  // 4-bit codes: the even-k (xe) and odd-k (xo) bytes of each 8-k run. int8
+  // codes: the first (xe) and second (xo) 16 k of each lane's 32.
+  __shared__ __align__(16) int32_t xe[MT][kWords];
+  __shared__ __align__(16) int32_t xo[MT][kWords];
   __shared__ float sx_s[MT];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + warp;
   const int m0 = blockIdx.y * MT;
   const bool active = row < n;  // uniform across the warp
-  const int kp = kw * 8;
+  const int kp = kBytes ? kw * 4 : kw * 8;
   const bool vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
 
   if constexpr (kFused) {  // each row's scale over the whole row, once per block
@@ -164,8 +198,8 @@ w4a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
 #pragma unroll
   for (int i = 0; i < MT; ++i) acc[i] = 0.f;
 
-  uint4 wv = active && 0 < kp ? *reinterpret_cast<const uint4*>(row_codes + lane * 4)
-                              : make_uint4(0u, 0u, 0u, 0u);
+  uint4 wv[2];
+  load_lane<kBytes>(row_codes, active ? 0 : kp, lane, kp, wv);
   for (int k0 = 0; k0 < kp; k0 += kChunk) {
     __syncthreads();  // the previous step's readers are done with xe/xo (and sx_s is set)
     for (int v = threadIdx.x; v < MT * kWords; v += kThreads) {
@@ -175,20 +209,29 @@ w4a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
       if (gm < m && gk < k)
         load8<XT>(x + (size_t)gm * k + gk, gk, k, vec && gk + 8 <= k, kFused ? sx_s[r] : 1.f,
                   lo, hi);
-      xe[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x6420));
-      xo[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x7531));
+      if (kBytes) {
+        // run wi is words 2(wi%4), 2(wi%4)+1 of lane wi/4's eight: the first
+        // four words of a lane go to xe, the last four to xo
+        const int w = 2 * (wi % 4);
+        int32_t* dst = (w < 4 ? xe[r] : xo[r]) + (wi / 4) * 4 + (w & 3);
+        dst[0] = static_cast<int32_t>(lo);
+        dst[1] = static_cast<int32_t>(hi);
+      } else {
+        xe[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x6420));
+        xo[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x7531));
+      }
     }
     __syncthreads();
     if (!active) continue;
-    const int kn = k0 + kChunk;
-    const uint4 wnext = kn < kp ? *reinterpret_cast<const uint4*>(row_codes + kn / 8 + lane * 4)
-                                : make_uint4(0u, 0u, 0u, 0u);
-    const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
-    int ce[4], co[4];
+    uint4 wnext[2];
+    load_lane<kBytes>(row_codes, k0 + kChunk, lane, kp, wnext);
+    const uint32_t w0[4] = {wv[0].x, wv[0].y, wv[0].z, wv[0].w};
+    const uint32_t w1[4] = {wv[1].x, wv[1].y, wv[1].z, wv[1].w};
+    int ce[4], co[4];  // the codes that multiply xe and xo, four bytes each
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      ce[w] = static_cast<int>(words[w] & 0x0F0F0F0Fu);
-      co[w] = static_cast<int>((words[w] >> 4) & 0x0F0F0F0Fu);
+      ce[w] = static_cast<int>(kBytes ? w0[w] : w0[w] & 0x0F0F0F0Fu);
+      co[w] = static_cast<int>(kBytes ? w1[w] : (w0[w] >> 4) & 0x0F0F0F0Fu);
     }
     int P[MT], XS[MT];
 #pragma unroll
@@ -217,12 +260,13 @@ w4a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
       const bool real = g < num_groups;
       const float s = real ? scales[(size_t)g * n + row] : 0.f;
       const float z = real ? zeros[(size_t)g * n + row] : 0.f;
-      const float zz = z - 8.f * s;
+      const float zz = kBytes ? z : z - 8.f * s;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
         acc[i] = acc[i] + static_cast<float>(P[i]) * s + static_cast<float>(XS[i]) * zz;
     }
-    wv = wnext;
+    wv[0] = wnext[0];
+    wv[1] = wnext[1];
   }
   if (!active) return;
 
@@ -236,61 +280,83 @@ w4a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
   }
 }
 
-template <int MT, typename XT>
+template <int MT, typename XT, bool kBytes>
 void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
                int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
                cudaStream_t stream) {
   const dim3 grid((n + kWarps - 1) / kWarps, (m + MT - 1) / MT);
-  w4a8_kernel<MT, XT><<<grid, kThreads, 0, stream>>>(
+  a8_kernel<MT, XT, kBytes><<<grid, kThreads, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const int32_t*>(codes),
       static_cast<const float*>(scales), static_cast<const float*>(zeros), y, m, n, k, kw,
       group_size, num_groups, out_dtype);
 }
 
-template <typename XT>
+template <typename XT, bool kBytes>
 void launch_x(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
               cudaStream_t s) {
   if (m <= 1)
-    launch_mt<1, XT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s);
+    launch_mt<1, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                             out_dtype, s);
   else if (m <= 2)
-    launch_mt<2, XT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s);
+    launch_mt<2, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                             out_dtype, s);
   else if (m <= 4)
-    launch_mt<4, XT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s);
+    launch_mt<4, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                             out_dtype, s);
   else if (m <= 8)
-    launch_mt<8, XT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s);
+    launch_mt<8, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                             out_dtype, s);
   else
-    launch_mt<16, XT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype,
-                      s);
+    launch_mt<16, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                              out_dtype, s);
+}
+
+// x_dtype: 0 float32, 1 bfloat16, 3 int8. The external entry points take int8
+// x only, the fused ones float32 or bfloat16.
+template <bool kBytes>
+int launch_external(const void* x, const void* codes, const void* scales, const void* zeros,
+                    void* y, int m, int n, int k, int kw, int group_size, int num_groups,
+                    int x_dtype, int out_dtype, void* stream) {
+  if (x_dtype != 3) return static_cast<int>(cudaErrorInvalidValue);
+  launch_x<int8_t, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                           out_dtype, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBytes>
+int launch_fused(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
+                 int m, int n, int k, int kw, int group_size, int num_groups, int x_dtype,
+                 int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0)
+    launch_x<float, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                            out_dtype, s);
+  else if (x_dtype == 1)
+    launch_x<__nv_bfloat16, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size,
+                                    num_groups, out_dtype, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// x_dtype: 0 float32, 1 bfloat16, 3 int8 (w4a8 takes int8 only, w4a8_fused
-// float32 or bfloat16). out_dtype: 0 float32, 1 bfloat16, 2 float16.
-int w4a8(const void* x, const void* codes, const void* scales, const void* zeros, void* y, int m,
-         int n, int k, int kw, int group_size, int num_groups, int x_dtype, int out_dtype,
-         void* stream) {
-  if (x_dtype != 3) return static_cast<int>(cudaErrorInvalidValue);
-  launch_x<int8_t>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype,
-                   static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
+// kw: 32-bit words of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8).
+// out_dtype: 0 float32, 1 bfloat16, 2 float16.
+#define A8_ENTRY(NAME, LAUNCH, BYTES)                                                            \
+  int NAME(const void* x, const void* codes, const void* scales, const void* zeros, void* y,    \
+           int m, int n, int k, int kw, int group_size, int num_groups, int x_dtype,            \
+           int out_dtype, void* stream) {                                                       \
+    return LAUNCH<BYTES>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,       \
+                         x_dtype, out_dtype, stream);                                           \
+  }
 
-int w4a8_fused(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-               int m, int n, int k, int kw, int group_size, int num_groups, int x_dtype,
-               int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0)
-    launch_x<float>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s);
-  else if (x_dtype == 1)
-    launch_x<__nv_bfloat16>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                            out_dtype, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
+A8_ENTRY(w4a8, launch_external, false)
+A8_ENTRY(w4a8_fused, launch_fused, false)
+A8_ENTRY(w8a8, launch_external, true)
+A8_ENTRY(w8a8_fused, launch_fused, true)
 
 }  // extern "C"

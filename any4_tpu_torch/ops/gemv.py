@@ -1,7 +1,8 @@
-"""Fused 4-bit matmuls: wrappers of the CUDA kernels, their plain PyTorch
-versions and launch counts (counterpart of ``any4_tpu/ops/pallas/gemv.py``).
+"""Fused 4-bit and int8-weight matmuls: wrappers of the CUDA kernels, their
+plain PyTorch versions and launch counts (counterpart of
+``any4_tpu/ops/pallas/gemv.py``).
 
-Six kernels. In ``csrc/q4_lut_gemv.cu``, four modes of one body:
+Ten kernels. In ``csrc/q4_lut_gemv.cu``, six modes of one body:
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
@@ -21,23 +22,40 @@ Six kernels. In ``csrc/q4_lut_gemv.cu``, four modes of one body:
   function with the LUT value picked by 16 compare-selects instead of a
   table read; equal to kernel B bit for bit. Group sizes that are multiples
   of 128 (``linear(..., use_gather=False)``).
+- :func:`int8_post` replaces ``_int8q_kernel`` and ``_int8t_kernel``: bf16
+  x times the int8 codes converted to float (exact), f32 sums per 128-wide
+  slice, then ``y += P * s + sum(x) * z``. Group sizes that are multiples
+  of 128 (``int8q``/``int8t``/``int8g``).
+- :func:`int8_fused` replaces ``_int8_kernel``: kernel B's function with the
+  int8 code ``q`` in place of ``lut[c]``, each weight ``bf16(q * s + z)``
+  (one fused multiply-add), then the dot in f32. Group sizes of 16 or more
+  that divide 128 or are multiples of it (row-layout ``int8``).
 
-In ``csrc/w4a8_gemv.cu``, two entry points of one body (the int4 codes of
-the ``w4a8`` format times int8 activations, exact int32 dots per 128-wide
-slice, ``y += P * s + sum(xq) * (z - 8 s)`` in f32):
+In ``csrc/w4a8_gemv.cu``, four entry points of one body (int8 activations
+times 4-bit or int8 codes, exact int32 dots per 128-wide slice, then ``y +=
+P * s + sum(xq) * (z - 8 s)`` in f32 for the 4-bit codes and ``y += P * s +
+sum(xq) * z`` for the int8 ones):
 
 - :func:`w4a8` (kernel D) replaces ``_w4a8_kernel``: int8 x quantized
   outside (:func:`~.quant.quantize_activations`), f32 y that the caller
   multiplies by ``sx``;
 - :func:`w4a8_fused` (kernel D-fused) replaces ``_w4a8f_kernel``: float x
   as it comes, quantized per row inside the kernel with the same math, and
-  ``y * sx`` written in ``out_dtype``.
+  ``y * sx`` written in ``out_dtype``;
+- :func:`w8a8` replaces ``_w8a8_kernel``, ``_w8a8q_kernel`` and
+  ``_w8a8t_kernel``: kernel D on int8 codes;
+- :func:`w8a8_fused` replaces ``_w8a8f_kernel``, ``_w8a8qf_kernel`` and
+  ``_w8a8tf_kernel``: kernel D-fused on int8 codes.
 
-Operands (the layout of :mod:`.packing`): ``packed [n, kp/8]`` int32,
-``scales``/``zeros`` ``[kp/g, n]`` f32, ``lut`` ``[n, 16]`` (per row) or
-``[1, 16]`` (global) f32, centered. ``x`` is ``[m, k]`` with ``k <= kp``;
-the q4 kernels cast it to bf16 first, as the TPU wrapper does, and the
-W4A8 kernels keep its precision.
+The TPU kernels that one Hopper kernel replaces compute the same numbers
+over different TPU layouts; the port has one layout per code width.
+
+Operands (the layouts of :mod:`.packing`): ``packed [n, kp/8]`` int32 or,
+for the four int8-weight kernels, ``[n, kp]`` int8; ``scales``/``zeros``
+``[kp/g, n]`` f32, ``lut`` ``[n, 16]`` (per row) or ``[1, 16]`` (global)
+f32, centered. ``x`` is ``[m, k]`` with ``k <= kp``; the kernels with
+float activations cast it to bf16 first, as the TPU wrapper does, and the
+W4A8 and W8A8 kernels keep its precision.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Each launch adds one to
@@ -53,20 +71,23 @@ from . import build
 from .packing import PACK_BLOCK, unpack_codes
 from .quant import fma, quantize_activations
 
-LAUNCHES = {"q4_lut_post": 0, "q4_lut_fused": 0, "q4_int4_magic": 0,
-            "q4_lut_select": 0, "w4a8": 0, "w4a8_fused": 0}
 _SOURCES = {"q4_lut_post": "q4_lut_gemv.cu", "q4_lut_fused": "q4_lut_gemv.cu",
             "q4_int4_magic": "q4_lut_gemv.cu",
             "q4_lut_select": "q4_lut_gemv.cu",
-            "w4a8": "w4a8_gemv.cu", "w4a8_fused": "w4a8_gemv.cu"}
+            "int8_post": "q4_lut_gemv.cu", "int8_fused": "q4_lut_gemv.cu",
+            "w4a8": "w4a8_gemv.cu", "w4a8_fused": "w4a8_gemv.cu",
+            "w8a8": "w4a8_gemv.cu", "w8a8_fused": "w4a8_gemv.cu"}
+LAUNCHES = {name: 0 for name in _SOURCES}
+# the kernels that read int8 codes [n, kp]; the others read 4-bit words
+BYTE_KERNELS = ("int8_post", "int8_fused", "w8a8", "w8a8_fused")
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W4A8_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
 _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
-# Largest m whose activations the w4a8 kernel quantizes itself. 64 is the
-# TPU kernel's VMEM budget for a whole activation row; it is kept so that
-# routing and launch counts match the JAX package, and is not a Hopper
-# measurement.
+# Largest m whose activations the W4A8 and W8A8 kernels quantize
+# themselves. 64 is the TPU kernel's VMEM budget for a whole activation
+# row; it is kept so that routing and launch counts match the JAX package,
+# and is not a Hopper measurement.
 FUSED_ACT_M_MAX = 64
 SLICE = 128          # k per post-dot affine (one TPU lane plane)
 # the uniform int4 codebook, centered: code c reconstructs as (c - 8) s + z
@@ -161,43 +182,71 @@ def _slice_affine(P, xs, scales, zeros, group_size, zero_shift):
     return (P * s + xs[..., None] * (z - zero_shift * s)).sum(dim=1)
 
 
+def _slice_dot(x, v, scales, zeros, group_size, zero_shift, x_dtype):
+    """x rounded to ``x_dtype`` times the weight values ``v [n, >= kp]``
+    per 128-wide slice in f32, then :func:`_slice_affine`."""
+    m, n = x.shape[0], v.shape[0]
+    S = scales.shape[0] * group_size // SLICE
+    xs = _x_groups(x, S, SLICE, x_dtype).reshape(m, S, SLICE)
+    P = torch.einsum("msk,nsk->msn", xs, v[:, :S * SLICE].reshape(n, S, SLICE))
+    return _slice_affine(P, xs.sum(dim=-1), scales, zeros, group_size,
+                         zero_shift)
+
+
 def q4_int4_magic_plain(x, packed, scales, zeros, lut, group_size,
                         out_dtype):
     """Kernel C's function in plain PyTorch: the dot of bf16 x with the
     ``128 + c`` weights in f32, then ``P * s + sum(x) * (z - 136 s)`` per
     128-wide slice (``lut`` is not read)."""
-    m, n = x.shape[0], packed.shape[0]
     S = scales.shape[0] * group_size // SLICE
     v = unpack_codes(packed, S * SLICE).float().add_(128.0)
-    xb = _x_groups(x, S, SLICE).reshape(m, S, SLICE)
-    P = torch.einsum("msk,nsk->msn", xb, v.reshape(n, S, SLICE))
-    return _slice_affine(P, xb.sum(dim=-1), scales, zeros, group_size,
-                         136.0).to(out_dtype)
+    return _slice_dot(x, v, scales, zeros, group_size, 136.0,
+                      torch.bfloat16).to(out_dtype)
 
 
-def _w4a8_dot(xq, packed, scales, zeros, group_size):
+def int8_post_plain(x, packed, scales, zeros, group_size, out_dtype):
+    """``int8_post``'s function in plain PyTorch: the dot of bf16 x with the
+    int8 codes in f32, then ``P * s + sum(x) * z`` per 128-wide slice."""
+    return _slice_dot(x, packed.float(), scales, zeros, group_size, 0.0,
+                      torch.bfloat16).to(out_dtype)
+
+
+def int8_fused_plain(x, packed, scales, zeros, group_size, out_dtype):
+    """``int8_fused``'s function in plain PyTorch: kernel B's with the code
+    ``q`` in place of ``lut[c]``, each weight ``bf16(q * s + z)``."""
+    return _fused_table_matmul(x, packed.float(), scales, zeros, group_size,
+                               out_dtype)
+
+
+def _act_dot(xq, packed, scales, zeros, group_size):
     """int8 ``xq`` times the codes per 128-wide slice (exact: every partial
-    sum is an integer below 2^24), then ``P * s + sum(xq) * (z - 8 s)`` in
-    f32."""
-    m, n = xq.shape[0], packed.shape[0]
+    sum is an integer below 2^24), then ``P * s + sum(xq) * (z - 8 s)``
+    (4-bit codes ``c``) or ``P * s + sum(xq) * z`` (int8 codes) in f32."""
+    if packed.dtype == torch.int8:
+        return _slice_dot(xq, packed.float(), scales, zeros, group_size, 0.0,
+                          torch.float32)
     S = scales.shape[0] * group_size // SLICE
-    c = unpack_codes(packed, S * SLICE).float().reshape(n, S, SLICE)
-    xf = _x_groups(xq, S, SLICE, torch.float32).reshape(m, S, SLICE)
-    P = torch.einsum("msk,nsk->msn", xf, c)
-    return _slice_affine(P, xf.sum(dim=-1), scales, zeros, group_size, 8.0)
+    c = unpack_codes(packed, S * SLICE).float()
+    return _slice_dot(xq, c, scales, zeros, group_size, 8.0, torch.float32)
 
 
 def w4a8_plain(x, packed, scales, zeros, group_size, out_dtype):
-    """Kernel D's function in plain PyTorch (int8 ``x``)."""
-    return _w4a8_dot(x, packed, scales, zeros, group_size).to(out_dtype)
+    """Kernel D's function in plain PyTorch (int8 ``x``); ``w8a8``'s on int8
+    codes."""
+    return _act_dot(x, packed, scales, zeros, group_size).to(out_dtype)
 
 
 def w4a8_fused_plain(x, packed, scales, zeros, group_size, out_dtype):
     """Kernel D-fused's function in plain PyTorch: the row quantization of
-    :func:`~.quant.quantize_activations`, kernel D's dot, then ``y * sx``."""
+    :func:`~.quant.quantize_activations`, kernel D's dot, then ``y * sx``;
+    ``w8a8_fused``'s on int8 codes."""
     xq, sx = quantize_activations(x)
-    y = _w4a8_dot(xq, packed, scales, zeros, group_size)
+    y = _act_dot(xq, packed, scales, zeros, group_size)
     return (y * sx).to(out_dtype)
+
+
+w8a8_plain = w4a8_plain
+w8a8_fused_plain = w4a8_fused_plain
 
 
 def _fn(name):
@@ -209,7 +258,8 @@ def _fn(name):
 
 def _check_operands(name, x, packed, scales, zeros, lut, out_dtype):
     """Devices, types, shapes and contiguity the kernels take; raises on
-    anything else. Returns ``(n, kw, G)``."""
+    anything else. Returns ``(n, kw, G)``, ``kw`` the 32-bit words of a
+    packed row."""
     dev = x.device
     for t, nm in ((packed, "packed"), (scales, "scales"), (zeros, "zeros"),
                   (lut, "lut")):
@@ -221,10 +271,13 @@ def _check_operands(name, x, packed, scales, zeros, lut, out_dtype):
             raise ValueError(f"{name}: {nm} must be contiguous")
     n, kw = packed.shape
     G = scales.shape[0]
-    if packed.dtype != torch.int32 or (kw * 8) % PACK_BLOCK:
-        raise ValueError(f"{name}: packed must be int32 [n, kp/8] with kp a "
-                         f"multiple of {PACK_BLOCK}, got {packed.dtype} "
-                         f"{tuple(packed.shape)}")
+    dtype, per_word = ((torch.int8, 1) if name in BYTE_KERNELS
+                       else (torch.int32, 8))
+    kp = kw * per_word
+    if packed.dtype != dtype or kp % PACK_BLOCK:
+        raise ValueError(f"{name}: packed must be {dtype} [n, kp/{per_word}] "
+                         f"with kp a multiple of {PACK_BLOCK}, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32 \
             or scales.shape != (G, n) or zeros.shape != (G, n):
         raise ValueError(f"{name}: scales/zeros must be f32 [kp/g, n={n}]")
@@ -236,9 +289,9 @@ def _check_operands(name, x, packed, scales, zeros, lut, out_dtype):
         raise ValueError(f"{name}: unsupported output dtype {out_dtype}")
     if packed.data_ptr() % 16:
         raise ValueError(f"{name}: packed must be 16-byte aligned")
-    if x.shape[1] > kw * 8:
-        raise ValueError(f"{name}: x has k={x.shape[1]} > packed kp={kw * 8}")
-    return n, kw, G
+    if x.shape[1] > kp:
+        raise ValueError(f"{name}: x has k={x.shape[1]} > packed kp={kp}")
+    return n, kp // (4 if name in BYTE_KERNELS else 8), G
 
 
 def _launch_q4(name, x, packed, scales, zeros, lut, group_size, out_dtype):
@@ -268,7 +321,7 @@ def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
     if x.dtype == torch.float16:
         x = x.float()          # exact; the kernel reads bf16, f32 or int8
     if x.dtype not in _W4A8_X_DTYPES or \
-            (x.dtype == torch.int8) != (name == "w4a8"):
+            (x.dtype == torch.int8) != (name in ("w4a8", "w8a8")):
         raise ValueError(f"{name}: unsupported x dtype {x.dtype}")
     x = x.contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -282,6 +335,11 @@ def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
     return y
+
+
+def _launch_int8(name, x, packed, scales, zeros, group_size, out_dtype):
+    return _launch_q4(name, x, packed, scales, zeros, None, group_size,
+                      out_dtype)
 
 
 def _dispatch(name, plain, launch, x, *args):
@@ -341,6 +399,39 @@ def w4a8_fused(x, packed, scales, zeros, group_size, out_dtype):
                      scales, zeros, group_size, out_dtype)
 
 
+def w8a8(x, packed, scales, zeros, group_size, out_dtype=torch.float32):
+    """``w8a8`` on int8 ``x [m, k]`` and int8 codes; returns ``[m, n]`` (the
+    caller multiplies by the activation scales)."""
+    _need_group("w8a8", group_size, SLICE)
+    return _dispatch("w8a8", w8a8_plain, _launch_w4a8, x, packed, scales,
+                     zeros, group_size, out_dtype)
+
+
+def w8a8_fused(x, packed, scales, zeros, group_size, out_dtype):
+    """``w8a8_fused`` on float ``x [m, k]`` and int8 codes; returns
+    ``[m, n]``."""
+    _need_group("w8a8_fused", group_size, SLICE)
+    return _dispatch("w8a8_fused", w8a8_fused_plain, _launch_w4a8, x, packed,
+                     scales, zeros, group_size, out_dtype)
+
+
+def int8_post(x, packed, scales, zeros, group_size, out_dtype):
+    """``int8_post`` on ``x [m, k]`` and int8 codes; returns ``[m, n]``."""
+    _need_group("int8_post", group_size, SLICE)
+    return _dispatch("int8_post", int8_post_plain, _launch_int8, x, packed,
+                     scales, zeros, group_size, out_dtype)
+
+
+def int8_fused(x, packed, scales, zeros, group_size, out_dtype):
+    """``int8_fused`` on ``x [m, k]`` and int8 codes; returns ``[m, n]``.
+    Group sizes of 16 or more that divide 128 or are multiples of it."""
+    if group_size < 16 or (SLICE % group_size and group_size % SLICE):
+        raise ValueError(f"int8_fused needs a group_size >= 16 that divides "
+                         f"{SLICE} or is a multiple of it, got {group_size}")
+    return _dispatch("int8_fused", int8_fused_plain, _launch_int8, x, packed,
+                     scales, zeros, group_size, out_dtype)
+
+
 def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
                      scales: torch.Tensor, zeros: torch.Tensor,
                      lut: Optional[torch.Tensor] = None, *, group_size: int,
@@ -354,6 +445,11 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     - ``int4p``: kernel C;
     - ``w4a8``: kernel D for int8 x, kernel D-fused for float x (at most
       :data:`FUSED_ACT_M_MAX` rows);
+    - ``w8a8``/``w8a8q``/``w8a8t``/``w8a8g``: :func:`w8a8` for int8 x,
+      :func:`w8a8_fused` for float x (at most :data:`FUSED_ACT_M_MAX`
+      rows);
+    - ``int8q``/``int8t``/``int8g``: :func:`int8_post`;
+    - ``int8`` (row layout): :func:`int8_fused`;
     - ``any4``/``lut4``/``int4`` (row layout): kernel E with
       ``use_gather=False``; else kernel A for ``any4``/``lut4`` at
       ``g % 128 == 0`` and kernel B otherwise, int4 with the ramp LUT.
@@ -366,16 +462,22 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         y = q4_lut_post(x2, packed, scales, zeros, lut, g, out_dtype)
     elif fmt == "int4p":
         y = q4_int4_magic(x2, packed, scales, zeros, g, out_dtype)
-    elif fmt == "w4a8":
+    elif fmt in ("w4a8", "w8a8", "w8a8q", "w8a8t", "w8a8g"):
+        ext, fused = (w4a8, w4a8_fused) if fmt == "w4a8" \
+            else (w8a8, w8a8_fused)
         if x2.dtype == torch.int8:
-            y = w4a8(x2, packed, scales, zeros, g, out_dtype)
+            y = ext(x2, packed, scales, zeros, g, out_dtype)
         else:
             if x2.shape[0] > FUSED_ACT_M_MAX:
                 raise ValueError(
-                    f"w4a8 quantizes activations in the kernel only up to "
+                    f"{fmt} quantizes activations in the kernel only up to "
                     f"m={FUSED_ACT_M_MAX}; quantize them first "
                     f"(quantize_activations) for m={x2.shape[0]}")
-            y = w4a8_fused(x2, packed, scales, zeros, g, out_dtype)
+            y = fused(x2, packed, scales, zeros, g, out_dtype)
+    elif fmt in ("int8q", "int8t", "int8g"):
+        y = int8_post(x2, packed, scales, zeros, g, out_dtype)
+    elif fmt == "int8":
+        y = int8_fused(x2, packed, scales, zeros, g, out_dtype)
     elif fmt in ("any4", "lut4", "int4"):
         if fmt == "int4":
             lut = int4_ramp(x.device)
@@ -386,7 +488,5 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         else:
             y = q4_lut_fused(x2, packed, scales, zeros, lut, g, out_dtype)
     else:
-        raise NotImplementedError(
-            f"kernel format {fmt!r} is not ported yet (ROADMAP queue 1, "
-            f"item 8)")
+        raise ValueError(f"unknown kernel format {fmt!r}")
     return y.reshape(*lead, packed.shape[0])

@@ -13,15 +13,27 @@ Formats ported so far:
   ``group_size % 128 == 0`` unless ``layout="row"``;
 - ``int4`` (uniform, no LUT), renamed to ``int4p`` when ``g % 128 == 0``,
   ``n`` is even and the layout is not ``"row"``;
-- ``w4a8``: int4 weights with activations quantized per row to int8.
+- ``w4a8``: int4 weights with activations quantized per row to int8;
+- the int8-weight formats: ``int8`` (weight only), ``w8a8`` (activations
+  quantized per row to int8 as well) and ``any4q8`` (the any4 per-row LUT
+  snapped to an int8 grid, codes materialized as int8), with the TPU
+  layout names ``int8q``/``w8a8q`` (quad words), ``int8t``/``w8a8t``
+  (transposed) and ``int8g``/``w8a8g``/``any4q8g`` (grouped). As in the JAX
+  package, ``int8``/``w8a8``/``any4q8`` are renamed by k at ``g % 128 ==
+  0`` unless ``layout="row"``: to the ``q`` names (``any4q8`` keeps its
+  name) at ``k < 4096`` with ``n % 4 == 0``, else to the ``g`` names.
 
 The name records which TPU layout a weight came from or goes back to; in
-the port every name shares one Hopper layout (:mod:`.packing`). The
-kernels, by :func:`_kernel_fmt` and :func:`.gemv.quantized_matmul`: kernel
-A for the ``t`` formats and the row LUT formats at ``g % 128 == 0``,
-kernel B below that and for row-layout ``int4`` at every g, kernel C for
-``int4p``, kernels D/D-fused for ``w4a8``, kernel E for the row-layout
-formats with ``use_gather=False``.
+the port every name shares one Hopper layout per code width
+(:mod:`.packing`). The kernels, by :func:`_kernel_fmt` and
+:func:`.gemv.quantized_matmul`: kernel A for the ``t`` formats and the row
+LUT formats at ``g % 128 == 0``, kernel B below that and for row-layout
+``int4`` at every g, kernel C for ``int4p``, kernels D/D-fused for
+``w4a8``, kernel E for the row-layout formats with ``use_gather=False``;
+``w8a8``/``w8a8_fused`` for ``w8a8``/``w8a8q``/``w8a8t``/``any4q8`` and for
+``w8a8g``/``any4q8g`` up to ``_XLA_GROUPED_M_MAX`` rows, ``int8_post`` for
+``int8q``/``int8t`` and for ``int8g`` up to that many rows, and
+``int8_fused`` for ``int8``. The grouped formats dequantize above it.
 """
 from __future__ import annotations
 
@@ -43,6 +55,11 @@ FUSED_M_MAX = 512
 # k <= 4096, else 512). Kept so that routing and launch counts match the
 # JAX package; not a Hopper measurement.
 _INT8_M_TILE = 512
+# Largest m of the grouped int8 formats' kernel route; above it they
+# dequantize and run a float matmul. 128 is where the TPU's batched int8 dot
+# lost to that; kept so that routing and launch counts match the JAX
+# package, and not a Hopper measurement.
+_XLA_GROUPED_M_MAX = 128
 
 
 def _int8_m_tile(k: int) -> int:
@@ -50,8 +67,21 @@ def _int8_m_tile(k: int) -> int:
 
 
 LUT_FMTS = ("any4", "any4t", "nf4", "nf4t", "fp4", "fp4t")
+TRANSPOSED_LUT_FMTS = ("any4t", "nf4t", "fp4t")
 INT_FMTS = ("int4", "int4p", "w4a8")
-FMTS = LUT_FMTS + INT_FMTS
+GROUPED_FMTS = ("w8a8g", "int8g", "any4q8g")
+INT8_FMTS = ("int8", "int8q", "int8t", "w8a8", "w8a8q", "w8a8t",
+             "any4q8") + GROUPED_FMTS
+# formats whose activations are quantized to int8: their kernels run at
+# every m, as in the JAX package (the grouped ones up to _XLA_GROUPED_M_MAX)
+ACT_INT8_FMTS = ("w4a8", "w8a8", "w8a8q", "w8a8t", "any4q8", "w8a8g",
+                 "any4q8g")
+FMTS = LUT_FMTS + INT_FMTS + INT8_FMTS
+# which formats take int_zeros and scale_only, after the renames (the JAX
+# package's lists; the q names take neither)
+_INT_ZEROS_FMTS = ("int4", "int4p", "w4a8", "int8", "w8a8", "w8a8t", "int8t",
+                   "w8a8g", "int8g")
+_SCALE_ONLY_FMTS = _INT_ZEROS_FMTS + ("any4", "any4t", "any4q8", "any4q8g")
 
 
 @dataclass
@@ -60,7 +90,9 @@ class QuantizedTensor:
 
     Fields:
       packed: ``[n, kp/8] int32`` codes, 8 consecutive k per word
-              (:func:`~.packing.pack_codes`), ``kp = padded_k(k)``.
+              (:func:`~.packing.pack_codes`), ``kp = padded_k(k)``, for the
+              4-bit formats; ``[n, kp] int8`` centered codes
+              (:func:`~.packing.pack_codes8`) for the int8 formats.
       scales: ``[kp/g, n] f32`` group scales (the JAX package's layout).
       zeros:  ``[kp/g, n] f32`` group zeros (0 for the absmax formats).
       lut:    ``[n, 16]`` per-row or ``[1, 16]`` global f32 table, centered
@@ -68,7 +100,7 @@ class QuantizedTensor:
               Always row-oriented here, whatever the format name; the JAX
               package keeps ``any4t``'s as ``[16, n]``.
     Reconstruction: ``lut[row, code] * scale + zero``, ``(code - 8) * scale
-    + zero`` without a LUT.
+    + zero`` without a LUT, ``q * scale + zero`` for int8 codes ``q``.
     """
     packed: torch.Tensor
     scales: torch.Tensor
@@ -93,28 +125,31 @@ def _check_fmt(fmt: str) -> None:
             f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
 
 
+# weight format -> kernel format, where they differ whatever the LUT
+_KERNEL_FMTS = {"nf4": "lut4", "fp4": "lut4", "nf4t": "lut4t",
+                "fp4t": "lut4t", "any4q8": "w8a8q", "any4q8g": "w8a8g"}
+
+
 def _kernel_fmt(fmt: str, lut: Optional[torch.Tensor] = None) -> str:
     """The kernel format of a weight format, as the JAX package names it:
-    ``lut4``/``lut4t`` for a global table, the format itself otherwise."""
-    if fmt in ("nf4", "fp4") or (fmt == "any4" and lut is not None
-                                 and lut.shape[0] == 1):
-        return "lut4"
-    if fmt in ("nf4t", "fp4t") or (fmt == "any4t" and lut is not None
-                                   and lut.shape[0] == 1):
-        return "lut4t"
-    return fmt
+    ``lut4``/``lut4t`` for a global table, ``w8a8q``/``w8a8g`` for
+    ``any4q8``/``any4q8g`` (whose LUT became int8 codes at pack time), the
+    format itself otherwise."""
+    if fmt in ("any4", "any4t") and lut is not None and lut.shape[0] == 1:
+        return "lut4" if fmt == "any4" else "lut4t"
+    return _KERNEL_FMTS.get(fmt, fmt)
 
 
 def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
                     row_shards: int = 1, **kwargs) -> QuantizedTensor:
     """Quantize a 2-D weight ``[n, k]`` on its own device.
 
-    ``kwargs`` go to the any4 learner for the any4 formats (sample_weight,
-    init, kmeans_iters, keep_outliers, ...) and are not read by the others;
-    ``layout="row"`` keeps the ``any4``/``nf4``/``fp4``/``int4`` name at
-    ``g % 128 == 0``. ``scale_only`` (symmetric) applies to any4 and the
-    integer formats, ``int_zeros`` (integer zero points) to the integer
-    formats.
+    ``kwargs`` go to the any4 learner for the any4 formats and ``any4q8``
+    (sample_weight, init, kmeans_iters, keep_outliers, ...) and are not read
+    by the others; ``layout="row"`` keeps the ``any4``/``nf4``/``fp4``/
+    ``int4``/``int8``/``w8a8``/``any4q8`` name at ``g % 128 == 0``.
+    ``scale_only`` (symmetric) and ``int_zeros`` (integer zero points)
+    apply to the formats the JAX package takes them for, after its renames.
     """
     from ..quant import anyq  # anyq imports this package's ops
 
@@ -130,17 +165,26 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
     n, k = w.shape
     if group_size <= 0 or group_size > k:
         group_size = k      # whole-row grouping for a layer narrower than g
+    if fmt in ("int8", "w8a8", "any4q8") and layout != "row" \
+            and group_size % 128 == 0:
+        # the JAX package's k-dependent rename
+        if k >= 4096 or n % 4:
+            fmt = {"int8": "int8g", "w8a8": "w8a8g", "any4q8": "any4q8g"}[fmt]
+        elif fmt != "any4q8":
+            fmt += "q"
     symmetric = bool(kwargs.pop("scale_only", False))
     int_zeros = bool(kwargs.pop("int_zeros", False))
-    if int_zeros and fmt not in INT_FMTS:
-        raise ValueError(f"int_zeros applies to int formats, not {fmt!r}")
+    if int_zeros and fmt not in _INT_ZEROS_FMTS:
+        raise ValueError(f"int_zeros does not apply to {fmt!r}")
+    if symmetric and fmt not in _SCALE_ONLY_FMTS:
+        raise ValueError(f"scale_only does not apply to {fmt!r}")
     if fmt in INT_FMTS:
         return _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros)
-    base = fmt.rstrip("t")
-    if symmetric and base != "any4":
-        raise ValueError(f"scale_only applies to int/any4 formats, not "
-                         f"{fmt!r}")
-    if group_size % 128 == 0 and (fmt.endswith("t") or layout != "row"):
+    if fmt in INT8_FMTS:
+        return _quantize_int8(w, fmt, group_size, symmetric, int_zeros,
+                              kwargs)
+    base = fmt[:-1] if fmt in TRANSPOSED_LUT_FMTS else fmt
+    if group_size % 128 == 0 and (fmt != base or layout != "row"):
         fmt = base + "t"
     else:
         fmt = base          # sub-128 groups have no transposed TPU layout
@@ -157,10 +201,14 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
 
 
 def _packed(codes, scales, zeros, lut, fmt, group_size, dtype):
+    """Codes (uint8 4-bit or int8) in the Hopper layout of their width and
+    the group arrays padded and transposed to ``[kp/g, n]``."""
     n, k = codes.shape
     scales = packing.pad_groups(scales, k, group_size)
     zeros = packing.pad_groups(zeros, k, group_size)
-    return QuantizedTensor(packing.pack_codes(codes), scales.t().contiguous(),
+    pack = packing.pack_codes8 if codes.dtype == torch.int8 \
+        else packing.pack_codes
+    return QuantizedTensor(pack(codes), scales.t().contiguous(),
                            zeros.t().contiguous(), lut, fmt, group_size,
                            (n, k), dtype, 1)
 
@@ -184,17 +232,58 @@ def _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros):
     return _packed(codes, scales, zeros, None, fmt, group_size, w.dtype)
 
 
+def snap_lut8(lutc: torch.Tensor):
+    """any4q8's snap of a centered LUT ``[n|1, 16]`` to an int8 grid:
+    ``sr = max(max|lut|, 1e-12) / 127`` per row and ``lut8 = clip(round(lut
+    / sr), -127, 127)``, each division rounded once (:func:`~.quant.div`).
+    Returns ``(lut8 f32, sr [n|1, 1])``."""
+    sr = quant.div(torch.clamp(lutc.abs().amax(dim=1, keepdim=True),
+                               min=1e-12), 127.0)
+    return torch.clamp(torch.round(quant.div(lutc, sr)), -127.0, 127.0), sr
+
+
+def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs):
+    """The int8-weight formats: centered int8 group codes
+    (:func:`~.quant.int8_quantize`), or for ``any4q8``/``any4q8g`` the any4
+    LUT snapped to an int8 grid (:func:`snap_lut8`), the codes materialized
+    as ``lut8[code]`` and ``sr`` folded into the group scales. The format
+    checks are the JAX package's."""
+    from ..quant import anyq  # anyq imports this package's ops
+
+    n = w.shape[0]
+    if fmt not in ("int8", "int8t", "w8a8t") and group_size % 128:
+        raise ValueError(f"{fmt} requires group_size a multiple of 128, got "
+                         f"{group_size}")
+    if fmt in ("int8q", "w8a8q", "any4q8") and n % 4:
+        raise ValueError(f"{fmt} quad packing requires n % 4 == 0, got {n}")
+    if fmt not in ("any4q8", "any4q8g"):
+        q, scales, zeros = quant.int8_quantize(
+            w, group_size, symmetric=symmetric, int_zeros=int_zeros)
+        return _packed(q, scales, zeros, None, fmt, group_size, w.dtype)
+    codes, lut01, scales, zeros = anyq.any4_quantize(
+        w, n_bit=4, group_size=group_size, scale_only=symmetric, **kwargs)
+    lut8, sr = snap_lut8((lut01 - 8.0).float())
+    lut8, sr = lut8.expand(n, 16), sr.expand(n, 1)       # a global LUT too
+    q8 = torch.gather(lut8, 1, codes.long()).to(torch.int8)
+    return _packed(q8, scales * sr, zeros, None, fmt, group_size, w.dtype)
+
+
 def dequantize_tensor(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
-    """Reconstruct the dense weight ``[n, k]``: ``lut[code] * s + z`` (or
-    ``(code - 8) * s + z`` without a LUT) in f32, a multiply and then an
-    add, cast to ``dtype`` (default: the weight's)."""
+    """Reconstruct the dense weight ``[n, k]``: ``lut[code] * s + z``,
+    ``(code - 8) * s + z`` without a LUT, or ``q * s + z`` for int8 codes,
+    in f32, a multiply and then an add, cast to ``dtype`` (default: the
+    weight's)."""
     n, k = qt.shape
-    kp = qt.packed.shape[1] * packing.CODES_PER_WORD
-    codes = packing.unpack_codes(qt.packed, kp).long()
-    if qt.lut is None:
-        q = (codes - 8).float()
+    if qt.packed.dtype == torch.int8:
+        q = qt.packed.float()
+        kp = q.shape[1]
     else:
-        q = torch.gather(qt.lut.float().expand(n, 16), 1, codes)
+        kp = qt.packed.shape[1] * packing.CODES_PER_WORD
+        codes = packing.unpack_codes(qt.packed, kp).long()
+        if qt.lut is None:
+            q = (codes - 8).float()
+        else:
+            q = torch.gather(qt.lut.float().expand(n, 16), 1, codes)
     g = qt.group_size
     scales = torch.repeat_interleave(qt.scales.t(), g, dim=1)[:, :kp]
     zeros = torch.repeat_interleave(qt.zeros.t(), g, dim=1)[:, :kp]
@@ -208,21 +297,32 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     """``y = x @ W^T + bias`` where ``w`` is dense ``[n, k]`` or a
     :class:`QuantizedTensor`.
 
-    ``w4a8`` runs its kernel at every m: up to ``gemv.FUSED_ACT_M_MAX``
-    rows in one call that quantizes the activations itself, above that
-    after :func:`quantize_activations`, in chunks of ``_int8_m_tile(k)``
-    rows once m exceeds ``max(fused_m_max, _int8_m_tile(k))``. The other
-    formats run the fused kernel for ``m <= fused_m_max`` rows in one call,
-    larger ``m`` in chunks of ``fused_m_max`` rows, and ``fused_m_max=0``
-    dequantizes and runs a plain matmul. ``use_gather=False`` takes the
-    select-LUT kernel for the row-layout 4-bit formats.
+    The formats that quantize activations (``w4a8``, ``w8a8``/``w8a8q``/
+    ``w8a8t``, ``any4q8``) run their kernel at every m: up to
+    ``gemv.FUSED_ACT_M_MAX`` rows in one call that quantizes the activations
+    itself, above that after :func:`quantize_activations`, in chunks of
+    ``_int8_m_tile(k)`` rows once m exceeds ``max(fused_m_max,
+    _int8_m_tile(k))``. The grouped int8 formats run their kernel after
+    :func:`quantize_activations` (``w8a8g``/``any4q8g``) or on x as it comes
+    (``int8g``) up to ``_XLA_GROUPED_M_MAX`` rows and dequantize above it.
+    The other formats run the fused kernel for ``m <= fused_m_max`` rows in
+    one call, larger ``m`` in chunks of ``fused_m_max`` rows, and
+    ``fused_m_max=0`` dequantizes and runs a plain matmul.
+    ``use_gather=False`` takes the select-LUT kernel for the row-layout
+    4-bit formats.
     """
+    m = x.numel() // x.shape[-1]
     if not isinstance(w, QuantizedTensor):
         y = torch.matmul(x, w.to(x.dtype).t())
-    elif w.fmt == "w4a8":
-        y = _w4a8_linear(x, w, fused_m_max)
+    elif w.fmt in GROUPED_FMTS and m > _XLA_GROUPED_M_MAX:
+        y = torch.matmul(x, dequantize_tensor(w, dtype=x.dtype).t())
+    elif w.fmt in ACT_INT8_FMTS:
+        y = _act_int8_linear(x, w, fused_m_max)
+    elif w.fmt == "int8g":
+        y = gemv.quantized_matmul(x, w.packed, w.scales, w.zeros,
+                                  group_size=w.group_size, out_dtype=x.dtype,
+                                  fmt="int8g")
     elif fused_m_max > 0:
-        m = x.numel() // x.shape[-1]
         kfmt = _kernel_fmt(w.fmt, w.lut)
 
         def mm(xc):
@@ -249,15 +349,16 @@ def _chunked(mm, x, m, one_call_max, tile, n):
     return y.reshape(*x.shape[:-1], n)
 
 
-def _w4a8_linear(x, w, fused_m_max):
+def _act_int8_linear(x, w, fused_m_max):
     m = x.numel() // x.shape[-1]
+    kfmt = _kernel_fmt(w.fmt)
 
     def mm(xc, out_dtype):
         return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
                                      group_size=w.group_size,
-                                     out_dtype=out_dtype, fmt="w4a8")
+                                     out_dtype=out_dtype, fmt=kfmt)
 
-    if m <= gemv.FUSED_ACT_M_MAX:
+    if m <= gemv.FUSED_ACT_M_MAX and w.fmt not in GROUPED_FMTS:
         return mm(x, x.dtype)
     xq, sx = quantize_activations(x)
     tile = _int8_m_tile(w.shape[1])

@@ -1,9 +1,11 @@
-"""4-bit code layouts: the port's own Hopper layout, and numpy copies of the
-TPU layouts used only to carry JAX tensors and checkpoints across.
+"""Code layouts: the port's own Hopper layouts, one per code width, and numpy
+copies of the TPU layouts used only to carry JAX tensors and checkpoints
+across.
 
-**The Hopper layout** (:func:`pack_codes` / :func:`unpack_codes`) is the one
-layout of every 4-bit format in the port, whatever TPU layout its format
-name records: the LUT formats (``csrc/q4_lut_gemv.cu`` kernels A, B and E),
+**The 4-bit Hopper layout** (:func:`pack_codes` / :func:`unpack_codes`) is
+the one layout of every 4-bit format in the port, whatever TPU layout its
+format name records: the LUT formats (``csrc/q4_lut_gemv.cu`` kernels A, B
+and E),
 uniform int4 (``int4``/``int4p``, kernel C there) and W4A8 (``w4a8``,
 ``csrc/w4a8_gemv.cu``). One warp per weight row reads contiguous k, so a
 word of 8 consecutive k serves all of them: ``(w >> 4p) & 0x000F000F |
@@ -23,6 +25,15 @@ lanes.
 - padded codes are 0 and the padded groups' scales and zeros are 0, so a
   padded weight reconstructs to exactly 0.0 and adds nothing.
 
+**The int8 Hopper layout** (:func:`pack_codes8`) is the one layout of all
+ten int8-weight formats (``int8``/``int8q``/``int8t``/``int8g``,
+``w8a8``/``w8a8q``/``w8a8t``/``w8a8g``, ``any4q8``/``any4q8g``): the
+centered int8 codes ``[n, kp]``, row major, k contiguous, zero-padded to
+``kp``, with the padded groups' scales and zeros 0 as above. A lane of the
+kernels reads 32 consecutive k of a row as two 16-byte loads; the TPU's
+quad words, transposed and grouped arrays only tiled rows or k for its
+matrix unit.
+
 ``kp`` is the same padded length as the TPU layouts', so the group scales
 and zeros ``[kp/g, n]`` carry across unchanged.
 
@@ -39,7 +50,17 @@ and zeros ``[kp/g, n]`` carry across unchanged.
   hold row ``2r + h`` at ``k = kb*512 + p*128 + l``;
 - :func:`unpack_int4_quad` / :func:`pack_int4_quad` (``w4a8``): four rows
   per word, ``[n/4, kp/2]``; bits ``8b + 4p`` of word ``[r, kb*128 + l]``
-  hold row ``4r + b`` at ``k = kb*256 + p*128 + l``.
+  hold row ``4r + b`` at ``k = kb*256 + p*128 + l``;
+- :func:`pack_int8` / :func:`unpack_int8` (``int8``, ``w8a8``): int8
+  ``[n, kp]``, the int8 Hopper layout itself;
+- :func:`pack_int8_quad` / :func:`unpack_int8_quad` (``int8q``, ``w8a8q``,
+  ``any4q8``): four rows per word, ``[n/4, kp]`` int32; byte ``b`` of word
+  ``[r, c]`` holds row ``4r + b`` at ``k = c``;
+- :func:`pack_int8_transposed` / :func:`unpack_int8_transposed`
+  (``int8t``, ``w8a8t``): int8 ``[kp, n]``;
+- :func:`pack_int8_grouped` / :func:`unpack_int8_grouped` (``int8g``,
+  ``w8a8g``, ``any4q8g``): int8 ``[kp/128, n, 128]``, one 128-wide k slice
+  per leading index.
 """
 from __future__ import annotations
 
@@ -80,6 +101,15 @@ def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
                               dtype=torch.int32)
     c = (packed[:, :, None] >> shifts) & 0xF          # [n, kw, 8]
     return c.reshape(n, kw * CODES_PER_WORD)[:, :k].to(torch.uint8)
+
+
+def pack_codes8(q: torch.Tensor) -> torch.Tensor:
+    """Centered int8 codes ``[n, k]`` -> int8 ``[n, kp]``, zero-padded. The
+    codes of a row are read back as ``packed[:, :k]``."""
+    n, k = q.shape
+    out = torch.zeros((n, padded_k(k)), dtype=torch.int8, device=q.device)
+    out[:, :k] = q
+    return out
 
 
 def pad_groups(a: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
@@ -208,3 +238,63 @@ def pack_int4_quad(codes: np.ndarray) -> np.ndarray:
 def unpack_int4_quad(packed: np.ndarray, k: int) -> np.ndarray:
     """Inverse of :func:`pack_int4_quad`; uint8 codes ``[n, k]``."""
     return _unpack_multi(packed, k, "quad")
+
+
+def pack_int8(q: np.ndarray) -> np.ndarray:
+    """TPU row layout ``[n, kp]`` int8 (``any4_tpu`` ``pack_int8``)."""
+    n, k = q.shape
+    out = np.zeros((n, padded_k(k)), np.int8)
+    out[:, :k] = q
+    return out
+
+
+def unpack_int8(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int8`; int8 codes ``[n, k]``."""
+    return np.ascontiguousarray(np.asarray(packed)[:, :k])
+
+
+def pack_int8_quad(q: np.ndarray) -> np.ndarray:
+    """TPU quad layout ``[n/4, kp]`` int32 (``any4_tpu``
+    ``pack_int8_quad``): byte ``b`` of word ``[r, c]`` is ``q[4r + b, c]``."""
+    n = q.shape[0]
+    if n % 4:
+        raise ValueError(f"quad packing needs n % 4 == 0, got {n}")
+    u = pack_int8(q).view(np.uint8).astype(np.uint32)
+    u = u.reshape(n // 4, 4, -1)
+    shifts = (8 * np.arange(4, dtype=np.uint32))[None, :, None]
+    return _to_int32(np.bitwise_or.reduce(u << shifts, axis=1))
+
+
+def unpack_int8_quad(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int8_quad`; int8 codes ``[n, k]``."""
+    nq, kp = packed.shape
+    words = np.asarray(packed).view(np.uint32)[:, None, :]
+    shifts = (8 * np.arange(4, dtype=np.uint32))[None, :, None]
+    u = ((words >> shifts) & 0xFF).astype(np.uint8)      # [n/4, 4, kp]
+    return np.ascontiguousarray(u.reshape(nq * 4, kp)[:, :k].view(np.int8))
+
+
+def pack_int8_transposed(q: np.ndarray) -> np.ndarray:
+    """TPU transposed layout ``[kp, n]`` int8 (``any4_tpu``
+    ``pack_int8_transposed``)."""
+    return np.ascontiguousarray(pack_int8(q).T)
+
+
+def unpack_int8_transposed(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int8_transposed`; int8 codes ``[n, k]``."""
+    return np.ascontiguousarray(np.asarray(packed)[:k].T)
+
+
+def pack_int8_grouped(q: np.ndarray) -> np.ndarray:
+    """TPU grouped layout ``[kp/128, n, 128]`` int8 (``any4_tpu``
+    ``pack_int8_grouped``)."""
+    n = q.shape[0]
+    return np.ascontiguousarray(
+        pack_int8(q).reshape(n, -1, LANES).transpose(1, 0, 2))
+
+
+def unpack_int8_grouped(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int8_grouped`; int8 codes ``[n, k]``."""
+    G, n, lanes = packed.shape
+    return np.ascontiguousarray(
+        np.asarray(packed).transpose(1, 0, 2).reshape(n, G * lanes)[:, :k])

@@ -15,7 +15,7 @@ import torch
 from .formats import get_table
 
 SCALE_EPS = 1e-6  # (max - min) is clamped to this before dividing
-# per-row int8 activation quantization of the W4A8 format
+# per-row int8 activation quantization of the W4A8 and W8A8 formats
 ACT_QMAX = 127.0
 ACT_EPS = 1e-8
 
@@ -27,11 +27,14 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` rounded once. On CUDA, PyTorch divides by a Python number
-    as a multiply by its reciprocal, which rounds twice; a 0-d tensor on
-    ``a``'s device is divided exactly, as XLA does."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+def div(a: torch.Tensor, b) -> torch.Tensor:
+    """``a / b`` rounded once, for a Python number or a tensor ``b``. On
+    CUDA, PyTorch divides by a Python number (or a CPU scalar) as a
+    multiply by its reciprocal, which rounds twice; a tensor on ``a``'s
+    device is divided exactly, as XLA does."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(b, dtype=a.dtype)
+    return a / b.to(a.device)
 
 
 def _group_view(w: torch.Tensor, group_size: int) -> torch.Tensor:
@@ -79,6 +82,25 @@ def group_quantize(w: torch.Tensor, n_bit: int = 4, group_size: int = 128,
             codes = torch.round((wg - min_val) / scales)
     codes = torch.clamp(codes, 0, max_int).to(torch.uint8).reshape(w.shape)
     return codes, scales[..., 0], zeros[..., 0]
+
+
+def int8_quantize(w: torch.Tensor, group_size: int = 128,
+                  symmetric: bool = False, int_zeros: bool = False):
+    """:func:`group_quantize` at 8 bits with the codes stored centered:
+    ``(q int8 [n, k] = code - 128 in [-128, 127], scales, zeros)``;
+    reconstruction is ``q * scale + zero``."""
+    codes, scales, zeros = group_quantize(w, 8, group_size,
+                                          symmetric=symmetric,
+                                          int_zeros=int_zeros)
+    return (codes.to(torch.int32) - 128).to(torch.int8), scales, zeros
+
+
+def int8_dequantize(q: torch.Tensor, scales: torch.Tensor,
+                    zeros: torch.Tensor, group_size: int = 128
+                    ) -> torch.Tensor:
+    """Inverse of :func:`int8_quantize` (float32 output)."""
+    qg = _group_view(q.float(), group_size)
+    return (qg * scales[..., None] + zeros[..., None]).reshape(q.shape)
 
 
 def quantize_activations(x: torch.Tensor, eps: float = ACT_EPS):

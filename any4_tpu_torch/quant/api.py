@@ -25,7 +25,7 @@ DEFAULT_LINEAR_KEYS = (
     "w1", "w2", "w3", "w13", "moe_w13", "moe_w2", "wq", "wk", "wv", "wo",
 )
 DEFAULT_SKIP = ("lm_head",)
-LEARNED_FMTS = ("any4", "any4t", "anyq")
+LEARNED_FMTS = ("any4", "any4t", "anyq", "any4q8", "any4q8g")
 _LEARNER_KWARGS = ("sample_weight", "init", "keep_outliers",
                    "scale_sample_weight", "abs_weight_sample_weight",
                    "bias_pow", "kmeans_iters", "seed", "per_row",
@@ -159,6 +159,6 @@ def model_size_bytes(params: Dict) -> int:
 
 quant_methods = {
     name: functools.partial(quantize_model, fmt=name)
-    for name in ("int4", "int4p", "w4a8", "intq", "any4", "any4t", "anyq",
-                 "nf4", "nf4t", "fp4", "fp4t")
+    for name in ("int4", "int4p", "int8", "w4a8", "w8a8", "intq", "any4",
+                 "any4t", "any4q8", "anyq", "nf4", "nf4t", "fp4", "fp4t")
 }

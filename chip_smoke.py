@@ -63,7 +63,18 @@ Phases, each printing JSON lines:
    row whose x / sx lands on k + 0.5 (checked against
    ``quantize_activations``, which rounds half to even), and float32,
    bf16 and float16 outputs.
-7. int4 and w4a8 main paths: the 1B model at full width and depth
+7. int8 kernels (slice 4): ``w8a8`` (int8 x) and ``int8_post`` at m in
+   {1, 16, 128}, ``w8a8_fused`` at {1, 16, 64} (g=128) and ``int8_fused``
+   (g=64) at {1, 16}, at the 1B linear shapes with random int8 codes (-128
+   included), timed and held against their plain versions as in 2: bf16
+   outputs within 1e-2 * max, float32 within 1e-5 * max (``w8a8``,
+   ``w8a8_fused``: exact integer dots) and 1e-4 * max (``int8_post``,
+   ``int8_fused``). Then edge cases as in 6 (rows of codes at -128, n not a
+   multiple of 8 with k = 1408 and 1407, a misaligned x, the 1e-8 floor,
+   half-way ties, ``int8_fused`` at g = 16, 64 and 256, three output types),
+   the identity weight through ``int8_fused`` (x back bit for bit), and
+   any4q8's LUT snap on the card against the CPU's (equal).
+8. int4 and w4a8 main paths: the 1B model at full width and depth
    (``--layers`` cuts it) quantized by ``quantize_model(fmt=..., group_size
    =128)``; every one of the 112 linears must be ``int4p`` or ``w4a8``.
    The int4 model's prefill logits with float32 activations are held within
@@ -83,13 +94,29 @@ Phases, each printing JSON lines:
    of 5) at ``run(burst=1)`` and ``run(burst=8, pipeline=True)``: tokens in
    the vocabulary, both runs equal, exact launch counts, and the figures of
    5.
-8. select path: row-layout int4 at g=128 (2 layers): ``llama.forward(...,
-   use_gather=False)`` runs kernel E on every linear, the default runs
-   kernel B with the ramp LUT (not kernel A), and the logits of the two are
-   equal bit for bit.
-9. the ``nvidia-smi`` name and power line again, then the line
-   ``{"kernels": [...]}``, one entry per kernel (ten).
-10. ``{"ok": true, "device": {...}}`` as the last line.
+9. int8, w8a8 and any4q8 main paths (slice 4), as in 8: the 96 k = 2048
+   linears are ``int8q``/``w8a8q``/``any4q8`` and the 16 down_projs
+   ``int8g``/``w8a8g``/``any4q8g`` (any4q8 with kmeans_iters=10). int8's
+   prefill logits are held as int4's, w8a8's and any4q8's linears as
+   w4a8's. Launches per forward: at m <= 64, 112 ``int8_post``, or 96
+   ``w8a8_fused`` + 16 ``w8a8``; at 64 < m <= 128, 112 ``int8_post`` or 112
+   ``w8a8``; above, 96 per chunk (``FUSED_M_MAX`` rows for int8,
+   ``_int8_m_tile(k)`` for w8a8) and down_proj dequantized. int8 and w8a8
+   then behind the engine as in 8.
+10. select path: row-layout int4 at g=128 (2 layers): ``llama.forward(...,
+    use_gather=False)`` runs kernel E on every linear, the default runs
+    kernel B with the ramp LUT (not kernel A), and the logits of the two are
+    equal bit for bit.
+11. int8 layouts (2 layers, one prefill of 128 rows): ``w8a8`` with
+    ``layout="row"``, ``w8a8q``, ``w8a8t`` and ``w8a8g`` run ``w8a8`` on
+    the same codes and give bit-equal logits; ``int8q``, ``int8t`` and
+    ``int8g`` run ``int8_post`` and give bit-equal logits; ``int8`` with
+    ``layout="row"`` (g=128) and at g=64 runs ``int8_fused`` on every
+    linear, within 2e-2 * max of the dense float32 forward with float32
+    activations; exact launch counts.
+12. the ``nvidia-smi`` name and power line again, then the line
+    ``{"kernels": [...]}``, one entry per kernel (fourteen).
+13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -135,6 +162,23 @@ INT_KERNELS = {
                    "_w4a8f_kernel", (1, 16, 64)),
     "q4_lut_select": (SOURCE, "any4_tpu/ops/pallas/gemv.py:63 "
                       "_q4select_kernel", (1, 16)),
+}
+# slice 4: name -> (source, the TPU kernels it replaces, m of the kernel
+# phase, group size)
+INT8_KERNELS = {
+    "w8a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:650 _w8a8_kernel; "
+             "any4_tpu/ops/pallas/gemv.py:685 _w8a8q_kernel; "
+             "any4_tpu/ops/pallas/gemv.py:799 _w8a8t_kernel", (1, 16, 128),
+             128),
+    "w8a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:612 "
+                   "_w8a8f_kernel; any4_tpu/ops/pallas/gemv.py:725 "
+                   "_w8a8qf_kernel; any4_tpu/ops/pallas/gemv.py:838 "
+                   "_w8a8tf_kernel", (1, 16, 64), 128),
+    "int8_post": (SOURCE, "any4_tpu/ops/pallas/gemv.py:765 _int8q_kernel; "
+                  "any4_tpu/ops/pallas/gemv.py:878 _int8t_kernel",
+                  (1, 16, 128), 128),
+    "int8_fused": (SOURCE, "any4_tpu/ops/pallas/gemv.py:913 _int8_kernel",
+                   (1, 16), 64),
 }
 INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core rate
 PROMPT_LEN = 64
@@ -407,6 +451,19 @@ def int_kernel_phase(gemv, packing, linear, timer, bw, peak):
     return rows
 
 
+def edge_activations(m, k, offset, gen):
+    """``(flat, base)``: random values, and ``[m, k]`` of them from element
+    ``offset`` with row 0 all zero (the 1e-8 floor) and a last row whose
+    x / sx lands on k + 0.5 (sx = 1, round half to even)."""
+    flat = torch.randn(m * k + 1, generator=gen, device="cuda") * 3
+    base = flat[offset:offset + m * k].reshape(m, k)
+    base[0] = 0.0
+    ties = torch.arange(1, k, device="cuda") % 100 + 0.5
+    base[m - 1, 0] = 127.0
+    base[m - 1, 1:] = ties * (1 - 2 * (torch.arange(1, k, device="cuda") % 2))
+    return flat, base
+
+
 def int_edge_cases(gemv, packing, quant):
     """Kernels C, D, D-fused and E on what the 1B path does not give them:
     n not a multiple of 8 and k = 1408 (a k that is no multiple of 1024), a
@@ -421,13 +478,7 @@ def int_edge_cases(gemv, packing, quant):
     for n, k, m, offset in ((1000, 1408, 3, 0), (130, 1408, 17, 1),
                             (7, 1407, 40, 1), (132, 2056, 64, 0)):
         packed, scales, zeros, lut = int_operands(packing, n, k, gen)
-        flat = torch.randn(m * k + 1, generator=gen, device="cuda") * 3
-        base = flat[offset:offset + m * k].reshape(m, k)
-        base[0] = 0.0                                     # the 1e-8 floor
-        ties = torch.arange(1, k, device="cuda") % 100 + 0.5
-        base[m - 1, 0] = 127.0                            # sx = 1 exactly
-        base[m - 1, 1:] = ties * (1 - 2 * (torch.arange(1, k,
-                                                        device="cuda") % 2))
+        flat, base = edge_activations(m, k, offset, gen)
         for name in INT_KERNELS:
             for out, tol in ((torch.float32,
                               1e-5 if name.startswith("w4a8") else 1e-4),
@@ -468,6 +519,159 @@ def int_edge_cases(gemv, packing, quant):
                                               gemv.q4_lut_fused(*args)),
                                   f"kernel E != kernel B edge n={n} k={k}")
                     cases += 1
+    return cases
+
+
+def int8_operands(packing, n, k, g, gen):
+    """Random int8 codes (-128 included) in the port's layout and g-wide
+    scales and zeros."""
+    G = packing.padded_k(k) // g
+    q = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 + 1e-3
+    zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+    return packing.pack_codes8(q), scales, zeros
+
+
+def int8_kernel_phase(gemv, packing, linear, timer, bw, peak):
+    """The four int8-weight kernels at the 1B linear shapes against their
+    plain versions, timed beside a bf16 ``torch.matmul`` on the dequantized
+    weight: bf16 outputs within 1e-2 * max, float32 within 1e-5 * max
+    (``w8a8``, ``w8a8_fused``: exact integer dots) or 1e-4 * max."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for n, k in KERNEL_SHAPES:
+        for name, (_, _, ms, g) in INT8_KERNELS.items():
+            packed, scales, zeros = int8_operands(packing, n, k, g, gen)
+            G = scales.shape[0]
+            qt = linear.QuantizedTensor(packed, scales, zeros, None, "int8",
+                                        g, (n, k))
+            w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+            wrapper = getattr(gemv, name)
+            plain = getattr(gemv, name + "_plain")
+            bar32 = 1e-5 if name.startswith("w8a8") else 1e-4
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                if name == "w8a8":
+                    x = torch.randint(-127, 128, (m, k), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                    out, tol = torch.float32, bar32
+                else:
+                    x = x.to(torch.bfloat16)
+                    out, tol = torch.bfloat16, 1e-2
+                args = (x, packed, scales, zeros, g, out)
+                y, ref = wrapper(*args), plain(*args)
+                torch.cuda.synchronize()
+                err = float((y.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                check(bool(torch.isfinite(y).all()) and err <= tol * scale,
+                      f"{name} n={n} k={k} m={m}: |kernel - plain| {err} > "
+                      f"{tol} * {scale}")
+                e32 = None
+                if out == torch.bfloat16:                  # and in float32
+                    a32 = (x, packed, scales, zeros, g, torch.float32)
+                    e32 = rel_err(wrapper(*a32), plain(*a32))
+                    check(e32 <= bar32, f"{name} n={n} k={k} m={m} float32: "
+                          f"{e32} > {bar32}")
+                nbytes = (packed.numel() + 2 * G * n * 4
+                          + x.numel() * x.element_size()
+                          + m * n * y.element_size())
+                flops = 2 * m * n * k
+                rate = INT8_OPS if name.startswith("w8a8") else peak
+                t_bytes, t_ops = nbytes / bw * 1e3, flops / rate * 1e3
+                xb = x.to(torch.bfloat16)
+                row = {
+                    "phase": "int8_kernel", "name": name, "n": n, "k": k,
+                    "m": m, "group_size": g, "x": str(x.dtype),
+                    "out": str(out),
+                    "ms": timer(lambda: wrapper(*args)),
+                    "plain_ms": timer(lambda: plain(*args), reps=5),
+                    "library_ms": timer(lambda: torch.matmul(
+                        xb, w_bf16.t())),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "bytes": nbytes, "flops": flops,
+                    "max_abs_err": err, "rel_err": err / scale,
+                    "bar": tol, "rel_err_f32": e32}
+                row["gb_per_s"] = nbytes / row["ms"] / 1e6
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                emit(row)
+                rows.append(row)
+            del qt, w_bf16
+    return rows
+
+
+def int8_edge_cases(gemv, packing, quant, linear):
+    """The four int8-weight kernels on what the 1B path does not give them:
+    rows of codes equal to -128, n not a multiple of 8 with k = 1408 and
+    1407 (no multiple of 1024, nor of 8), x misaligned by one element,
+    float32 x for ``w8a8_fused``, an all-zero x row (the 1e-8 floor), a row
+    whose x / sx lands on k + 0.5 (round half to even), group sizes 16, 64
+    and 256 for ``int8_fused``, and float32, bf16 and float16 outputs;
+    bars as in the kernel phase. Then the identity weight through
+    ``int8_fused`` (x back bit for bit) and any4q8's LUT snap on the card
+    against the CPU's on the same LUTs (equal codes and row scales)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = 0
+    for n, k, m, offset in ((1000, 1408, 3, 0), (130, 1408, 17, 1),
+                            (7, 1407, 40, 1), (132, 2056, 64, 0)):
+        flat, base = edge_activations(m, k, offset, gen)
+        for name, g in (("w8a8", 128), ("w8a8_fused", 128),
+                        ("int8_post", 128), ("int8_fused", 16),
+                        ("int8_fused", 64), ("int8_fused", 256)):
+            packed, scales, zeros = int8_operands(packing, n, k, g, gen)
+            packed[: n // 2 + 1, :k] = -128               # codes at -128
+            bar32 = 1e-5 if name.startswith("w8a8") else 1e-4
+            for out, tol in ((torch.float32, bar32), (torch.bfloat16, 1e-2),
+                             (torch.float16, 1e-2)):
+                xdts = (torch.float32, torch.bfloat16) \
+                    if name == "w8a8_fused" else (torch.bfloat16,)
+                for xdt in xdts:
+                    if name == "w8a8":
+                        flat8 = quant.quantize_activations(
+                            flat.reshape(1, -1))[0].reshape(-1)
+                        x = flat8[offset:offset + m * k].reshape(m, k)
+                    else:
+                        x = (flat.to(xdt)[offset:offset + m * k]
+                             .reshape(m, k))
+                        x.copy_(base.to(xdt))
+                    args = (x, packed, scales, zeros, g, out)
+                    y = getattr(gemv, name)(*args)
+                    ref = getattr(gemv, name + "_plain")(*args)
+                    torch.cuda.synchronize()
+                    err = rel_err(y, ref)
+                    check(y.shape == (m, n) and y.dtype == out
+                          and bool(torch.isfinite(y).all()) and err <= tol,
+                          f"{name} edge n={n} k={k} m={m} g={g} offset="
+                          f"{offset} x {xdt} {out}: {err} > {tol}")
+                    if name == "w8a8_fused":
+                        check(bool((y[0] == 0).all()),
+                              "w8a8_fused: an all-zero row gives 0")
+                        xq, sx = quant.quantize_activations(x)
+                        ext = (gemv.w8a8(xq, packed, scales, zeros, 128)
+                               * sx).to(out)
+                        e = rel_err(y, ext)
+                        check(e <= tol, f"w8a8_fused vs quantize_activations"
+                              f" + w8a8 (half to even) {xdt} {out}: {e}")
+                    cases += 1
+    for k, g in ((1024, 128), (2048, 64)):
+        qt = linear.quantize_tensor(torch.eye(k, device="cuda"), "int8", g,
+                                    layout="row")
+        x = torch.randn((4, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        check(qt.fmt == "int8" and torch.equal(gemv.int8_fused(
+            x, qt.packed, qt.scales, qt.zeros, g, torch.bfloat16), x),
+            f"int8_fused on the identity weight (k={k}, g={g}) != x")
+        cases += 1
+    lut = torch.rand((2048, 16), generator=gen, device="cuda") * 15.0 - 8.0
+    for l in (lut, lut[:1]):
+        lut8, sr = linear.snap_lut8(l)
+        lut8_h, sr_h = linear.snap_lut8(l.cpu())
+        check(torch.equal(lut8.cpu(), lut8_h) and torch.equal(sr.cpu(), sr_h),
+              f"any4q8 LUT snap on the card != on the CPU ({l.shape[0]} "
+              f"rows)")
+        cases += 1
     return cases
 
 
@@ -879,24 +1083,46 @@ def held_linears(linear):
         linear.linear = orig
 
 
+# fmt -> (format of the six k = 2048 linears, of down_proj (k = 8192), the
+# check of the prefill logits, quantize_model's extra arguments)
+MAIN_FORMATS = {
+    "int4": ("int4p", "int4p", "dense", {}),
+    "w4a8": ("w4a8", "w4a8", "held", {}),
+    "int8": ("int8q", "int8g", "dense", {}),
+    "w8a8": ("w8a8q", "w8a8g", "held", {}),
+    "any4q8": ("any4q8", "any4q8g", "held", {"kmeans_iters": 10}),
+}
+
+
 def int_layer_launches(gemv, linear, fmt, ms):
     """Expected launches per decoder layer (its 7 linears) over forwards of
-    ``ms`` rows each: int4p one kernel C call per ``FUSED_M_MAX`` rows;
-    w4a8 one D-fused call at m <= ``FUSED_ACT_M_MAX``, else one D call, or
-    one per ``_int8_m_tile(k)`` rows once m exceeds ``max(FUSED_M_MAX,
-    tile)`` (the tile is 512 for down_proj's k = 8192, 1024 below)."""
+    ``ms`` rows each: int4p one kernel C call per ``FUSED_M_MAX`` rows, int8
+    one ``int8_post`` call per ``FUSED_M_MAX`` rows; w4a8, w8a8 and any4q8
+    one fused call at m <= ``FUSED_ACT_M_MAX``, else one call on quantized
+    activations, or one per ``_int8_m_tile(k)`` rows once m exceeds
+    ``max(FUSED_M_MAX, tile)`` (the tile is 512 for down_proj's k = 8192,
+    1024 below). The grouped down_proj of int8/w8a8/any4q8 takes one call on
+    (for w8a8 and any4q8: quantized) activations up to
+    ``_XLA_GROUPED_M_MAX`` rows and dequantizes above."""
     out = {}
+    _, down_fmt, _, _ = MAIN_FORMATS[fmt]
     for (_, k), count in LAYER_LINEARS.items():
         tile = linear._int8_m_tile(k)
+        grouped = k == 8192 and down_fmt in linear.GROUPED_FMTS
         for m in ms:
-            if fmt == "int4":
-                name, calls = "q4_int4_magic", -(-m // linear.FUSED_M_MAX)
-            elif m <= gemv.FUSED_ACT_M_MAX:
-                name, calls = "w4a8_fused", 1
+            if grouped and m > linear._XLA_GROUPED_M_MAX:
+                continue                                  # dequantized
+            if fmt in ("int4", "int8"):
+                name = "q4_int4_magic" if fmt == "int4" else "int8_post"
+                calls = 1 if grouped else -(-m // linear.FUSED_M_MAX)
             else:
-                name = "w4a8"
-                calls = 1 if m <= max(linear.FUSED_M_MAX, tile) \
-                    else -(-m // tile)
+                ext = "w4a8" if fmt == "w4a8" else "w8a8"
+                if m <= gemv.FUSED_ACT_M_MAX and not grouped:
+                    name, calls = ext + "_fused", 1
+                else:
+                    name = ext
+                    calls = 1 if m <= max(linear.FUSED_M_MAX, tile) \
+                        else -(-m // tile)
             out[name] = out.get(name, 0) + count * calls
     return out
 
@@ -913,8 +1139,10 @@ def check_launches(gemv, want, layers, what):
 
 def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     """Llama-3.2-1B at full width (``--layers`` cuts the depth), bf16
-    weights from ``init_params(seed=0)``, quantized to ``fmt`` (int4 or
-    w4a8) at g=128; see the module docstring (phase 7)."""
+    weights from ``init_params(seed=0)``, quantized to ``fmt`` (int4, w4a8,
+    int8, w8a8 or any4q8) at g=128; see the module docstring (phases 7 and
+    11)."""
+    kind, down_kind, how, qkw = MAIN_FORMATS[fmt]
     cfg = llama.LlamaConfig.llama_3_2_1b()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
@@ -922,16 +1150,16 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    qparams = api.quantize_model(params, fmt=fmt, group_size=128)
+    qparams = api.quantize_model(params, fmt=fmt, group_size=128, **qkw)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     del params
-    kind = "int4p" if fmt == "int4" else fmt
-    quantized = [l for l in qparams["layers"] for l in l.values()
-                 if isinstance(l, linear.QuantizedTensor)]
-    check(len(quantized) == per_forward
-          and all(q.fmt == kind and q.lut is None for q in quantized),
-          f"every linear is {kind} at g=128")
+    fmts = [(key, l.fmt) for layer in qparams["layers"]
+            for key, l in layer.items()
+            if isinstance(l, linear.QuantizedTensor) and l.lut is None]
+    check(len(fmts) == per_forward and all(
+        f == (down_kind if key == "down_proj" else kind) for key, f in fmts),
+        f"every linear is {kind} (down_proj {down_kind}) at g=128")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
@@ -939,17 +1167,17 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     q32 = to_float32(qparams, linear)
     info = {}
-    if fmt == "int4":
+    if how == "dense":
         # as for any4: float32 activations (the kernel rounds x to bf16)
         # against the float32 forward of the exactly dequantized weights
         ids = prompt[:1]
         got = llama.forward(q32, cfg32, ids)[0]
         ref = llama.forward(to_float32(qparams, linear, dequantize=True),
                             cfg32, ids)[0]
-        errs = {"rel_err_int4_f32_vs_dense_f32": rel_err(got, ref)}
+        errs = {f"rel_err_{fmt}_f32_vs_dense_f32": rel_err(got, ref)}
         bar = 2e-2
     else:
-        # W4A8 rounds every activation to an int8 code, so the first 1e-7
+        # W4A8 and W8A8 round every activation to an int8 code, so the first 1e-7
         # difference between the card's and the CPU's non-kernel ops (sum
         # order, rsqrt, sin/cos) flips a code somewhere and moves that
         # activation by 1/127 of its row's absmax; a whole-model
@@ -957,19 +1185,20 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
         # 2 layers), not the port. Each linear of the forward is instead
         # held against the same linear on the CPU through the plain
         # versions, on the very activations the card gave it: m=16 runs
-        # D-fused, m=128 (two rows of 64) runs D. The whole-model
-        # difference is printed beside.
+        # the fused kernel (W8A8's grouped down_proj: quantized activations
+        # and the external one), m=128 (two rows of 64) the external one.
+        # The whole-model difference is printed beside.
         errs = {}
         for name, ids in (("m16_fused", prompt[:1, :16]),
                           ("m128_external", prompt[:2])):
             with held_linears(linear) as per_linear:
                 got = llama.forward(q32, cfg32, ids)[0]
             check(bool(torch.isfinite(got).all()) and len(per_linear)
-                  == per_forward, f"w4a8 {name}: finite, every linear held")
-            errs[f"max_rel_err_w4a8_{name}_per_linear_vs_cpu_plain"] = max(
+                  == per_forward, f"{fmt} {name}: finite, every linear held")
+            errs[f"max_rel_err_{fmt}_{name}_per_linear_vs_cpu_plain"] = max(
                 per_linear)
             cpu = to_device(q32, "cpu", linear)
-            info[f"rel_err_w4a8_{name}_model_vs_cpu_plain"] = rel_err(
+            info[f"rel_err_{fmt}_{name}_model_vs_cpu_plain"] = rel_err(
                 got.cpu(), llama.forward(cpu, cfg32, ids.cpu())[0])
             del cpu
         bar = 1e-5
@@ -1001,7 +1230,8 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     prof["busy_share_b1"] = (prof["device_ms_per_step"]
                              / figs[1]["decode_ms_per_token"])
     emit({"phase": f"main_path_{fmt}", "model": "llama_3_2_1b",
-          "layers": cfg.num_hidden_layers, "fmt": kind, "group_size": 128,
+          "layers": cfg.num_hidden_layers, "fmt": kind,
+          "fmt_down_proj": down_kind, "group_size": 128, **qkw,
           "quantize_s": quantize_s, "launches": launches,
           "launches_per_forward": per_forward, "generate_ms": gen_ms,
           "max_memory_allocated": peak_mem,
@@ -1045,6 +1275,69 @@ def select_path(args, gemv, llama, api, linear):
           "launches_use_gather_true": launches[True],
           "logits_bit_equal": True})
     return launches[False]
+
+
+def int8_layouts(gemv, llama, api, linear):
+    """The int8 format names on 2 layers of the 1B model, one prefill of
+    m = 128: ``w8a8`` with ``layout="row"``, ``w8a8q``, ``w8a8t`` and
+    ``w8a8g`` all quantize the activations and run ``w8a8`` on the same
+    codes, so their logits are bit-equal; ``int8q``, ``int8t`` and
+    ``int8g`` all run ``int8_post`` and are bit-equal; ``int8`` with
+    ``layout="row"`` at g=128 and ``int8`` at g=64 run ``int8_fused`` on
+    every linear, and their logits with float32 activations are within
+    2e-2 * max of the dequantized weights' dense float32 forward. Returns
+    the launches of the ``int8_fused`` forwards."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama_3_2_1b(),
+                              num_hidden_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    out = {}
+    fused_launches = {}
+    for kernel, names in (
+            ("w8a8", (("w8a8", 128, "row"), ("w8a8q", 128, None),
+                      ("w8a8t", 128, None), ("w8a8g", 128, None))),
+            ("int8_post", (("int8q", 128, None), ("int8t", 128, None),
+                           ("int8g", 128, None))),
+            ("int8_fused", (("int8", 128, "row"), ("int8", 64, None)))):
+        logits = []
+        for name, g, layout in names:
+            kw = {"layout": layout} if layout else {}
+            q = api.quantize_model(params, fmt=name, group_size=g, **kw)
+            check(all(l.fmt == name for layer in q["layers"]
+                      for l in layer.values()
+                      if isinstance(l, linear.QuantizedTensor)),
+                  f"every linear is {name}")
+            gemv.reset_launches()
+            if kernel == "int8_fused":
+                got = llama.forward(to_float32(q, linear), cfg32, ids)[0]
+                torch.cuda.synchronize()
+                fused_launches = dict(gemv.LAUNCHES)
+                ref = llama.forward(to_float32(q, linear, dequantize=True),
+                                    cfg32, ids)[0]
+                err = rel_err(got, ref)
+                check(err <= 2e-2, f"{name} g={g} logits (float32 "
+                      f"activations) vs the dense float32 forward: {err}")
+                out[f"rel_err_{name}_{layout or 'default'}_g{g}_vs_dense_"
+                    f"f32"] = err
+            else:
+                got = llama.forward(q, cfg, ids)[0]
+                torch.cuda.synchronize()
+            check_launches(gemv, {kernel: 7}, 2, f"{name} g={g} layout="
+                           f"{layout} prefill of 128 rows")
+            check(bool(torch.isfinite(got).all()), f"{name} logits finite")
+            logits.append(got)
+            del q
+        if kernel != "int8_fused":
+            check(all(torch.equal(l, logits[0]) for l in logits),
+                  f"the logits of {[n for n, _, _ in names]} are not "
+                  f"bit-equal")
+            out[f"{kernel}_names_bit_equal"] = [n for n, _, _ in names]
+    emit({"phase": "int8_layouts", "layers": 2, "m": 128, **out,
+          "launches_int8_fused_forward": fused_launches})
+    return fused_launches
 
 
 def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts):
@@ -1305,6 +1598,9 @@ def main():
     int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "int_kernel_edge_cases",
           "passed": int_edge_cases(gemv, packing, quant)})
+    int8_rows = int8_kernel_phase(gemv, packing, linear, timer, bw, peak)
+    emit({"phase": "int8_kernel_edge_cases",
+          "passed": int8_edge_cases(gemv, packing, quant, linear)})
     attn_rows = attention_phase(kvc, timer, bw)
     emit({"phase": "attention_edge_cases",
           "passed": attention_edge_cases(kvc)})
@@ -1315,15 +1611,23 @@ def main():
                                   gen_mod, linear)
     del qparams
     torch.cuda.empty_cache()
-    for fmt in ("int4", "w4a8"):
+    # each kernel's launches in the main path that carries it
+    for fmt, names in (("int4", ("q4_int4_magic",)),
+                       ("w4a8", ("w4a8", "w4a8_fused")),
+                       ("int8", ("int8_post",)),
+                       ("w8a8", ("w8a8", "w8a8_fused")), ("any4q8", ())):
         got, qf, cfg = int_main_path(args, fmt, gemv, llama, gen_mod, api,
                                      linear)
-        launches.update({k: v for k, v in got.items() if v})
-        int_serving(teng, gemv, kvc, linear, qf, cfg, fmt, serve_prompts(cfg))
+        launches.update({k: got[k] for k in names})
+        if fmt != "any4q8":
+            int_serving(teng, gemv, kvc, linear, qf, cfg, fmt,
+                        serve_prompts(cfg))
         del qf
         torch.cuda.empty_cache()
     launches.update({k: v for k, v in select_path(
         args, gemv, llama, api, linear).items() if v})
+    launches["int8_fused"] = int8_layouts(gemv, llama, api,
+                                          linear)["int8_fused"]
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -1368,6 +1672,22 @@ def main():
                               if lut == "ramp" else
                               f"generate at b=1 and 4 over the "
                               f"{'int4' if name == 'q4_int4_magic' else 'w4a8'}"
+                              f" model")})
+    for name, (source, replaces, _, g) in INT8_KERNELS.items():
+        summary = layer_summary(int8_rows, name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            **{k: summary[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+            "timed_as": (f"sum over one 1B decoder layer's 7 linears at m=1,"
+                         f" g={g}"),
+            "launches_from": ("int8 forwards of 128 rows at layout=row g=128"
+                              " and g=64, 2 layers"
+                              if name == "int8_fused" else
+                              f"generate at b=1 and 4 over the "
+                              f"{'int8' if name == 'int8_post' else 'w8a8'}"
                               f" model")})
     print(smi, flush=True)      # the card's name and power limit
     emit({"kernels": kernels})

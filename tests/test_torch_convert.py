@@ -77,11 +77,11 @@ def test_dense_bf16_round_trip():
 
 
 def test_unported_format_raises():
-    qt = _jax_qt("int8", 16, 1024, 128)
+    qt = _jax_qt("int8p", 16, 1024, 128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlin.quantize_tensor(torch.zeros(16, 1024), "int8")
+        tlin.quantize_tensor(torch.zeros(16, 1024), "int8p")
 
 
 def test_row_shards_raise():

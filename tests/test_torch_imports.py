@@ -65,7 +65,10 @@ def test_sources_import_no_jax():
                                 kv_cache.PagedKVCache.create,
                                 engine.Engine.__init__,
                                 api.quant_methods["int4"],
-                                api.quant_methods["w4a8"]])
+                                api.quant_methods["w4a8"],
+                                api.quant_methods["int8"],
+                                api.quant_methods["w8a8"],
+                                api.quant_methods["any4q8"]])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

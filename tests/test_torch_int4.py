@@ -324,6 +324,6 @@ def test_wrappers_validate():
     with pytest.raises(ValueError, match="m=64"):
         gemv.quantized_matmul(torch.zeros((65, 1024)), *args[:3],
                               group_size=128, fmt="w4a8")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="unknown kernel format"):
         gemv.quantized_matmul(torch.zeros((1, 1024)), *args[:3],
-                              group_size=128, fmt="w8a8")
+                              group_size=128, fmt="int8p")
