@@ -35,17 +35,20 @@ _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 #        x_dtype, out_dtype, stream)
 _W4A8_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # int fn(q, k, ks, v, vs, seq_lens, table, out, b, h, rep, d, tokens, ps,
-#        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, stream)
-_FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
+#        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, split, scratch,
+#        counters, stream)
+_FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _I, _P, _P, _P]
 KERNELS = {
     "q4_lut_gemv.cu": {name: _Q4_ARGTYPES for name in (
         "q4_lut_post", "q4_lut_fused", "q4_int4_magic", "q4_lut_select",
         "int8_post", "int8_fused")},
     "w4a8_gemv.cu": {name: _W4A8_ARGTYPES for name in (
         "w4a8", "w4a8_fused", "w8a8", "w8a8_fused")},
-    "flash_decode.cu": {name: _FLASH_ARGTYPES for name in (
+    "flash_decode.cu": {**{name: _FLASH_ARGTYPES for name in (
         "flash_paged_decode", "flash_paged_decode_q8",
         "flash_contig_decode", "flash_contig_decode_q8")},
+        # int fn(pool_dtype, paged, rep, d, split, ps): shared-memory bytes
+        "flash_decode_smem_bytes": [_I] * 6},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -17,14 +17,27 @@ package returns updated copies of donated buffers.
 
 Decode attention has two kernels, :func:`flash_paged_decode` and
 :func:`flash_contig_decode`, each over f32/bf16 pools and over int8 pools:
-four CUDA entry points in ``ops/csrc/flash_decode.cu``. Given CPU tensors a
-wrapper computes its plain PyTorch version; given CUDA tensors it launches
-its kernel or raises, and adds one to ``LAUNCHES[name]``. The dense paths
-(:func:`_dense_attend`, :func:`_dense_attend_q8`) are plain PyTorch.
+four CUDA entry points in ``ops/csrc/flash_decode.cu``, which replace the
+TPU kernels ``_flash_decode_kernel``/``_flash_decode_kernel_q`` and
+``_flash_contig_kernel``/``_flash_contig_kernel_q`` of
+``any4_tpu/serving/kv_cache.py``. Their bound on the H100 is bytes: the
+live context's K and V rows read once. To keep those bytes in flight on
+enough SMs, each kernel splits every slot's context into runs of
+:func:`split_len` tokens, one block each, and the last split of each
+(slot, head) to finish combines the splits' partial softmaxes in split
+order; inside a split, ``cp.async`` keeps the next tile's copies in flight
+while one tile is computed. The
+split length depends on the batch and head counts only, so the CPU's plain
+versions (:func:`_attend_plain`) cut the context at the same places.
+Given CPU tensors a wrapper computes its plain PyTorch version; given CUDA
+tensors it launches its kernel or raises, and adds one to
+``LAUNCHES[name]``. The dense paths (:func:`_dense_attend`,
+:func:`_dense_attend_q8`) are plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import List
@@ -53,12 +66,29 @@ DENSE_CTX_BYTES = 256 * 1024 * 1024
 LAUNCHES = {"flash_paged_decode": 0, "flash_paged_decode_q8": 0,
             "flash_contig_decode": 0, "flash_contig_decode_q8": 0}
 _SOURCE = "flash_decode.cu"
-_FNS = {}   # name -> ctypes function, filled at first launch
+_COUNTERS = {}  # (device, stream) -> int32 zeros for the kernels' tickets
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 MAX_HEAD_DIM = 256
-_SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
-_TILE = 64                  # context tokens per kernel step (flash_decode.cu)
+_TILE = 64                  # context tokens per online-softmax step
+# split_len: at least one block per H100 SM (132) at a 2048-token context
+_SPLIT_MIN_BLOCKS = 132
+_SPLIT_REF_CTX = 2048
+_SPLIT_MAX = 2048
+
+
+def split_len(b: int, h: int) -> int:
+    """Tokens per context split of the decode kernels for ``b`` slots and
+    ``h`` kv heads: the largest ``64 * 2^j`` (at most ``_SPLIT_MAX``) that
+    still gives ``b * h * ceil(2048 / S) >= 132`` blocks, one per H100 SM,
+    or 64 (512 at the 1B engine's b=8, h=8; 64 at b=1). It depends on
+    nothing else (not the bucket, the lengths or the device), so a wrapper
+    and its plain version cut the context at the same places."""
+    s = _TILE
+    while s < _SPLIT_MAX and b * h * -(-_SPLIT_REF_CTX // (2 * s)) \
+            >= _SPLIT_MIN_BLOCKS:
+        s *= 2
+    return s
 
 
 def reset_launches() -> None:
@@ -272,46 +302,68 @@ def _check_flash(name, q, k, v, seq_lens) -> bool:
     return quantized
 
 
-def _attend_plain(q, k, v, ks, vs, seq_lens, q_dtype, p_dtype):
-    """Decode attention with the flash kernels' rounding points and their
-    online softmax over ``_TILE``-token tiles. ``q [h, b, rep, d]`` f32,
-    scaled (and rounded where the kernel rounds it); ``k/v [h, b, ctx, d]``
-    f32; ``ks/vs [h, b, ctx]`` or None; ``p_dtype`` the type the
-    probabilities are rounded to before the PV product, or None. Positions
-    ``>= seq_len`` add exact zeros, so a slot of length 0 gives 0 (the
-    kernels visit no tile for it)."""
+def _attend_plain(q, k, v, ks, vs, seq_lens, q_dtype, p_dtype, split):
+    """Decode attention with the flash kernels' rounding points, splits and
+    online softmax. ``q [h, b, rep, d]`` f32, scaled (and rounded where the
+    kernel rounds it); ``k/v [h, b, ctx, d]`` f32; ``ks/vs [h, b, ctx]`` or
+    None; ``p_dtype`` the type the probabilities are rounded to before the
+    PV product, or None.
+
+    The context is cut into splits of ``split`` tokens (a multiple of
+    ``_TILE``) from position 0. Each split runs the online softmax over its
+    ``_TILE``-token tiles from ``m = -1e30, l = 0``; the splits that start
+    before a slot's length combine in split order against their largest m,
+    ``sum acc e^(m - M) / max(sum l e^(m - M), 1e-30)``. With one split that
+    is ``acc / max(l, 1e-30)`` bit for bit. Positions ``>= seq_len`` add
+    exact zeros, so a slot of length 0 gives 0 and the result does not
+    depend on the bucket."""
     h, b, rep, d = q.shape
     ctx = k.shape[2]
-    pos = torch.arange(ctx, device=q.device)
-    lens = seq_lens.to(q.device)[:, None]
-    m = torch.full((h, b, rep, 1), -1e30, device=q.device)
-    l = torch.zeros((h, b, rep, 1), device=q.device)
-    acc = torch.zeros((h, b, rep, d), device=q.device)
-    for t0 in range(0, ctx, _TILE):
-        t = slice(t0, t0 + _TILE)
-        s = torch.einsum("hbrd,hbcd->hbrc", q, k[:, :, t])
-        if ks is not None:
-            s = s * (ks[:, :, t] * _INV_MAX_INT8)[:, :, None, :]
-        live = (pos[t][None, :] < lens)[None, :, None, :]
-        m_new = torch.maximum(m, torch.where(live, s, -1e30).amax(
-            dim=-1, keepdim=True))
-        p = torch.where(live, torch.exp(s - m_new), 0.0)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        if vs is not None:      # after l: the denominator stays unscaled
-            p = p * (vs[:, :, t] * _INV_MAX_INT8)[:, :, None, :]
-        if p_dtype is not None:
-            p = p.to(p_dtype).float()
-        acc = acc * alpha + torch.einsum("hbrc,hbcd->hbrd", p, v[:, :, t])
-        m = m_new
-    out = acc / l.clamp_min(1e-30)
+    dev = q.device
+    pos = torch.arange(ctx, device=dev)
+    lens = seq_lens.to(dev)[:, None]
+    big_m = torch.full((h, b, rep, 1), -math.inf, device=dev)
+    parts = []
+    for s0 in range(0, max(ctx, 1), split):
+        m = torch.full((h, b, rep, 1), -1e30, device=dev)
+        l = torch.zeros((h, b, rep, 1), device=dev)
+        acc = torch.zeros((h, b, rep, d), device=dev)
+        for t0 in range(s0, min(s0 + split, ctx), _TILE):
+            t = slice(t0, t0 + _TILE)
+            s = torch.einsum("hbrd,hbcd->hbrc", q, k[:, :, t])
+            if ks is not None:
+                s = s * (ks[:, :, t] * _INV_MAX_INT8)[:, :, None, :]
+            live = (pos[t][None, :] < lens)[None, :, None, :]
+            m_new = torch.maximum(m, torch.where(live, s, -1e30).amax(
+                dim=-1, keepdim=True))
+            p = torch.where(live, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            if vs is not None:  # after l: the denominator stays unscaled
+                p = p * (vs[:, :, t] * _INV_MAX_INT8)[:, :, None, :]
+            if p_dtype is not None:
+                p = p.to(p_dtype).float()
+            acc = acc * alpha + torch.einsum("hbrc,hbcd->hbrd", p, v[:, :, t])
+            m = m_new
+        on = (s0 < lens)[None, :, :, None]              # [1, b, 1, 1]
+        big_m = torch.where(on, torch.maximum(big_m, m), big_m)
+        parts.append((on, m, l, acc))
+    num = torch.zeros((h, b, rep, d), device=dev)
+    den = torch.zeros((h, b, rep, 1), device=dev)
+    for on, m, l, acc in parts:
+        w = torch.where(on, torch.exp(m - big_m), 0.0)
+        num = num + acc * w
+        den = den + l * w
+    out = num / den.clamp_min(1e-30)
     return out.permute(1, 0, 2, 3).reshape(b, h * rep, d).to(q_dtype)
 
 
-def flash_paged_decode_plain(q, k_pages, v_pages, seq_lens, table):
+def flash_paged_decode_plain(q, k_pages, v_pages, seq_lens, table,
+                             split=None):
     """The paged kernels' function in plain PyTorch: q, K and V (int8 codes
     too) in f32, f32 dots, int8 scales folded into the logits and (after
-    the denominator) the probabilities."""
+    the denominator) the probabilities, over splits of ``split`` tokens
+    (default :func:`split_len`, the kernels' own)."""
     quantized = isinstance(k_pages, tuple)
     kc, vc = (k_pages[0], v_pages[0]) if quantized else (k_pages, v_pages)
     b, nq, d = q.shape
@@ -324,16 +376,17 @@ def flash_paged_decode_plain(q, k_pages, v_pages, seq_lens, table):
         vs = gather_scales_hmajor(v_pages[1], table)
     return _attend_plain(qs, gather_ctx_hmajor(kc, table).float(),
                          gather_ctx_hmajor(vc, table).float(), ks, vs,
-                         seq_lens, q.dtype, None)
+                         seq_lens, q.dtype, None, split or split_len(b, h))
 
 
 def flash_contig_decode_plain(q, k_pool, v_pool, seq_lens, ctx_bucket,
-                              max_ctx):
+                              max_ctx, split=None):
     """The contiguous kernels' function in plain PyTorch: ``q * scale`` is
     rounded to the pool's compute type (bf16 for bf16 and int8 pools, f32
     for f32 pools), the QK product accumulates in f32, int8 scales fold
     into the logits and the probabilities, and the probabilities are
-    rounded to the compute type before the f32-accumulated PV product."""
+    rounded to the compute type before the f32-accumulated PV product;
+    splits as in :func:`flash_paged_decode_plain`."""
     quantized = isinstance(k_pool, tuple)
     kc, vc = (k_pool[0], v_pool[0]) if quantized else (k_pool, v_pool)
     b, nq, d = q.shape
@@ -350,7 +403,7 @@ def flash_contig_decode_plain(q, k_pool, v_pool, seq_lens, ctx_bucket,
         ks, vs = view(k_pool[1]), view(v_pool[1])
     return _attend_plain(qs, view(kc).to(cdt).float(),
                          view(vc).to(cdt).float(), ks, vs, seq_lens,
-                         q.dtype, cdt)
+                         q.dtype, cdt, split or split_len(b, h))
 
 
 def _launch(name, q, k, v, seq_lens, table, ps, pps, max_ctx, ctx_bucket):
@@ -384,28 +437,54 @@ def _launch(name, q, k, v, seq_lens, table, ps, pps, max_ctx, ctx_bucket):
         raise ValueError(f"{name}: scales must be f32, one per token and "
                          f"head")
     tokens = kc.numel() // (h * d)                    # positions per head
-    elem = kc.element_size()
-    smem = (2 * _TILE * d * elem + 2 * rep * d * 4 + rep * _TILE * 4
-            + 3 * rep * 4 + 3 * _TILE * 4)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: rep={rep}, d={d} needs {smem} bytes of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
+    code = _DTYPE_CODES.get(kc.dtype, 2)
+    split = split_len(b, h)
+    smem = _smem_bytes(code, table is not None, rep, d, split, ps)
+    if smem < 0:
+        raise ValueError(f"{name}: rep={rep}, d={d} needs {-smem} bytes of "
+                         f"shared memory, more than a Hopper block may use")
     out = torch.empty_like(q)
     if b == 0:
         return out
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = _FNS[name] = getattr(build.load(_SOURCE), name)
+    limit = pps * ps if table is not None else ctx_bucket
+    splits = max(1, -(-limit // split))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = counters = None
+    if splits > 1:
+        # each split's (m [rep], l [rep], acc [rep, d]) in f32
+        scratch = torch.empty(b * h * splits * rep * (d + 2),
+                              dtype=torch.float32, device=dev)
+        counters = _counters(dev, stream, b * h)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    err = fn(ptr(q), ptr(kc), ptr(ks), ptr(vc), ptr(vs), ptr(seq_lens),
-             ptr(table), ptr(out), b, h, rep, d, tokens, ps, pps, max_ctx,
-             ctx_bucket, ctypes.c_float(1.0 / math.sqrt(d)),
-             _DTYPE_CODES.get(kc.dtype, 2), _DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(build.load(_SOURCE), name)(
+        ptr(q), ptr(kc), ptr(ks), ptr(vc), ptr(vs), ptr(seq_lens), ptr(table),
+        ptr(out), b, h, rep, d, tokens, ps, pps, max_ctx, ctx_bucket,
+        ctypes.c_float(1.0 / math.sqrt(d)), code, _DTYPE_CODES[q.dtype],
+        split, ptr(scratch), ptr(counters), stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
     return out
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for the kernels' split tickets, one
+    buffer per device and stream: the last split of each (slot, head) sets
+    its counter back to 0, so the buffer is zeroed once, and launches on
+    one stream never overlap."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[(dev, stream)] = torch.zeros(n, dtype=torch.int32,
+                                                     device=dev)
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(pool_code, paged, rep, d, split, ps) -> int:
+    """Shared memory one launch asks for, from ``flash_decode.cu`` itself
+    (negative when it does not fit a block)."""
+    return build.load(_SOURCE).flash_decode_smem_bytes(
+        pool_code, int(paged), rep, d, split, ps)
 
 
 def _require_cuda(name, q):

@@ -26,9 +26,13 @@ Phases, each printing JSON lines:
    its plain version (bf16 pools within 1e-2 * max, int8 pools within
    2e-2 * max, one float32 case each within 1e-4 * max), timed as in 2,
    beside one ``scaled_dot_product_attention`` over a prebuilt dense bf16
-   view as the yardstick; then edge cases (a seq_len of 1, seq_len equal to
-   the bucket, one not a multiple of the page size, an inactive slot on the
-   sink page, head_dim 128).
+   view as the yardstick, with the split length S (``kv_cache.split_len``),
+   the splits and the blocks of each launch; then edge cases (a seq_len of
+   1, seq_len equal to the bucket, one not a multiple of the page size,
+   S - 1, S, S + 1 and 0, an inactive slot on the sink page, head_dim 128),
+   and each kernel at two buckets over the same pools and lengths, which
+   must give the same bits (several live splits; one live split against
+   several).
 4. main path: Llama-3.2-1B at full width and all 16 layers (``--layers``
    cuts the depth), bf16 weights from ``init_params(seed=0)``, quantized by
    ``quantize_model(fmt="any4", group_size=128, kmeans_iters=10)``; its
@@ -777,9 +781,12 @@ def attention_phase(kvc, timer, bw):
                   f"{name} b={b} ctx={ctx}: |kernel - plain| {err} > "
                   f"{tol} * {scale}")
             bound, by, nbytes, flops = attn_bound(name, args, bw)
+            split = kvc.split_len(b, ATTN_HEADS)
+            splits = -(-ctx // split)
             row = {"phase": "attention_kernel", "name": name, "b": b,
                    "ctx": ctx, "h": ATTN_HEADS, "rep": ATTN_REP,
-                   "d": ATTN_HEAD_DIM, "page_size": PAGE_SIZE,
+                   "d": ATTN_HEAD_DIM, "page_size": PAGE_SIZE, "S": split,
+                   "splits": splits, "blocks": ATTN_HEADS * b * splits,
                    "pool": str(pool_dtype), "q": "torch.bfloat16",
                    "ms": timer(lambda: fn(*args)),
                    "plain_ms": timer(lambda: plain(*args), reps=3),
@@ -804,15 +811,48 @@ def attention_phase(kvc, timer, bw):
     return rows
 
 
+def attention_buckets(kvc):
+    """Each kernel over the same pools and lengths at two buckets (paged: a
+    table cut to its first columns; contig: a smaller ``ctx_bucket``) gives
+    the same bits: with several live splits (b=8, buckets 1024 and 2048)
+    and with one live split against several (lengths up to S, buckets S
+    and 2048)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, ctx = ATTN_TIMED
+    S = kvc.split_len(b, ATTN_HEADS)
+    cases = 0
+    for name, (layout, q8, _) in ATTN_KERNELS.items():
+        pool_dtype = torch.int8 if q8 else torch.bfloat16
+        for lens, small in (([1, S - 1, S, S + 1, 1000, 1024, 517, 0], 1024),
+                            ([1, S - 1, S, 40, 0, S, 7, 100], S)):
+            fn, _, args = attn_inputs(kvc, name, b, ctx, gen, pool_dtype,
+                                      torch.bfloat16, lens=lens)
+            if layout == "paged":
+                cut = args[:4] + (args[4][:, :small // PAGE_SIZE]
+                                  .contiguous(),)
+            else:
+                cut = args[:4] + (small, ctx)
+            full, part = fn(*args), fn(*cut)
+            check(torch.equal(full, part) and bool(torch.isfinite(full).all()),
+                  f"{name}: buckets {small} and {ctx} differ at lens {lens}")
+            check(bool((full[lens.index(0)] == 0).all()),
+                  f"{name}: a slot of length 0 is not zero")
+            cases += 1
+    return cases
+
+
 def attention_edge_cases(kvc):
-    """The four kernels on lengths of 1, of the whole bucket and of no
-    whole number of pages, an inactive slot on the sink page (paged), and
-    head_dim 128, against their plain versions: float32 q within
-    1e-4 * max, bf16 q within 1e-2 * max (2e-2 for int8 pools)."""
+    """The four kernels on lengths of 1, of the whole bucket, of no whole
+    number of pages, of S - 1, S and S + 1 for the split length S, and of
+    0, an inactive slot on the sink page (paged), and head_dim 128, against
+    their plain versions: float32 q within 1e-4 * max, bf16 q within
+    1e-2 * max (2e-2 for int8 pools)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    S = kvc.split_len(4, 8)
     cases = 0
     for name, (layout, q8, _) in ATTN_KERNELS.items():
         for h, rep, d, ctx, lens in ((8, 4, 64, 256, [1, 256, 37, 1]),
+                                     (8, 4, 64, 512, [S - 1, S, S + 1, 0]),
                                      (2, 2, 128, 128, [5, 128, 100])):
             for q_dtype, pool_dtype, tol in (
                     (torch.float32, torch.float32, 1e-4),
@@ -1448,8 +1488,9 @@ def teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32, layout, q8,
 def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
     """ms per decode step (host clock, synchronized) over ``steps`` single
     steps at 8 active slots, the device time of as many steps from
-    ``torch.profiler`` and their ratio, and the host time of a prefill of
-    the shortest and the longest prompt."""
+    ``torch.profiler`` and their ratio, the attention kernel's share of it,
+    and the host time of a prefill of the shortest and the longest
+    prompt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     e = teng.Engine(qparams, cfg, max_slots=SERVE_SLOTS,
@@ -1493,6 +1534,10 @@ def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
             "decode_tok_s_8_slots": SERVE_SLOTS * 1e3 / step_ms,
             "device_ms_per_step": device_ms,
             "busy_share": device_ms / step_ms, "prefill_ms": prefill,
+            # flash_decode.cu's kernel, all 16 launches of a step
+            "attention_ms_per_step": sum(
+                v for k, v in per_kernel.items() if "decode_kernel" in k)
+            / 1e3 / steps,
             "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
                                         for k, v in top}}
 
@@ -1604,6 +1649,8 @@ def main():
     attn_rows = attention_phase(kvc, timer, bw)
     emit({"phase": "attention_edge_cases",
           "passed": attention_edge_cases(kvc)})
+    emit({"phase": "attention_buckets_bit_equal",
+          "passed": attention_buckets(kvc)})
     del timer
     launches, launches_b, qparams, cfg = main_path(args, gemv, llama,
                                                    gen_mod, api, linear)
