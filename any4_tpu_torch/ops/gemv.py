@@ -2,13 +2,16 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. In ``csrc/q4_lut_gemv.cu``, six modes of one body:
+Ten kernels. In ``csrc/q4_lut_gemv.cu``, kernel A on the tensor cores and
+five modes of one CUDA-core body:
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
   times the LUT values are summed in f32 per group, and the group affine is
   applied after the dot, ``y += P_g * s_g + sum(x_g) * z_g``. Group sizes
-  that are multiples of 128.
+  that are multiples of 128. It runs ``mma.sync`` m16n8k16 (bf16 in, f32
+  sums) at every m, in a decode body (m <= 8) and a block body that give
+  the same bits, with k split by :func:`kernel_a_plan`.
 - :func:`q4_lut_fused` (kernel B) replaces ``_q4_kernel``: each weight is
   ``bf16(lut[c] * s + z)`` (one fused multiply-add in f32, then one bf16
   rounding) and the dot with bf16 x accumulates in f32. Group sizes that
@@ -59,7 +62,8 @@ W4A8 and W8A8 kernels keep its precision.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+``LAUNCHES[name]``. Kernel A's split-k scratch and ticket counters are kept
+per device and stream (:func:`_split_buffers`).
 """
 from __future__ import annotations
 
@@ -84,6 +88,13 @@ _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W4A8_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
 _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
+_SMS = {}    # device -> streaming multiprocessors
+_SPLIT_BUFS = {}  # (device, stream) -> kernel A's (scratch, counters)
+# Kernel A's blocks (csrc/q4_lut_gemv.cu, post_mma): 64 weight rows each
+# (16 in the decode body); k is split until the decode body has about
+# A_DEC_WARPS_PER_SM warps per SM, whatever m is.
+A_ROWS = 64
+A_DEC_WARPS_PER_SM = 16
 # Largest m whose activations the W4A8 and W8A8 kernels quantize
 # themselves. 64 is the TPU kernel's VMEM budget for a whole activation
 # row; it is kept so that routing and launch counts match the JAX package,
@@ -107,6 +118,34 @@ def int4_ramp(device) -> torch.Tensor:
         ramp = _RAMPS[device] = torch.tensor(
             [INT4_RAMP], dtype=torch.float32, device=device)
     return ramp
+
+
+def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
+    """Kernel A's launch plan: ``(tn, splits, groups_per_split,
+    split_blocks)``.
+
+    ``tn`` n8 token tiles (1, 2, 4 or 8: the fewest that hold m, at most
+    8). With ``tn`` 1 the decode body runs: a block takes 16 weight rows and
+    up to 8 tokens, and its ``min(splits, 16)`` warps take the tile's splits
+    in rounds (``split_blocks`` 1). Otherwise the block body runs: a block
+    takes 64 rows and ``8 * tn`` tokens, a tile, and sums the tile's splits
+    in turn where the tiles alone fill the card (at least ``sms`` of them;
+    ``split_blocks`` 1), else each split has a block of its own
+    (``split_blocks == splits``) and the last to finish adds them.
+
+    The ``num_groups`` groups of k are cut into ``splits`` runs of
+    ``groups_per_split`` (the last may be shorter), as few as give the
+    decode body ``A_DEC_WARPS_PER_SM`` warps per SM, one split each for each
+    of the ``ceil(n / 16)`` row tiles: a function of ``(n, num_groups,
+    sms)`` only, never of m. Each split's sum is its own, and the splits add
+    in split order, so a token's sums run in the same order at every m."""
+    tn = next((t for t in (1, 2, 4) if m <= 8 * t), 8)
+    row_blocks = -(-n // A_ROWS)
+    want = min(num_groups, -(-A_DEC_WARPS_PER_SM * sms // -(-n // 16)))
+    per = -(-num_groups // max(want, 1))
+    splits = -(-num_groups // per)
+    tiles = row_blocks * -(-m // (8 * tn))
+    return tn, splits, per, 1 if tn == 1 or tiles >= sms else splits
 
 
 def _lut_values(packed: torch.Tensor, lut: torch.Tensor):
@@ -314,6 +353,60 @@ def _launch_q4(name, x, packed, scales, zeros, lut, group_size, out_dtype):
     return y
 
 
+def _sm_count(dev) -> int:
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
+
+
+def _split_buffers(dev, stream: int, floats: int, ints: int):
+    """Kernel A's split-k scratch (at least ``floats`` f32) and ticket
+    counters (at least ``ints`` int32 zeros), one pair per device and
+    stream: the last split of each tile sets its counter back to 0, so the
+    counters are zeroed once, and launches on one stream never overlap."""
+    scratch, counters = _SPLIT_BUFS.get((dev, stream), (None, None))
+    if scratch is None or scratch.numel() < floats:
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < ints:
+        counters = torch.zeros(ints, dtype=torch.int32, device=dev)
+    _SPLIT_BUFS[(dev, stream)] = (scratch, counters)
+    return scratch, counters
+
+
+def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
+    n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
+                               out_dtype)
+    if lut is None or G * group_size > kw * 8:
+        raise ValueError(f"{name}: needs a lut and num_groups * group_size "
+                         f"<= kp, got {G} x {group_size} > {kw * 8}")
+    m, k = x.shape
+    xb = x.to(torch.bfloat16).contiguous()
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return y
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tn, splits, per, split_blocks = kernel_a_plan(m, n, G, _sm_count(dev))
+    scratch = counters = None
+    if split_blocks > 1:
+        tiles = -(-n // A_ROWS) * -(-m // (8 * tn))
+        scratch, counters = _split_buffers(
+            dev, stream, splits * tiles * 8 * tn * A_ROWS, tiles)
+    per_row = lut.shape[0] == n and n > 1
+    err = _fn(name)(
+        xb.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        zeros.data_ptr(), lut.data_ptr(), y.data_ptr(), m, n, k, kw,
+        group_size, G, 16 if per_row else 0, _OUT_DTYPES[out_dtype], tn, per,
+        split_blocks, None if scratch is None else scratch.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return y
+
+
 def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
     n, kw, G = _check_operands(name, x, packed, scales, zeros, None,
                                out_dtype)
@@ -359,8 +452,8 @@ def _need_group(name, group_size, multiple):
 def q4_lut_post(x, packed, scales, zeros, lut, group_size, out_dtype):
     """Kernel A on ``x [m, k]``; returns ``[m, n]`` of ``out_dtype``."""
     _need_group("q4_lut_post", group_size, SLICE)
-    return _dispatch("q4_lut_post", q4_lut_post_plain, _launch_q4, x, packed,
-                     scales, zeros, lut, group_size, out_dtype)
+    return _dispatch("q4_lut_post", q4_lut_post_plain, _launch_post, x,
+                     packed, scales, zeros, lut, group_size, out_dtype)
 
 
 def q4_lut_fused(x, packed, scales, zeros, lut, group_size, out_dtype):

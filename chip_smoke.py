@@ -9,16 +9,24 @@ Phases, each printing JSON lines:
    versions, and the time to build the CUDA kernels from
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
    parallel).
-2. kernels: kernel A (``q4_lut_post``, g=128) and kernel B
-   (``q4_lut_fused``, g=64) at Llama-3.2-1B's linear shapes and m in
-   {1, 16, 128}, each held against its plain PyTorch version on the card
-   (bf16 output within 1e-2 * max|plain|), with its time (CUDA events,
-   median, L2 flushed before each launch), the plain version's time, one
-   ``torch.matmul`` on the dequantized bf16 weight as a yardstick
-   (``library_ms``; the port never calls it) and the least time the card
-   could take (``bound_ms``). Then both kernels on edge cases (odd n and
-   k, a misaligned x, float32/float16 outputs, a global LUT) against their
-   plain versions.
+2. kernels: kernel A (``q4_lut_post``, g=128) at m in {1, 8, 16, 128,
+   512} and kernel B (``q4_lut_fused``, g=64) at m in {1, 16, 128}, at
+   Llama-3.2-1B's linear shapes, each held against its plain PyTorch
+   version on the card (bf16 output within 1e-2 * max|plain|; kernel A's
+   float32 output at m=128 within 1e-4 * max), with its time (CUDA events,
+   median, the L2 emptied by reading a 128 MB buffer before each launch;
+   kernel A also with the buffer written, ``ms_dirty_l2``), the plain
+   version's time, one ``torch.matmul`` on the dequantized bf16 weight as a
+   yardstick (``library_ms``, both ways for kernel A; the port never calls
+   it) and the least time the card could take (``bound_ms``). Then both
+   kernels on edge cases (odd n and k, a misaligned x, float32/float16
+   outputs, a global LUT) against their plain versions; kernel A at m in
+   {3, 9, 17, 130}, n in {24, 1000}, g = 128 and 256, k = 2048 and 1004,
+   per-row and global LUTs, three output types, x aligned and misaligned
+   by one element; and kernel A's bit equalities at three 1B shapes whose
+   k is split: each row of a batch of 8, 16 and 130 gives the bits of that
+   row alone (the decode body against the block body), and two calls give
+   the same bits.
 3. attention_kernel: the four decode-attention kernels
    (``flash_paged_decode``/``_q8``, ``flash_contig_decode``/``_q8``) at the
    1B serving shapes (8 kv heads, rep 4, head_dim 64, page size 16, bf16 q)
@@ -41,7 +49,9 @@ Phases, each printing JSON lines:
    ``generate`` runs a seeded 64-token prompt for 64 greedy tokens at batch 1
    and 4. Kernel A must launch exactly 112 times (16 layers x 7 linears) per
    forward; the dense bf16 model's decode figures are printed beside.
-   Then the same entry points at g=64, which runs kernel B (2 layers).
+   Then one forward over a 1024-token prompt with ``linear``'s prefill
+   chunks at 256, 512 (``FUSED_M_MAX``) and 1024 rows (host ms), and the
+   same entry points at g=64, which runs kernel B (2 layers).
 5. serving: the same any4 model behind ``serving.engine.Engine`` (8 slots,
    max_ctx 2048, page size 16) serves 12 seeded prompts of 16-1000 tokens
    for 32 new tokens each, in each of paged/contig x bf16/int8 pools, once
@@ -148,10 +158,10 @@ KERNEL_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
 LAYER_LINEARS = {(2048, 2048): 2, (512, 2048): 2, (8192, 2048): 2,
                  (2048, 8192): 1}
 KERNELS = {
-    "q4_lut_post": dict(group_size=128, replaces=(
+    "q4_lut_post": dict(group_size=128, ms=(1, 8, 16, 128, 512), replaces=(
         "any4_tpu/ops/pallas/gemv.py:230 _q4t_kernel; "
         "any4_tpu/ops/pallas/gemv.py:172 _q4post_kernel")),
-    "q4_lut_fused": dict(group_size=64, replaces=(
+    "q4_lut_fused": dict(group_size=64, ms=(1, 16, 128), replaces=(
         "any4_tpu/ops/pallas/gemv.py:106 _q4_kernel")),
 }
 SOURCE = "any4_tpu_torch/ops/csrc/q4_lut_gemv.cu"
@@ -225,12 +235,15 @@ def peaks(name: str):
 
 class Timer:
     """Median device time of ``fn`` over ``reps`` launches, each timed by
-    its own pair of CUDA events after the 50 MB L2 cache is overwritten.
+    its own pair of CUDA events after the 50 MB L2 cache is emptied by
+    reading a 128 MB buffer (``dirty=True``: by writing it, which leaves
+    dirty lines that the timed kernel's misses must write back first).
     The device first spins for ~50 ms, so the host queues every launch
     before the first one runs and the events see no host time."""
 
-    def __init__(self):
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    def __init__(self, dirty=False):
+        buf = torch.zeros(32 << 20, dtype=torch.float32, device="cuda")
+        self.flush = buf.zero_ if dirty else buf.amax
 
     def __call__(self, fn, reps=20, warmup=3):
         for _ in range(warmup):
@@ -240,7 +253,7 @@ class Timer:
         torch.cuda.synchronize()
         torch.cuda._sleep(100_000_000)
         for start, end in events:
-            self.flush.zero_()
+            self.flush()
             start.record()
             fn()
             end.record()
@@ -248,7 +261,11 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def kernel_phase(gemv, packing, linear, timer, bw, peak):
+def kernel_phase(gemv, packing, linear, timer, dirty, bw, peak):
+    """Kernels A and B at the 1B linear shapes; kernel A and its
+    ``library_ms`` are timed a second time with the L2 emptied by writing
+    (``dirty``), and kernel A also gives float32 outputs at m=128, held
+    within 1e-4 * max."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, spec in KERNELS.items():
@@ -268,12 +285,12 @@ def kernel_phase(gemv, packing, linear, timer, bw, peak):
             qt = linear.QuantizedTensor(packing.pack_codes(codes), scales,
                                         zeros, lut, "any4", g, (n, k))
             w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
-            args = (qt.packed, qt.scales, qt.zeros, qt.lut, g, torch.bfloat16)
-            for m in (1, 16, 128):
+            args = (qt.packed, qt.scales, qt.zeros, qt.lut, g)
+            for m in spec["ms"]:
                 x = torch.randn((m, k), generator=gen, device="cuda").to(
                     torch.bfloat16)
-                y = wrapper(x, *args)
-                ref = plain(x, *args)
+                y = wrapper(x, *args, torch.bfloat16)
+                ref = plain(x, *args, torch.bfloat16)
                 torch.cuda.synchronize()
                 err = float((y.float() - ref.float()).abs().max())
                 scale = float(ref.float().abs().max())
@@ -288,20 +305,120 @@ def kernel_phase(gemv, packing, linear, timer, bw, peak):
                 row = {
                     "phase": "kernel", "name": name, "n": n, "k": k, "m": m,
                     "group_size": g,
-                    "ms": timer(lambda: wrapper(x, *args)),
-                    "plain_ms": timer(lambda: plain(x, *args), reps=5),
+                    "ms": timer(lambda: wrapper(x, *args, torch.bfloat16)),
+                    "plain_ms": timer(lambda: plain(x, *args, torch.bfloat16),
+                                      reps=5),
                     "library_ms": timer(lambda: torch.matmul(x, w_bf16.t())),
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops,
                     "max_abs_err": err, "rel_err": err / scale,
                 }
+                if name == "q4_lut_post":
+                    row["ms_dirty_l2"] = dirty(
+                        lambda: wrapper(x, *args, torch.bfloat16))
+                    row["library_ms_dirty_l2"] = dirty(
+                        lambda: torch.matmul(x, w_bf16.t()))
+                    if m == 128:
+                        f32 = rel_err(wrapper(x, *args, torch.float32),
+                                      plain(x, *args, torch.float32))
+                        check(f32 <= 1e-4, f"{name} n={n} k={k} m={m} "
+                              f"float32: {f32} > 1e-4")
+                        row["f32_rel_err"] = f32
                 row["gb_per_s"] = nbytes / row["ms"] / 1e6
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 emit(row)
                 rows.append(row)
             del qt, w_bf16
     return rows
+
+
+def kernel_a_edge_cases(gemv, packing):
+    """Kernel A on shapes the 1B path does not give it: m in {3, 9, 17,
+    130} (not multiples of 8, across the token tiles), n in {24, 1000} (not
+    multiples of 16; n = 24 splits k into one group a split), k = 2048 and
+    1004 (not a multiple of 8), g = 128 and 256, per-row and global LUTs, float32 (1e-4 * max),
+    bf16 and float16 (1e-2 * max) outputs, and x misaligned by one element
+    (2 bytes) as well as aligned."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = 0
+    for n, k in ((24, 2048), (1000, 1004)):
+        kp = packing.padded_k(k)
+        packed = packing.pack_codes(torch.randint(
+            0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
+        for g in (128, 256):
+            scales = packing.pad_groups(torch.rand(
+                (n, -(-k // g)), generator=gen, device="cuda") + 0.5, k, g)
+            zeros = packing.pad_groups(torch.randn(
+                (n, -(-k // g)), generator=gen, device="cuda"), k, g)
+            check(scales.shape[1] * g == kp, "groups cover kp")
+            args = (packed, scales.t().contiguous(), zeros.t().contiguous())
+            for lut_rows in (n, 1):
+                lut = torch.randn((lut_rows, 16), generator=gen,
+                                  device="cuda") * 4
+                for m in (3, 9, 17, 130):
+                    flat = torch.randn(m * k + 1, generator=gen,
+                                       device="cuda").to(torch.bfloat16)
+                    for misaligned in (False, True):
+                        x = flat[int(misaligned):][:m * k].view(m, k)
+                        check((x.data_ptr() % 16 != 0) == misaligned,
+                              "x alignment")
+                        for out, tol in ((torch.float32, 1e-4),
+                                         (torch.bfloat16, 1e-2),
+                                         (torch.float16, 1e-2)):
+                            y = gemv.q4_lut_post(x, *args, lut, g, out)
+                            ref = gemv.q4_lut_post_plain(x, *args, lut, g,
+                                                         out)
+                            torch.cuda.synchronize()
+                            err = rel_err(y, ref)
+                            check(y.shape == (m, n) and y.dtype == out
+                                  and bool(torch.isfinite(y).all())
+                                  and err <= tol,
+                                  f"kernel A edge n={n} k={k} m={m} g={g} "
+                                  f"lut_rows={lut_rows} misaligned="
+                                  f"{misaligned} {out}: {err} > {tol}")
+                            cases += 1
+    return cases
+
+
+def kernel_a_bit_equal(gemv, packing):
+    """Kernel A's sums run in an order that depends on (n, k) alone: at the
+    1B shapes whose k is split (2048 x 2048, 512 x 2048 and 8192 x 2048:
+    one row runs the decode body, m = 16 a block per split, m = 130 at
+    8192 x 2048 one block for all of a tile's splits), every row of a batch
+    of m = 8, 16 and 130 gives the same float32 bits as that row alone, and
+    two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = 0
+    splits = {}
+    for n, k in ((2048, 2048), (512, 2048), (8192, 2048)):
+        G = packing.padded_k(k) // 128
+        splits[f"{n}x{k}"] = gemv.kernel_a_plan(
+            1, n, G, torch.cuda.get_device_properties(0)
+            .multi_processor_count)[1]
+        check(splits[f"{n}x{k}"] > 1, f"{n}x{k} splits k")
+        packed = packing.pack_codes(torch.randint(
+            0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
+        args = (packed,
+                torch.rand((G, n), generator=gen, device="cuda") * 0.01,
+                torch.randn((G, n), generator=gen, device="cuda") * 0.01,
+                torch.randn((n, 16), generator=gen, device="cuda"), 128,
+                torch.float32)
+        for m in (8, 16, 130):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            y = gemv.q4_lut_post(x, *args)
+            check(torch.equal(y.view(torch.int32),
+                              gemv.q4_lut_post(x, *args).view(torch.int32)),
+                  f"kernel A n={n} k={k} m={m}: two calls differ")
+            for i in range(m):
+                one = gemv.q4_lut_post(x[i:i + 1], *args)
+                check(torch.equal(one.view(torch.int32),
+                                  y[i:i + 1].view(torch.int32)),
+                      f"kernel A n={n} k={k}: row {i} of m={m} differs "
+                      f"from the row alone")
+                rows += 1
+    return {"rows": rows, "splits": splits}
 
 
 def edge_cases(gemv, packing):
@@ -871,18 +988,19 @@ def attention_edge_cases(kvc):
     return cases
 
 
-def layer_summary(rows, name, lut=None):
-    """One Llama-3.2-1B decoder layer's 7 linears at m=1 (rows of one LUT
+def layer_summary(rows, name, lut=None, m=1,
+                  keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+    """One Llama-3.2-1B decoder layer's 7 linears at ``m`` (rows of one LUT
     variant when ``lut`` is given)."""
-    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    out = {key: 0.0 for key in keys}
     for r in rows:
-        if r["name"] == name and r["m"] == 1 and r.get("lut", lut) == lut:
+        if r["name"] == name and r["m"] == m and r.get("lut", lut) == lut:
             for key in out:
                 out[key] += LAYER_LINEARS[(r["n"], r["k"])] * r[key]
     mine = [r for r in rows if r["name"] == name]
     out["max_abs_err"] = max(r["max_abs_err"] for r in mine)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in mine
-                                     if r["m"] == 1) else "operations"
+                                     if r["m"] == m) else "operations"
     return out
 
 
@@ -964,6 +1082,27 @@ def device_profile(gen_mod, llama, params, cfg, prompt, steps=8):
     return {"device_ms_per_step": total_ms,
             "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
                                         for k, v in top}}
+
+
+def prefill_chunks(llama, qparams, cfg, gen, tokens=1024):
+    """Host ms (best of 3, ending in a synchronize) of one forward over a
+    ``tokens``-token prompt with ``linear``'s chunks of at most
+    ``fused_m_max`` rows at 256, 512 (``FUSED_M_MAX``) and 1024."""
+    ids = torch.randint(0, cfg.vocab_size, (1, tokens), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    out = {}
+    for fused_m_max in (256, 512, 1024):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = llama.forward(qparams, cfg, ids,
+                                      fused_m_max=fused_m_max)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+        out[fused_m_max] = min(times)
+    return out
 
 
 def main_path(args, gemv, llama, gen_mod, api, linear):
@@ -1066,6 +1205,9 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
           "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
     del params          # the serving phase reuses qparams
     torch.cuda.empty_cache()
+    emit({"phase": "prefill_fused_m_max", "tokens": 1024,
+          "layers": cfg.num_hidden_layers,
+          "forward_ms": prefill_chunks(llama, qparams, cfg, gen)})
 
     # the same entry points at g=64 run kernel B (depth cut to 2 layers)
     cfg_b = dataclasses.replace(cfg, num_hidden_layers=2)
@@ -1638,8 +1780,13 @@ def main():
           "peaks_from": f"NVIDIA data sheet, {peak_name} (SXM unless PCIe)"})
 
     timer = Timer()
-    rows = kernel_phase(gemv, packing, linear, timer, bw, peak)
+    rows = kernel_phase(gemv, packing, linear, timer, Timer(dirty=True), bw,
+                        peak)
     emit({"phase": "kernel_edge_cases", "passed": edge_cases(gemv, packing)})
+    emit({"phase": "kernel_a_edge_cases",
+          "passed": kernel_a_edge_cases(gemv, packing)})
+    emit({"phase": "kernel_a_bit_equal",
+          **kernel_a_bit_equal(gemv, packing)})
     int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "int_kernel_edge_cases",
           "passed": int_edge_cases(gemv, packing, quant)})
@@ -1689,6 +1836,12 @@ def main():
             "library_ms": summary["library_ms"],
             "timed_as": "sum over one 1B decoder layer's 7 linears at m=1",
             "group_size": spec["group_size"]})
+        if name == "q4_lut_post":
+            kernels[-1]["by_m"] = {m: layer_summary(
+                rows, name, m=m, keys=("ms", "ms_dirty_l2", "plain_ms",
+                                       "bound_ms", "library_ms",
+                                       "library_ms_dirty_l2"))
+                for m in spec["ms"]}
     for name, (layout, q8, replaces) in ATTN_KERNELS.items():
         r = next(r for r in attn_rows if r["name"] == name
                  and (r["b"], r["ctx"]) == ATTN_TIMED)

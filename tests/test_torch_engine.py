@@ -5,7 +5,10 @@ Parameters are made by the JAX package from a seed and carried across with
 model quantized to any4 at g=128 (2 layers), and a tiny f32 Gemma2-style
 model (softcaps, sliding window, sandwich norms), which runs the dense
 attention path. Both engines get the same prompts, made by numpy from a
-seed, and must give the same tokens, token for token. The cases mirror
+seed. The dense f32 models must give the same tokens, token for token;
+the any4 model is held by ``_both``'s tie rule (its teacher-forced logits
+within ``QUANT_TIE`` of JAX's, and its tokens equal up to the first
+near-tie). The cases mirror
 ``tests/test_serving.py`` without tensor parallelism, MoE and quantized
 embeddings, which the port does not have yet.
 """
@@ -73,11 +76,60 @@ def _serve(pkg, params, cfg, prompts, max_new, eos=None, run=None, **kw):
     return [done[u] for u in uids], e
 
 
-def _both(pair, prompts, max_new, **kw):
+# Share of max|logit| within which two tokens count as tied, for models
+# whose kernels round activations (to bf16 or int8 codes). A few-ulp
+# difference in f32 attention between XLA and PyTorch can flip one rounding
+# of an activation; on the any4 model that grew to 2.9e-3 * max in the
+# logits, where two tokens stood 2.7e-3 * max apart.
+QUANT_TIE = 1e-2
+
+
+def _teacher_forced(pkg, params, cfg, prompts, tokens):
+    """One forward of ``pkg``'s model over each prompt followed by its
+    generated ``tokens`` (right-padded into one batch; causal, so padding
+    does not reach a real position); returns, per request, the f32 logits
+    that predict each generated token, ``[len(tokens), vocab]``."""
+    seqs = [np.concatenate([p, np.asarray(t[:-1], np.int32)])
+            for p, t in zip(prompts, tokens)]
+    ids = np.zeros((len(seqs), max(len(s) for s in seqs)), np.int32)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = s
+    if pkg is jeng:
+        logits = np.asarray(jllama.forward(params, cfg, jnp.asarray(ids))[0],
+                            np.float32)
+    else:
+        logits = llama.forward(params, cfg, torch.from_numpy(ids))[0] \
+            .float().numpy()
+    return [logits[i, len(p) - 1:len(p) - 1 + len(t)]
+            for i, (p, t) in enumerate(zip(prompts, tokens))]
+
+
+def _both(pair, prompts, max_new, tie=0.0, **kw):
+    """Serve ``prompts`` on both engines. With ``tie`` 0 the tokens must be
+    equal. Otherwise, along JAX's tokens, the port's forward must stay
+    within ``tie * max|logit|`` of JAX's at every generated position, and
+    the port's tokens must equal JAX's up to the first position where JAX's
+    two best logits are closer than that; there the port's token must be
+    one of JAX's within that distance of the top, and after it only the
+    lengths count."""
     jp, jcfg, tp, tcfg = pair
     want, _ = _serve(jeng, jp, jcfg, prompts, max_new, **kw)
     got, e = _serve(teng, tp, tcfg, prompts, max_new, **kw)
-    assert got == want
+    if not tie:
+        assert got == want
+        return got, e
+    assert [len(t) for t in got] == [len(t) for t in want]
+    ref = _teacher_forced(jeng, jp, jcfg, prompts, want)
+    port = _teacher_forced(teng, tp, tcfg, prompts, want)
+    for g, w, r, p in zip(got, want, ref, port):
+        span = tie * np.abs(r).max(axis=-1)                  # [len]
+        assert (np.abs(p - r).max(axis=-1) <= span).all()
+        for i, (gt, wt) in enumerate(zip(g, w)):
+            top = np.sort(r[i])[::-1]
+            if top[0] - top[1] < span[i]:
+                assert r[i][gt] >= top[0] - span[i]
+                break
+            assert gt == wt
     return got, e
 
 
@@ -110,7 +162,7 @@ CASES = {
 def test_engine_matches_jax(models, model, case):
     c = CASES[case]
     got, e = _both(models[model], _prompts(1, c["lengths"]), c["max_new"],
-                   **c["kw"])
+                   tie=QUANT_TIE if model == "any4" else 0.0, **c["kw"])
     assert [len(t) for t in got] == [c["max_new"]] * len(c["lengths"])
     # every slot retired: its decode state is zeroed (see _decode_impl)
     assert not e.seq_lens.any() and not e.tokens.any()

@@ -1,0 +1,86 @@
+"""Kernel A (``q4_lut_post``) at the shapes its tensor-core tiles make
+ragged, and its launch plan, on the CPU.
+
+- The plain version, which the wrapper runs on CPU tensors and which the
+  CUDA kernel is held against on the card, against the JAX package's
+  interpreted ``_q4t_kernel`` at m in {8, 17, 130} (a full n8 token tile,
+  one past two, one past a 64-token block), n not a multiple of 16 (the
+  rows of one warp's mma tile) and g in {128, 256}, float32 output within
+  1e-4 * max (only the order of the f32 sums differs).
+- ``gemv.kernel_a_plan``: the split of k depends on (n, num_groups, sms)
+  and never on m, so that a token's sums run in the same order at every m;
+  the token tiles, row blocks and splits cover (m, n, k) exactly, with no
+  empty split; each split gets a block of its own only where the tiles
+  alone leave SMs idle.
+"""
+import numpy as np
+import pytest
+import torch
+
+from any4_tpu_torch.ops import gemv
+from test_torch_convert import assert_close_max
+from test_torch_gemv import _jax_mm, _pair, _port_mm
+
+# (fmt, g, n, k, m)
+TAILS = [
+    ("any4", 128, 40, 2048, 8),
+    ("any4", 256, 200, 1024, 17),
+    ("any4", 128, 24, 2048, 130),
+    ("any4", 256, 72, 2048, 130),
+    ("nf4", 256, 24, 1024, 8),
+    ("fp4", 128, 200, 1024, 17),
+]
+
+
+@pytest.mark.parametrize("fmt,g,n,k,m", TAILS,
+                         ids=[f"{f}-g{g}-n{n}-k{k}-m{m}"
+                              for f, g, n, k, m in TAILS])
+def test_plain_matches_jax_kernel_at_tails(fmt, g, n, k, m):
+    jqt, qt = _pair(fmt, g, None, n, k, seed=m)
+    assert qt.fmt == fmt + "t" and qt.group_size == g
+    x = np.random.default_rng(k + m).standard_normal((m, k)).astype(
+        np.float32)
+    before = dict(gemv.LAUNCHES)
+    y = _port_mm(x, qt)
+    assert gemv.LAUNCHES == before      # CPU tensors launch nothing
+    assert y.shape == (m, n) and y.dtype == torch.float32
+    assert_close_max(y, _jax_mm(x, jqt), 1e-4)
+
+
+SHAPES = [(n, G) for n in (1, 24, 64, 200, 512, 1000, 2048, 8192)
+          for G in (1, 2, 8, 16, 64)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n,G", SHAPES)
+def test_plan_splits_k_alike_at_every_m(n, G, sms):
+    plans = {m: gemv.kernel_a_plan(m, n, G, sms)
+             for m in (1, 3, 8, 9, 16, 17, 32, 33, 64, 130, 512, 4096)}
+    assert len({p[1:3] for p in plans.values()}) == 1
+    for m, (tn, splits, per, split_blocks) in plans.items():
+        assert tn in (1, 2, 4, 8)
+        assert tn == 8 or 8 * tn >= m               # the fewest tiles
+        assert tn == 1 or 4 * tn < m                # that hold m
+        blocks = -(-m // (8 * tn))
+        assert (blocks - 1) * 8 * tn < m <= blocks * 8 * tn
+        assert per >= 1 and (splits - 1) * per < G <= splits * per
+        row_blocks = -(-n // gemv.A_ROWS)
+        assert (row_blocks - 1) * gemv.A_ROWS < n <= row_blocks * gemv.A_ROWS
+        # one block per split only where the tiles leave SMs idle, never in
+        # the decode body, whose warps share a tile's splits
+        assert split_blocks == (1 if tn == 1 or blocks * row_blocks >= sms
+                                else splits)
+
+
+def test_plan_fills_the_card():
+    """The decode body gets about 16 warps per SM, one split each: k/v_proj
+    of the 1B model (n=512, 16 groups) and q/o_proj (n=2048) take one group
+    a split, gate/up_proj (n=8192, 512 row tiles of 16) four."""
+    assert gemv.kernel_a_plan(1, 512, 16, 132) == (1, 16, 1, 1)
+    assert gemv.kernel_a_plan(16, 512, 16, 132) == (2, 16, 1, 16)
+    assert gemv.kernel_a_plan(1, 2048, 16, 132) == (1, 16, 1, 1)
+    assert gemv.kernel_a_plan(1, 2048, 64, 132) == (1, 16, 4, 1)
+    assert gemv.kernel_a_plan(1, 8192, 16, 132) == (1, 4, 4, 1)
+    # a 512-row prefill chunk: 128 x 8 tiles, each block sums its splits
+    assert gemv.kernel_a_plan(512, 8192, 16, 132) == (8, 4, 4, 1)
+    assert gemv.kernel_a_plan(512, 8192, 2, 1) == (8, 1, 2, 1)

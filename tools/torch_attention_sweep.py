@@ -28,6 +28,7 @@ way to compare two versions within one call on one card. Rows also go to
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -38,13 +39,25 @@ REPO = os.path.dirname(HERE)
 
 
 class _ReadFlush:
-    """Stands in for the timer's flush buffer: ``zero_`` reads it."""
+    """Stands in for the flush buffer of a ``chip_smoke.Timer`` that writes
+    it (checkouts before the timer read it): ``zero_`` reads it."""
 
     def __init__(self, buf):
         self.buf = buf.zero_()
 
     def zero_(self):
         return self.buf.amax()
+
+
+def timers(cs):
+    """``chip_smoke`` module ``cs``'s timers, (L2 emptied by writing the
+    128 MB buffer, by reading it), whichever way its ``Timer`` flushes."""
+    import torch
+    if "dirty" in inspect.signature(cs.Timer).parameters:
+        return cs.Timer(dirty=True), cs.Timer()
+    clean = cs.Timer()
+    clean.flush = _ReadFlush(clean.flush.view(torch.float32))
+    return cs.Timer(), clean
 
 
 def main():
@@ -86,11 +99,9 @@ def main():
              for c in args.cases.split(",")]
     sweep = hasattr(kvc, "split_len")
     default_split = getattr(kvc, "split_len", None)
-    timer = cs.Timer()
-    # the same timer with a clean L2: the 128 MB buffer is read, not written,
-    # between launches, so the timed kernel's misses evict no dirty lines
-    clean = cs.Timer()
-    clean.flush = _ReadFlush(clean.flush.view(torch.float32))
+    # the clean timer reads the 128 MB buffer between launches, so the
+    # timed kernel's misses evict no dirty lines
+    timer, clean = timers(cs)
     gen = torch.Generator(device="cuda").manual_seed(3)
     # the timer's floor: one launch of a kernel that writes 4 bytes
     tiny = torch.empty(1, device="cuda")
