@@ -31,9 +31,9 @@ _I = ctypes.c_int
 # int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
 #        num_groups, lut_stride, out_dtype, stream)
 _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-# kernel A: int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
-#                  num_groups, lut_stride, out_dtype, tn, groups_per_split,
-#                  split_blocks, scratch, counters, stream)
+# kernels A, C and int8_post: int fn(x, codes, scales, zeros, lut, y, m, n,
+#     k, kw, group_size, num_groups, lut_stride, out_dtype, tn,
+#     folds_per_split, split_blocks, scratch, counters, stream)
 _POST_ARGTYPES = _Q4_ARGTYPES[:-1] + [_I, _I, _I, _P, _P, _P]
 # int fn(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
 #        x_dtype, out_dtype, stream)
@@ -43,10 +43,11 @@ _W4A8_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 #        counters, stream)
 _FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _I, _P, _P, _P]
 KERNELS = {
-    "q4_lut_gemv.cu": {"q4_lut_post": _POST_ARGTYPES,
-                       **{name: _Q4_ARGTYPES for name in (
-                           "q4_lut_fused", "q4_int4_magic", "q4_lut_select",
-                           "int8_post", "int8_fused")}},
+    "q4_lut_gemv.cu": {
+        **{name: _POST_ARGTYPES for name in (
+            "q4_lut_post", "q4_int4_magic", "int8_post")},
+        **{name: _Q4_ARGTYPES for name in (
+            "q4_lut_fused", "q4_lut_select", "int8_fused")}},
     "w4a8_gemv.cu": {name: _W4A8_ARGTYPES for name in (
         "w4a8", "w4a8_fused", "w8a8", "w8a8_fused")},
     "flash_decode.cu": {**{name: _FLASH_ARGTYPES for name in (
@@ -57,6 +58,8 @@ KERNELS = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# source -> nvcc's ``-Xptxas=-v`` report of its last verbose build
+PTXAS_REPORTS: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -97,6 +100,7 @@ def compile_source(source: str, verbose: bool = False) -> str:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
                            f"{proc.stderr}")
     if verbose and (proc.stdout or proc.stderr):
+        PTXAS_REPORTS[source] = proc.stdout + proc.stderr
         print(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out

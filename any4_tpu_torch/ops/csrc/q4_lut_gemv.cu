@@ -1,17 +1,35 @@
 // Weight-only matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
-// with bf16 x and W stored as 4-bit codes with a 16-entry lookup table (per row
-// or global), or as int8 codes, and per-group affine scales/zeros: kernel A on
-// the tensor cores, and five modes of one templated CUDA-core body.
+// with bf16 x and W stored as 4-bit codes (with a 16-entry lookup table per
+// row or global, or uniform) or as int8 codes, and per-group affine scales and
+// zeros. Two families: three kernels on the tensor cores that apply the affine
+// after the dot (A, C, int8_post: one pair of mma.sync bodies, templated on how
+// a code becomes a bf16 value), and three modes of one CUDA-core body that
+// fold the affine into each weight (B, E, int8_fused).
 //
 // Kernel A, q4_lut_post, replaces the TPU kernels any4_tpu/ops/pallas/gemv.py
 // _q4t_kernel (gemv.py:230, transposed layout) and _q4post_kernel (gemv.py:172,
 // row layout). They compute the same numbers: the LUT is rounded to bf16 before
 // the dot, bf16 x times bf16 LUT values are summed in f32, and the group affine
 // is applied after the dot in f32:  y += P_g * s_g + sum(x_g) * z_g.
-// Group sizes that are multiples of 128. A bf16 x bf16 product is exact in f32,
-// so mma.sync.m16n8k16.f32.bf16.bf16.f32 computes the same products; only the
-// order of the f32 sums differs from the plain version. Its design is set out
-// at q4_post_mma below.
+// Group sizes that are multiples of 128.
+//
+// Kernel C, q4_int4_magic, replaces gemv.py:457 _q4pair_kernel (int4p, the
+// default uniform-int4 format): each weight is 128 + c (exact in bf16: 8
+// significant bits), made without a table by the magic number 0x4300 (the
+// bf16 128.0) over the code's nibble; the f32 dot per 128-wide slice, then the
+// slice's affine with its group's s and z: y += P * s + sum(x) * (z - 136 s).
+// The 128 * sum(x) * s terms cancel in f32, as on the TPU. Group sizes that are
+// multiples of 128.
+//
+// int8_post replaces gemv.py:765 _int8q_kernel (quad words) and gemv.py:878
+// _int8t_kernel (transposed), which compute the same numbers: each weight is
+// its int8 code q (exact in bf16: |q| <= 128), the f32 dot per 128-wide
+// slice, then y += P * s + sum(x) * z with the slice's group's s and z.
+// Group sizes that are multiples of 128.
+//
+// A bf16 x bf16 product is exact in f32, so mma.sync.m16n8k16.f32.bf16.bf16.f32
+// computes the plain versions' products; only the order of the f32 sums
+// differs. Their design is set out at post_mma below.
 //
 // Kernel B, q4_lut_fused, replaces gemv.py:106 _q4_kernel, the fused-table
 // kernel: each weight becomes bf16(LUT[c] * s + z) (one f32 fma, then one
@@ -20,50 +38,32 @@
 // multiple of 8 works). Row-layout int4 runs here too, with the ramp LUT
 // c - 8 (global).
 //
-// Kernel C, q4_int4_magic, replaces gemv.py:457 _q4pair_kernel (int4p, the
-// default uniform-int4 format): (w >> 4p) & 0x000F000F | 0x43004300, read as
-// two bf16, is 128 + c for k = 8w+p and 8w+p+4 -- the magic-number dequant of
-// the reference's int4 path (two mask/or steps, no table) -- and the affine
-// runs after the dot on each lane's 32-k partial: y += P*s + sum(x)*(z - 136s),
-// P the f32 sum of bf16 x times 128 + c (exact products). The 128*sum(x)*s
-// terms cancel in f32, as on the TPU. Group sizes that are multiples of 128.
-//
 // Kernel E, q4_lut_select, replaces gemv.py:63 _q4select_kernel: kernel B's
 // function, bf16(LUT[c] * s + z) and the same f32 dot in the same order, with
 // LUT[c] picked from 16 registers by 16 compare-selects instead of a shared
 // table read. On the same operands it equals kernel B bit for bit.
 //
-// int8_post replaces gemv.py:765 _int8q_kernel (quad words) and gemv.py:878
-// _int8t_kernel (transposed), which compute the same numbers: the int8 codes
-// q are converted to float (exact: |q| <= 128), the f32 dot with bf16 x is
-// summed per 128-wide slice (the four lanes of a slice add their partials
-// with two shuffles), and the slice's affine follows: y += P*s + sum(x)*z.
-// Kernel C's post-dot form over bytes, without the magic number. Group sizes
-// that are multiples of 128.
-//
 // int8_fused replaces gemv.py:913 _int8_kernel (row layout): kernel B's
 // fused table with q in place of LUT[c], each weight bf16(q * s + z) (one f32
 // fma, then one rounding to bf16), then the dot with f32 accumulation. Group
-// sizes of 16 or more that divide 128 or are multiples of it.
-//
-// These two live here, and not in a file of their own, because they are this
-// body's staging, dot and epilogue with another code read: only the code
-// loads (32 bytes a lane instead of 16) and the value of a code differ.
+// sizes of 16 or more that divide 128 or are multiples of it. It lives in
+// kernel B's body because only its code loads (32 bytes a lane instead of 16)
+// and the value of a code differ.
 //
 // Code layouts (any4_tpu_torch/ops/packing.py): 4-bit codes are int32 words
 // [n, kp/8], row major, 8 consecutive k per word (nibble j holds k = 8*word +
 // j); int8 codes are [n, kp] bytes, row major, k contiguous; kp a multiple of
 // 1024. Scales and zeros are f32 [kp/g, n]; the LUT is f32 [n, 16] (lut_stride
-// 16) or [1, 16] (lut_stride 0); kernel C and the int8 modes read no LUT.
+// 16) or [1, 16] (lut_stride 0); kernel C and the int8 kernels read no LUT.
 //
 // What bounds them on this card: at m = 1 (decode) the bytes of the weight
 // read once from device memory -- 0.5 B (4-bit) or 1 B (int8) of codes per
 // weight plus 8 B of scale and zero per group and 64 B of LUT per row (none
-// for kernel C and the int8 modes) -- so the least time is those bytes over
+// for kernel C and the int8 kernels) -- so the least time is those bytes over
 // the memory rate (3.35 TB/s on an H100 SXM). At prefill (m in the hundreds)
-// kernel A's arithmetic, 2mnk, reaches the tensor cores' rate.
+// the tensor-core kernels' arithmetic, 2mnk, reaches the tensor cores' rate.
 //
-// The CUDA-core body (kernels B, C, E, int8_post, int8_fused):
+// The CUDA-core body (kernels B, E, int8_fused):
 //   - one warp per output row; each lane loads its 32 consecutive codes per
 //     step (16 bytes of nibbles or 32 of int8), so a warp reads 512 or 1024
 //     contiguous bytes of its row per step, and the next step's codes are
@@ -74,15 +74,9 @@
 //     shared loads of a quarter warp hit distinct banks;
 //   - kernel B's 16 LUT values live in a per-warp shared table: 16 entries in
 //     16 banks, so a lookup never conflicts (kernel E keeps them in registers);
-//   - kernel C applies the affine to the 32-code partial sums, int8_post to
-//     the 128-code slice sums, not to each weight;
 //   - m is tiled by MT (1, 2, 4, 8 or 16 rows of x, a template parameter) along
 //     grid.y; each m tile reads the weight again, which is the cost of prefill
 //     chunks in this simple design.
-// Not done for them (later work): cp.async pipelines, tensor-core mma (for the
-// int8 modes and kernel C: the codes converted to bf16 feed kernel A's
-// m16n8k16 body as they are), split-k for the narrow layers whose n/8 blocks
-// do not fill 132 SMs.
 //
 // Each C entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -117,8 +111,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The five modes of the CUDA-core body.
-enum Mode { kFused = 1, kMagic = 2, kSelect = 3, kPost8 = 4, kFused8 = 5 };
+// The three modes of the CUDA-core body.
+enum Mode { kFused = 1, kSelect = 3, kFused8 = 5 };
 
 // Stage x[m0 : m0+MT, k0 : k0+kChunk] (bf16) into shared memory, zero outside
 // [0, m) x [0, k). Shared layout: xs[row][lane][kLaneSlot], lane = kk / 32.
@@ -173,9 +167,7 @@ __device__ __forceinline__ float byte_code(uint32_t w, int j) {
 }
 
 // MODE kFused: kernel B (per-weight bf16(LUT*s + z), LUT read from shared).
-// MODE kMagic: kernel C (128 + c by mask/or, post-dot affine with z - 136s).
 // MODE kSelect: kernel E (kernel B with the LUT read by 16 selects).
-// MODE kPost8: int8_post (int8 codes, post-dot affine per 128-wide slice).
 // MODE kFused8: int8_fused (per-weight bf16(q*s + z)).
 template <int MT, int MODE, typename OutT>
 __global__ void __launch_bounds__(kThreads)
@@ -183,8 +175,7 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
               const float* __restrict__ scales, const float* __restrict__ zeros,
               const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k,
               int kw, int group_size, int num_groups, int lut_stride) {
-  constexpr bool kPerWeight = MODE == kFused || MODE == kSelect || MODE == kFused8;
-  constexpr bool kBytes = MODE == kPost8 || MODE == kFused8;
+  constexpr bool kBytes = MODE == kFused8;
   __shared__ __align__(16) __nv_bfloat16 xs[MT * 32 * kLaneSlot];
   __shared__ float lut_s[kWarps][16];
 
@@ -222,43 +213,31 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
     const int kl = k0 + lane * kLaneK;  // this lane's first k
     const __nv_bfloat16* xl = xs + lane * kLaneSlot;
 
-    float p[MT], sx[MT];
+    float p[MT];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) p[i] = sx[i] = 0.f;
+    for (int i = 0; i < MT; ++i) p[i] = 0.f;
 
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
+      const int g = (kl + w * 8) / group_size;
+      const bool real = g < num_groups;
+      const float s = real ? scales[(size_t)g * n + row] : 0.f;
+      const float z = real ? zeros[(size_t)g * n + row] : 0.f;
       float lv[8];
-      if (kPerWeight) {
-        const int g = (kl + w * 8) / group_size;
-        const bool real = g < num_groups;
-        const float s = real ? scales[(size_t)g * n + row] : 0.f;
-        const float z = real ? zeros[(size_t)g * n + row] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t c = (words[w] >> (4 * j)) & 0xF;
-          float val;
-          if (MODE == kFused8) {
-            val = byte_code(words[2 * w + j / 4], j % 4);
-          } else if (MODE == kSelect) {
-            val = 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t c = (words[w] >> (4 * j)) & 0xF;
+        float val;
+        if (MODE == kFused8) {
+          val = byte_code(words[2 * w + j / 4], j % 4);
+        } else if (MODE == kSelect) {
+          val = 0.f;
 #pragma unroll
-            for (int v = 0; v < 16; ++v) val = c == (uint32_t)v ? lreg[v] : val;
-          } else {
-            val = lut_s[warp][c];
-          }
-          lv[j] = round_bf16(fmaf(val, s, z));
+          for (int v = 0; v < 16; ++v) val = c == (uint32_t)v ? lreg[v] : val;
+        } else {
+          val = lut_s[warp][c];
         }
-      } else if (MODE == kMagic) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint32_t t = ((words[w] >> (4 * q)) & 0x000F000Fu) | 0x43004300u;
-          lv[q] = __uint_as_float(t << 16);              // 128 + c of k = 8w + q
-          lv[q + 4] = __uint_as_float(t & 0xFFFF0000u);  // 128 + c of k = 8w + q + 4
-        }
-      } else {  // kPost8
-#pragma unroll
-        for (int j = 0; j < 8; ++j) lv[j] = byte_code(words[2 * w + j / 4], j % 4);
+        lv[j] = round_bf16(fmaf(val, s, z));
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -269,35 +248,11 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
           const float2 f = __bfloat1622float2(h[t]);
           p[i] = fmaf(f.x, lv[2 * t], p[i]);
           p[i] = fmaf(f.y, lv[2 * t + 1], p[i]);
-          if (!kPerWeight) sx[i] += f.x + f.y;
         }
       }
     }
-
-    if (kPerWeight) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i) acc[i] += p[i];
-    } else {
-      if (MODE == kPost8) {  // the 4 lanes of one 128-wide slice
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          p[i] += __shfl_xor_sync(0xffffffffu, p[i], 1);
-          p[i] += __shfl_xor_sync(0xffffffffu, p[i], 2);
-          sx[i] += __shfl_xor_sync(0xffffffffu, sx[i], 1);
-          sx[i] += __shfl_xor_sync(0xffffffffu, sx[i], 2);
-        }
-      }
-      // a lane's 32 k lie in one group (group_size % 32 == 0)
-      const int g = kl / group_size;
-      const bool real = g < num_groups;
-      const float s = real ? scales[(size_t)g * n + row] : 0.f;
-      float z = real ? zeros[(size_t)g * n + row] : 0.f;
-      if (MODE == kMagic) z -= 136.f * s;
-      if (MODE != kPost8 || (lane & 3) == 0) {
-#pragma unroll
-        for (int i = 0; i < MT; ++i) acc[i] += p[i] * s + sx[i] * z;
-      }
-    }
+    for (int i = 0; i < MT; ++i) acc[i] += p[i];
     wv[0] = wnext[0];
     wv[1] = wnext[1];
   }
@@ -365,15 +320,25 @@ int launch(const void* x, const void* codes, const void* scales, const void* zer
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A on the tensor cores: mma.sync.m16n8k16 with the weight as the A
-// operand (16 output rows per warp tile) and the tokens as the B operand (8
-// per n8 tile), so decode at m = 1..8 already fills one mma.
+// Kernels A, C and int8_post on the tensor cores: mma.sync.m16n8k16 with the
+// weight as the A operand (16 output rows per warp tile) and the tokens as the
+// B operand (8 per n8 tile), so decode at m = 1..8 already fills one mma. One
+// pair of bodies serves the three; a template parameter, the code policy,
+// sets what differs:
 //
-//   - The [n, kp/8] int32 code layout is fed as it is: a permutation of k
-//     applied to both operands leaves the dot unchanged. k goes in chunks of
-//     128: a row's chunk is 16 code words. In sub-step s (0..3) lane (g, t)
-//     (g = lane / 4, t = lane % 4) takes word 4t + s of rows g and g + 8 of
-//     its tile, the codes of k = 8(4t + s) .. +7 of the chunk. Codes 0, 1 go
+//   policy   | code bytes per row  | A value of a code    | LUT staged | affine folds
+//            | and 128-k chunk     |                      |            | per
+//   kLut4 A  | 64 (16 words)       | bf16(LUT[row][c])    | yes        | group: z
+//   kMagic4 C| 64 (16 words)       | 128 + c              | no         | 128-k slice: z - 136 s
+//   kInt8    | 128 (staged rows    | q                    | no         | 128-k slice: z
+//            |  padded to 144)     |                      |            |
+//
+//   - The code layouts are fed as they are: a permutation of k applied to both
+//     operands leaves the dot unchanged. k goes in chunks of 128. In sub-step
+//     s (0..3) lane (g, t) (g = lane / 4, t = lane % 4) takes the codes of
+//     k = 8(4t + s) .. +7 of the chunk for rows g and g + 8 of its tile: 4-bit
+//     word 4t + s, or int8 bytes 8(4t + s) .. +7 (a lane reads bytes 32t ..
+//     32t + 31 of the row's chunk, two 16-byte shared loads). Codes 0, 1 go
 //     to A slots {2t, 2t+1} (regs a0 for row g, a1 for row g + 8) of the
 //     first mma, codes 2, 3 to slots {2t+8, 2t+9} (a2, a3); codes 4..7 to the
 //     same slots of the second mma. The B fragment of token g reads the same
@@ -382,42 +347,51 @@ int launch(const void* x, const void* codes, const void* scales, const void* zer
 //     sub-step s, mma q, slot 2t + 8h + e of lane t holds k = 8(4t + s) + 4q
 //     + 2h + e; over t, q, h, e (4 x 2 x 2 x 2) that is each of the 32 k of
 //     words 4t + s exactly once, and over s each of the chunk's 128 k once: a
-//     bijection, the same for A and B.
-//   - LUT. The tile's rows' tables sit in shared memory as bf16, 16 entries a
-//     row; with a global LUT (nf4, fp4) every lane reads one 16-entry table,
-//     which never bank-conflicts.
-//   - Group affine. A group's 32-k steps (4 j of them for g = 128 j) sum into
-//     a zeroed fragment P, folded at the group's end as acc = fma(s, P, acc)
-//     with the scale of the fragment's row, then acc = fma(z, sum(x_g), acc).
-//     sum(x_g) is computed once per token: per chunk four lanes sum 32
-//     consecutive bf16 values each, two xor shuffles add them, and a group's
+//     bijection, the same for A and B, and the same for the three policies.
+//   - A values (a_frags). kLut4: the tile's rows' tables sit in shared memory
+//     as bf16, 16 entries a row; with a global LUT (nf4, fp4) every lane
+//     reads one 16-entry table, which never bank-conflicts. kMagic4: codes j
+//     and j + 1 (j even) of word w are the low nibbles of byte j / 2 of w and
+//     of w >> 4; one byte permute puts them in the two halves' low bytes, and
+//     (.. & 0x000F000F) | 0x43004300 makes the bf16 pair 128 + c. kInt8:
+//     with l the low 7 bits of q and b its sign bit, q = (128 + l) - (128 +
+//     128 b), both bf16 by a mask and an or, and one bf16x2 fma forms the
+//     difference exactly (an integer of magnitude <= 128).
+//   - The affine. The dot of one fold (a group of 128 j k for kLut4, a 128-k
+//     slice for the others) sums into a zeroed fragment P, folded at the
+//     fold's end as acc = fma(s, P, acc) with the scale of the fragment's row
+//     and of the fold's group, then acc = fma(z', sum(x_f), acc), z' = z or z
+//     - 136 s. sum(x_f) is computed once per token: per chunk four lanes sum
+//     32 consecutive bf16 values each, two xor shuffles add them, and a fold's
 //     chunks add in order.
-//   - Split-k. The groups are cut into `splits` runs of `groups_per_split`, a
-//     function of (n, k) and the SM count only (gemv.py, kernel_a_plan). Each
-//     split's sum is its own, and the splits add in split order (s0 + s1, then
-//     + s2, ...). So a token's output bits depend neither on m nor on its
-//     place in the batch: both bodies below do the same f32 operations in
-//     the same order.
+//   - Split-k. The folds are cut into `splits` runs of `folds_per_split`, a
+//     function of (n, the number of folds) and the SM count only (gemv.py,
+//     kernel_a_plan). Each split's sum is its own, and the splits add in split
+//     order (s0 + s1, then + s2, ...). So a token's output bits depend neither
+//     on m nor on its place in the batch: both bodies below do the same f32
+//     operations in the same order.
 //   - The decode body (m <= 8, q4_post_mma_dec): the weight bytes bound it.
 //     W = min(splits, 16) warps share one 16-row tile, warp w running splits
 //     w, w + W, ...; each streams its code words, scales and zeros through a
 //     4-stage cp.async ring of its own and reads its B fragments from global
-//     memory (L1 serves the block's warps). The block stages the LUT rows and
-//     every chunk's sum(x) before the loop; the splits' sums meet in shared
-//     memory. k_proj and v_proj (n = 512) get 32 blocks of 16 warps.
+//     memory (L1 serves the block's warps). The block stages the LUT rows
+//     (kLut4) and every chunk's sum(x) before the loop; the splits' sums meet
+//     in shared memory. k_proj and v_proj (n = 512) get 32 blocks of 16 warps.
 //   - The block body (m > 8, q4_post_mma<TN>): 4 warps on 64 rows and 8 * TN
-//     tokens (TN = 2, 4 or 8). Each dequantized A fragment feeds all TN mmas
-//     of its warp, so a prefill chunk reads the weight once per 8 * TN
-//     tokens. The block's code words, scales, zeros and x tile go through a
-//     3-stage cp.async ring (16 bytes, .cg; x rows past m and k past the end
-//     zero-filled); x rows are skewed (unit u of a row at u + u / 8, rows 18
-//     units apart) so that the B loads of a quarter warp hit 8 distinct
-//     4-bank groups; a misaligned x or k % 8 != 0 takes scalar loads. Where
-//     the tiles fill the card a block runs its tile's splits in turn;
-//     otherwise each split has a block, which writes f32 partials to the
-//     caller's scratch and takes a ticket from a per-tile counter, and the
-//     last one adds them in split order and sets the counter back to 0.
+//     tokens (TN = 2, 4 or 8). Each A fragment feeds all TN mmas of its warp,
+//     so a prefill chunk reads the weight once per 8 * TN tokens. The block's
+//     codes, scales, zeros and x tile go through a 3-stage cp.async ring (16
+//     bytes, .cg; x rows past m and k past the end zero-filled); x rows are
+//     skewed (unit u of a row at u + u / 8, rows 18 units apart) so that the B
+//     loads of a quarter warp hit 8 distinct 4-bank groups; a misaligned x or
+//     k % 8 != 0 takes scalar loads. Where the tiles fill the card a block runs
+//     its tile's splits in turn; otherwise each split has a block, which
+//     writes f32 partials to the caller's scratch and takes a ticket from a
+//     per-tile counter, and the last one adds them in split order and sets the
+//     counter back to 0.
 namespace post_mma {
+
+enum Codes { kLut4 = 0, kMagic4 = 1, kInt8 = 2 };
 
 constexpr int kWarpsA = 4;
 constexpr int kThreadsA = kWarpsA * 32;
@@ -429,6 +403,18 @@ constexpr int kDecWarps = 16;             // warps of the decode body: splits a 
 constexpr int kDecStages = 4;             // stages of each decode warp's ring
 constexpr int kBlockStages = 3;           // stages of the block body's ring
 constexpr int kMaxSmem = 232448;          // dynamic shared memory a block may use
+
+// 16-byte units of a row's codes per chunk, and their staged row stride in
+// shared memory: int8 rows take one unit of padding, so that the two 16-byte
+// loads of a lane (units 2t, 2t + 1 of rows g and g + 8) of a quarter warp
+// hit distinct banks
+template <int C>
+__host__ __device__ constexpr int code_units() { return C == kInt8 ? 8 : 4; }
+template <int C>
+__host__ __device__ constexpr int code_stride() { return C == kInt8 ? 9 : 4; }
+// k per 32-bit code word
+template <int C>
+__host__ __device__ constexpr int k_per_word() { return C == kInt8 ? 4 : 8; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -462,10 +448,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two bf16 table entries, codes j and j + 1 of w, as one A register
+// kLut4: two bf16 table entries, codes j and j + 1 of w, as one A register
 __device__ __forceinline__ uint32_t lut_pair(const unsigned short* t, uint32_t w, int j) {
   return static_cast<uint32_t>(t[(w >> (4 * j)) & 0xF]) |
          (static_cast<uint32_t>(t[(w >> (4 * j + 4)) & 0xF]) << 16);
+}
+
+// kMagic4: 128 + c of codes 2i and 2i + 1 of w as two bf16 (the lower k in
+// the low half): the low nibbles of byte i of w and of w >> 4
+__device__ __forceinline__ uint32_t magic_pair(uint32_t w, int i) {
+  return (__byte_perm(w, w >> 4, 0x0400 + 0x0101 * i) & 0x000F000Fu) | 0x43004300u;
+}
+
+// kInt8: the codes q of bytes 2i and 2i + 1 of w as two bf16, exactly:
+// (128 + l) + (-(128 + 128 b)), l the low 7 bits of q and b its sign bit
+__device__ __forceinline__ uint32_t int8_pair(uint32_t w, int i) {
+  const uint32_t p = __byte_perm(w, 0u, 0x0100 + 0x0202 * i);  // bytes 2i, 2i + 1 low in each half
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;          // 128 + l
+  const uint32_t neg = (p & 0x00800080u) | 0xC300C300u;        // -128 or -256
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(v), "r"(0x3F803F80u), "r"(neg));
+  return d;
 }
 
 // the 8 bf16 of v summed pairwise in f32: ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7))
@@ -512,33 +515,63 @@ __device__ __forceinline__ float chunk_sx(const uint4* xrow, int q) {
   return p;
 }
 
-// the A fragments of sub-step s: codes 0-3 (mma 0) and 4-7 (mma 1) of word wl
-// (row g) and wh (row g + 8) through the bf16 LUT rows
-__device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], uint32_t wl, uint32_t wh,
-                                        const unsigned short* lut_lo,
-                                        const unsigned short* lut_hi) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    a[q][0] = lut_pair(lut_lo, wl, 4 * q);
-    a[q][1] = lut_pair(lut_hi, wh, 4 * q);
-    a[q][2] = lut_pair(lut_lo, wl, 4 * q + 2);
-    a[q][3] = lut_pair(lut_hi, wh, 4 * q + 2);
+// this lane's code words of one staged chunk row: 4-bit words 4t .. 4t + 3
+// (w[0..3]), or int8 bytes 32t .. 32t + 31 (w[0..7])
+template <int C>
+__device__ __forceinline__ void lane_words(uint32_t (&w)[8], const uint4* row, int tq) {
+  const uint4 a = row[C == kInt8 ? 2 * tq : tq];
+  w[0] = a.x;
+  w[1] = a.y;
+  w[2] = a.z;
+  w[3] = a.w;
+  if (C == kInt8) {
+    const uint4 b = row[2 * tq + 1];
+    w[4] = b.x;
+    w[5] = b.y;
+    w[6] = b.z;
+    w[7] = b.w;
   }
 }
 
+// the A fragments of sub-step s: codes 0-3 (mma q = 0) and 4-7 (q = 1) of the
+// sub-step's k, of row g (wl) and row g + 8 (wh); h picks codes 4q + 2h, + 1
+template <int C>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], const uint32_t (&wl)[8],
+                                        const uint32_t (&wh)[8], int s,
+                                        const unsigned short* lut_lo,
+                                        const unsigned short* lut_hi) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (C == kLut4) {
+        a[q][2 * h] = lut_pair(lut_lo, wl[s], 4 * q + 2 * h);
+        a[q][2 * h + 1] = lut_pair(lut_hi, wh[s], 4 * q + 2 * h);
+      } else if (C == kMagic4) {
+        a[q][2 * h] = magic_pair(wl[s], 2 * q + h);
+        a[q][2 * h + 1] = magic_pair(wh[s], 2 * q + h);
+      } else {  // bytes 8s .. 8s + 7 of the lane's 32: words 2s, 2s + 1
+        a[q][2 * h] = int8_pair(wl[2 * s + q], h);
+        a[q][2 * h + 1] = int8_pair(wh[2 * s + q], h);
+      }
+    }
+}
+
 // P[i] += the chunk's dot for token tile i: 4 sub-steps x 2 mmas x TN tiles,
-// A from code words wl (row g) and wh (row g + 8), B from the staged x rows
+// A from the staged code rows g (cl) and g + 8 (ch), B from the staged x rows
 // xr[8 i + g]
-template <int TN>
-__device__ __forceinline__ void chunk_dot(float (&P)[TN][4], uint4 wl, uint4 wh,
+template <int C, int TN>
+__device__ __forceinline__ void chunk_dot(float (&P)[TN][4], const uint4* cl, const uint4* ch,
                                           const unsigned short* lut_lo,
                                           const unsigned short* lut_hi,
                                           const uint4 (*xr)[kXRow], int gq, int tq) {
-  const uint32_t wlo[4] = {wl.x, wl.y, wl.z, wl.w}, whi[4] = {wh.x, wh.y, wh.z, wh.w};
+  uint32_t wl[8], wh[8];
+  lane_words<C>(wl, cl, tq);
+  lane_words<C>(wh, ch, tq);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     uint32_t a[2][4];
-    a_frags(a, wlo[s], whi[s], lut_lo, lut_hi);
+    a_frags<C>(a, wl, wh, s, lut_lo, lut_hi);
     const int u = 4 * tq + s;
     uint4 b[TN];
 #pragma unroll
@@ -550,7 +583,7 @@ __device__ __forceinline__ void chunk_dot(float (&P)[TN][4], uint4 wl, uint4 wh,
   }
 }
 
-// the group's fold: acc += s * P (rows g: elements 0, 1; g + 8: 2, 3), P = 0
+// the fold: acc += s * P (rows g: elements 0, 1; g + 8: 2, 3), P = 0
 template <int TN>
 __device__ __forceinline__ void fold_s(float (&acc)[TN][4], float (&P)[TN][4], float s_lo,
                                        float s_hi) {
@@ -565,7 +598,7 @@ __device__ __forceinline__ void fold_s(float (&acc)[TN][4], float (&P)[TN][4], f
   }
 }
 
-// acc[i] += z * sum(x_g) of the tile's tokens 2t (elements 0, 2) and 2t + 1 (1, 3)
+// acc[i] += z * sum(x_f) of the tile's tokens 2t (elements 0, 2) and 2t + 1 (1, 3)
 __device__ __forceinline__ void add_z(float (&acc)[4], float z_lo, float z_hi, float sa, float sb) {
   acc[0] = fmaf(z_lo, sa, acc[0]);
   acc[1] = fmaf(z_lo, sb, acc[1]);
@@ -573,10 +606,25 @@ __device__ __forceinline__ void add_z(float (&acc)[4], float z_lo, float z_hi, f
   acc[3] = fmaf(z_hi, sb, acc[3]);
 }
 
+// the zero term of a fold from its group's scale and zero: z - 136 s for
+// kernel C (its weights are 128 + c for c - 8), z for the others
+template <int C>
+__device__ __forceinline__ float zero_term(float s, float z) {
+  return C == kMagic4 ? fmaf(-136.f, s, z) : z;
+}
+
+// chunks of one fold: a group's (kLut4) or one (a 128-k slice)
+template <int C>
+__device__ __forceinline__ int fold_chunks(int group_size) {
+  return C == kLut4 ? group_size / kChunkA : 1;
+}
+
 // the block body's dynamic shared memory
-__host__ __device__ __forceinline__ size_t block_smem_bytes(int tn) {
-  return (size_t)kBlockStages * (8 * tn * kXRow * 16 + kRowsA * 64 + 2 * kRowsA * 4) +
-         kRowsA * 16 * 2 + 2 * 8 * tn * 4;
+template <int C>
+__host__ __device__ constexpr size_t block_smem_bytes(int tn) {
+  return (size_t)kBlockStages *
+             (8 * tn * kXRow * 16 + kRowsA * code_stride<C>() * 16 + 2 * kRowsA * 4) +
+         (C == kLut4 ? kRowsA * 16 * 2 : 0) + 2 * 8 * tn * 4;
 }
 
 // let kernel f take `bytes` of dynamic shared memory (its static shared memory
@@ -594,48 +642,52 @@ void opt_in_smem(int bytes) {
 // The block body (TN = 2, 4, 8): 4 warps on 4 row tiles of 16 and the same
 // 8 * TN tokens, one ring of stages for the block. (TN = 1 serves m <= 8
 // only where the decode body's shared memory would not fit.)
-template <int TN, typename OutT>
+template <int C, int TN, typename OutT>
 __global__ void __launch_bounds__(kThreadsA)
 q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
             const float* __restrict__ scales, const float* __restrict__ zeros,
             const float* __restrict__ lut, OutT* __restrict__ y, float* __restrict__ scratch,
             int* __restrict__ counters, int m, int n, int k, int kw, int group_size,
-            int num_groups, int lut_stride, int groups_per_split, int splits, bool vec_ok) {
+            int num_groups, int lut_stride, int folds_per_split, int splits, bool vec_ok) {
   constexpr int T = 8 * TN;                       // tokens per block
   constexpr int NST = kBlockStages;
+  constexpr int CU = code_units<C>(), CS = code_stride<C>();
   constexpr int kSxTok = (4 * T + kThreadsA - 1) / kThreadsA;  // tokens per summing thread
   constexpr int kTileRow = kRowsA + 4;            // floats per token row of the output tile
   static_assert(T * kTileRow * 4 <= NST * T * kXRow * 16, "output tile fits the x stages");
-  // dynamic shared memory (block_smem_bytes): x stages, code words, the
-  // chunk's group's scales and zeros, the LUT rows, two rows of sum(x_g)
+  // dynamic shared memory (block_smem_bytes): x stages, codes, the chunk's
+  // group's scales and zeros, the LUT rows (kLut4), two rows of sum(x_f)
   extern __shared__ __align__(16) uint4 dyn[];
   auto xs = reinterpret_cast<uint4(*)[T][kXRow]>(dyn);                    // [NST]
-  auto cs = reinterpret_cast<uint4(*)[kRowsA][4]>(xs + NST);              // [NST]
+  auto cs = reinterpret_cast<uint4(*)[kRowsA][CS]>(xs + NST);             // [NST]
   auto sz_s = reinterpret_cast<float(*)[2][kRowsA]>(cs + NST);            // [NST]
-  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(sz_s + NST);       // [kRowsA]
-  auto sx_s = reinterpret_cast<float(*)[T]>(lut_s + kRowsA);              // [2]
+  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(sz_s + NST);       // [kRowsA] or none
+  auto sx_s = reinterpret_cast<float(*)[T]>(lut_s + (C == kLut4 ? kRowsA : 0));  // [2]
   __shared__ int last_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int row0 = blockIdx.x * kRowsA, tok0 = blockIdx.y * T;
+  const int Jg = group_size / kChunkA;            // chunks per group (scale row)
+  const int J = fold_chunks<C>(group_size);       // chunks per fold
+  const int nfolds = num_groups * Jg / J;
   // one split per block along grid.z, or (grid.z == 1) every split in turn
   const bool own_split = gridDim.z > 1;
-  const int J = group_size / kChunkA;             // chunks per group
-  const int grp0 = own_split ? blockIdx.z * groups_per_split : 0;
-  const int grp1 = own_split ? min(num_groups, grp0 + groups_per_split) : num_groups;
-  const int nchunks = (grp1 - grp0) * J;
+  const int f0 = own_split ? blockIdx.z * folds_per_split : 0;
+  const int f1 = own_split ? min(nfolds, f0 + folds_per_split) : nfolds;
+  const int nchunks = (f1 - f0) * J;
 
   const unsigned short* lut_lo = lut_s[lut_stride ? warp * 16 + gq : 0];
   const unsigned short* lut_hi = lut_s[lut_stride ? warp * 16 + gq + 8 : 0];
 
-  // chunk c of the block's groups into stage st: code words, the group's
+  // chunk c of the block's folds into stage st: codes, the chunk's group's
   // scales and zeros, then x
   auto stage = [&](int c, int st) {
-    const int grp = grp0 + c / J, kc = grp0 * group_size + c * kChunkA;
-    for (int i = tid; i < kRowsA * 4; i += kThreadsA) {
-      const int r = min(row0 + i / 4, n - 1);     // rows past n: discarded
-      cp_async16(&cs[st][i / 4][i % 4], codes + (size_t)r * kw + kc / 8 + (i % 4) * 4);
+    const int kc = (f0 * J + c) * kChunkA, grp = kc / group_size;
+    for (int i = tid; i < kRowsA * CU; i += kThreadsA) {
+      const int r = min(row0 + i / CU, n - 1);    // rows past n: discarded
+      cp_async16(&cs[st][i / CU][i % CU],
+                 codes + (size_t)r * kw + kc / k_per_word<C>() + (i % CU) * 4);
     }
     for (int i = tid; i < 2 * kRowsA; i += kThreadsA) {
       const int r = row0 + i % kRowsA;
@@ -648,26 +700,26 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     }
   };
 
-  // P: the group's dot; acc: the split's sum; out: the splits summed in order
+  // P: the fold's dot; acc: the split's sum; out: the splits summed in order
   float P[TN][4], acc[TN][4], out[TN][4];
 #pragma unroll
   for (int i = 0; i < TN; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) P[i][e] = acc[i][e] = out[i][e] = 0.f;
   bool have_out = false;
-  float run[kSxTok];                              // running sum(x_g) of this thread's tokens
-  float z_lo = 0.f, z_hi = 0.f;                   // zeros of the group whose z term waits
-  int pending = -1;                               // that group, or -1
+  float run[kSxTok];                              // running sum(x_f) of this thread's tokens
+  float z_lo = 0.f, z_hi = 0.f;                   // zero terms of the fold whose z term waits
+  int pending = -1;                               // that fold, or -1
 
-  // acc += z * sum(x_g) for the pending group, whose sums were written before
+  // acc += z' * sum(x_f) for the pending fold, whose sums were written before
   // the barrier; at the end of its split, out += acc (out = acc for the first)
-  auto finish_group = [&]() {
+  auto finish_fold = [&]() {
 #pragma unroll
     for (int i = 0; i < TN; ++i) {
       const float2 sx = *reinterpret_cast<const float2*>(&sx_s[pending & 1][8 * i + 2 * tq]);
       add_z(acc[i], z_lo, z_hi, sx.x, sx.y);
     }
-    if ((pending + 1) % groups_per_split == 0 || pending + 1 == grp1) {
+    if ((pending + 1) % folds_per_split == 0 || pending + 1 == f1) {
 #pragma unroll
       for (int i = 0; i < TN; ++i)
 #pragma unroll
@@ -686,7 +738,9 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     cp_async_commit();
   }
   // while the first chunks are in flight: the block's LUT rows as bf16
-  for (int i = tid; i < kRowsA * 16; i += kThreadsA) lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
+  if (C == kLut4)
+    for (int i = tid; i < kRowsA * 16; i += kThreadsA)
+      lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
 
   for (int c = 0; c < nchunks; ++c) {
     cp_async_wait<NST - 2>();
@@ -694,9 +748,9 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     if (c + NST - 1 < nchunks) stage(c + NST - 1, (c + NST - 1) % NST);
     cp_async_commit();
     const int st = c % NST;
-    const int grp = grp0 + c / J;
+    const int fold = f0 + c / J;
     const bool first = c % J == 0, last = c % J == J - 1;
-    if (pending >= 0) finish_group();
+    if (pending >= 0) finish_fold();
 
     // sum(x) of the chunk: thread (r, q) sums units 4q .. 4q + 3 of token r
 #pragma unroll
@@ -706,21 +760,22 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
       p += __shfl_xor_sync(0xffffffffu, p, 1);
       p += __shfl_xor_sync(0xffffffffu, p, 2);
       run[i] = first ? p : run[i] + p;
-      if (last && q == 0 && r < T) sx_s[grp & 1][r] = run[i];
+      if (last && q == 0 && r < T) sx_s[fold & 1][r] = run[i];
     }
 
-    chunk_dot<TN>(P, cs[st][warp * 16 + gq][tq], cs[st][warp * 16 + gq + 8][tq], lut_lo, lut_hi,
-                  xs[st], gq, tq);
-    if (last) {  // fold the group: acc += s * P; z * sum(x_g) after the next barrier
-      fold_s<TN>(acc, P, sz_s[st][0][warp * 16 + gq], sz_s[st][0][warp * 16 + gq + 8]);
-      z_lo = sz_s[st][1][warp * 16 + gq];
-      z_hi = sz_s[st][1][warp * 16 + gq + 8];
-      pending = grp;
+    chunk_dot<C, TN>(P, cs[st][warp * 16 + gq], cs[st][warp * 16 + gq + 8], lut_lo, lut_hi,
+                     xs[st], gq, tq);
+    if (last) {  // fold: acc += s * P; z' * sum(x_f) after the next barrier
+      const float s_lo = sz_s[st][0][warp * 16 + gq], s_hi = sz_s[st][0][warp * 16 + gq + 8];
+      fold_s<TN>(acc, P, s_lo, s_hi);
+      z_lo = zero_term<C>(s_lo, sz_s[st][1][warp * 16 + gq]);
+      z_hi = zero_term<C>(s_hi, sz_s[st][1][warp * 16 + gq + 8]);
+      pending = fold;
     }
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (pending >= 0) finish_group();
+  if (pending >= 0) finish_fold();
 
   // out[i]: rows warp * 16 + gq (0, 1) and + 8 (2, 3), tokens 8i + 2tq and + 1,
   // through a [T][kTileRow] f32 tile in the x stages, written out by rows
@@ -783,11 +838,11 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
 }
 
 // the decode body's dynamic shared memory: the warps' rings, the split sums,
-// the LUT rows, the chunk sums of x
-__host__ __device__ __forceinline__ size_t dec_smem_bytes(int warps, int m, int nch,
-                                                          int splits) {
-  return (size_t)warps * kDecStages * (64 * 16 + 2 * 16 * 4) + (size_t)splits * 8 * 16 * 4 +
-         16 * 16 * 2 + (size_t)m * nch * 4;
+// the LUT rows (kLut4), the chunk sums of x
+template <int C>
+__host__ __device__ constexpr size_t dec_smem_bytes(int warps, int m, int nch, int splits) {
+  return (size_t)warps * kDecStages * (16 * code_stride<C>() * 16 + 2 * 16 * 4) +
+         (size_t)splits * 8 * 16 * 4 + (C == kLut4 ? 16 * 16 * 2 : 0) + (size_t)m * nch * 4;
 }
 
 // x[tok][gk .. gk + 8) (bf16) from global memory: one 16-byte load where vec_ok,
@@ -811,35 +866,37 @@ __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x, in
 
 // The decode body (TN = 1, m <= 8 tokens): W = min(splits, kDecWarps) warps
 // on one row tile of 16. In round r warp w runs split W r + w, streaming its
-// code words, scales and zeros through a ring of kDecStages stages of its
-// own, and reads its B fragments (x of token g) from global memory, where
-// the block's warps share them in L1. Before the loop the block stages the
-// tile's LUT rows as bf16 and computes each chunk's sum(x) per token from
-// global memory. Each split's sum goes to shared memory, and at the end the
-// block adds them in split order. The splits, their sums and their order
-// are the block body's, so a token's bits are the same.
-template <typename OutT>
+// codes, scales and zeros through a ring of kDecStages stages of its own, and
+// reads its B fragments (x of token g) from global memory, where the block's
+// warps share them in L1. Before the loop the block stages the tile's LUT
+// rows as bf16 (kLut4) and computes each chunk's sum(x) per token from global
+// memory. Each split's sum goes to shared memory, and at the end the block
+// adds them in split order. The splits, their sums and their order are the
+// block body's, so a token's bits are the same.
+template <int C, typename OutT>
 __global__ void __launch_bounds__(kDecWarps * 32)
 q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
                 const float* __restrict__ scales, const float* __restrict__ zeros,
                 const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k, int kw,
-                int group_size, int num_groups, int lut_stride, int groups_per_split,
+                int group_size, int num_groups, int lut_stride, int folds_per_split,
                 int splits, bool vec_ok) {
   constexpr int NST = kDecStages;
+  constexpr int CU = code_units<C>(), CS = code_stride<C>();
   const int W = blockDim.x / 32, nthreads = blockDim.x;
   extern __shared__ __align__(16) uint4 dyn[];
-  const int nch = num_groups * group_size / kChunkA;  // chunks of k
-  const int J = group_size / kChunkA;
-  auto cs = reinterpret_cast<uint4(*)[NST][16][4]>(dyn);                  // [W]
+  const int Jg = group_size / kChunkA;            // chunks per group (scale row)
+  const int J = fold_chunks<C>(group_size);       // chunks per fold
+  const int nch = num_groups * Jg;                // chunks of k
+  auto cs = reinterpret_cast<uint4(*)[NST][16][CS]>(dyn);                 // [W]
   auto sz_s = reinterpret_cast<float(*)[NST][2][16]>(cs + W);             // [W]
   auto res = reinterpret_cast<float(*)[8][16]>(sz_s + W);                 // [splits][tok][row]
-  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(res + splits);     // [16]
-  float* csum = reinterpret_cast<float*>(lut_s + 16);                     // [m][nch]
+  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(res + splits);     // [16] or none
+  float* csum = reinterpret_cast<float*>(lut_s + (C == kLut4 ? 16 : 0));  // [m][nch]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int row0 = blockIdx.x * 16;
-  const int per = groups_per_split * J;           // chunks of a whole split
+  const int per = folds_per_split * J;            // chunks of a whole split
   const int total = (splits + W - 1) / W * per;   // this warp's iterations
 
   // iteration j of this warp: split W (j / per) + warp, its chunk j % per (or
@@ -849,13 +906,13 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
     return sp < splits && c < nch ? c : -1;
   };
   auto stage = [&](int c, int st) {
-    for (int i = lane; i < 16 * 4; i += 32) {
-      const int r = min(row0 + i / 4, n - 1);
-      cp_async16(&cs[warp][st][i / 4][i % 4],
-                 codes + (size_t)r * kw + c * (kChunkA / 8) + (i % 4) * 4);
+    for (int i = lane; i < 16 * CU; i += 32) {
+      const int r = min(row0 + i / CU, n - 1);
+      cp_async16(&cs[warp][st][i / CU][i % CU],
+                 codes + (size_t)r * kw + c * (kChunkA / k_per_word<C>()) + (i % CU) * 4);
     }
     const int r = row0 + lane % 16;
-    const float* src = (lane < 16 ? scales : zeros) + (size_t)(c / J) * n;
+    const float* src = (lane < 16 ? scales : zeros) + (size_t)(c / Jg) * n;
     cp_async4(&sz_s[warp][st][lane / 16][lane % 16], r < n ? src + r : src, r < n ? 4 : 0);
   };
 #pragma unroll
@@ -866,8 +923,9 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
 
   // meanwhile: the LUT rows as bf16, and each chunk's sum(x) per token (four
   // lanes sum 32 values each, then two xor shuffles), as the block body
-  for (int i = tid; i < 16 * 16; i += nthreads)
-    lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
+  if (C == kLut4)
+    for (int i = tid; i < 16 * 16; i += nthreads)
+      lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
   for (int i0 = 0; i0 < m * nch * 4; i0 += nthreads) {
     const int i = i0 + tid, t = i / 4 / nch, c = i / 4 % nch, q = i % 4;
     float p = 0.f;
@@ -882,10 +940,10 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
   }
   __syncthreads();
 
-  // sum(x_g) of token t, group grp: its chunks' sums added in order
-  auto sx = [&](int t, int grp) {
+  // sum(x_f) of token t, fold f: its chunks' sums added in order
+  auto sx = [&](int t, int f) {
     if (t >= m) return 0.f;
-    const float* c0 = csum + t * nch + grp * J;
+    const float* c0 = csum + t * nch + f * J;
     float run = c0[0];
     for (int j = 1; j < J; ++j) run += c0[j];
     return run;
@@ -908,18 +966,21 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
       cp_async_commit();
     }
     if (c >= 0) {
-      const uint4 wl = cs[warp][st][gq][tq], wh = cs[warp][st][gq + 8][tq];
-      const uint32_t wlo[4] = {wl.x, wl.y, wl.z, wl.w}, whi[4] = {wh.x, wh.y, wh.z, wh.w};
+      uint32_t wl[8], wh[8];
+      lane_words<C>(wl, cs[warp][st][gq], tq);
+      lane_words<C>(wh, cs[warp][st][gq + 8], tq);
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         uint32_t a[2][4];
-        a_frags(a, wlo[s], whi[s], lut_lo, lut_hi);
+        a_frags<C>(a, wl, wh, s, lut_lo, lut_hi);
         mma_bf16(P[0], a[0], b[s].x, b[s].y);
         mma_bf16(P[0], a[1], b[s].z, b[s].w);
       }
       if (c % J == J - 1) {
-        fold_s<1>(acc, P, sz_s[warp][st][0][gq], sz_s[warp][st][0][gq + 8]);
-        add_z(acc[0], sz_s[warp][st][1][gq], sz_s[warp][st][1][gq + 8], sx(2 * tq, c / J),
+        const float s_lo = sz_s[warp][st][0][gq], s_hi = sz_s[warp][st][0][gq + 8];
+        fold_s<1>(acc, P, s_lo, s_hi);
+        add_z(acc[0], zero_term<C>(s_lo, sz_s[warp][st][1][gq]),
+              zero_term<C>(s_hi, sz_s[warp][st][1][gq + 8]), sx(2 * tq, c / J),
               sx(2 * tq + 1, c / J));
       }
     }
@@ -950,10 +1011,10 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
   }
 }
 
-template <int TN, typename OutT>
+template <int C, int TN, typename OutT>
 void launch_tn(const void* x, const void* codes, const void* scales, const void* zeros,
                const void* lut, void* y, void* scratch, void* counters, int m, int n, int k,
-               int kw, int group_size, int num_groups, int lut_stride, int groups_per_split,
+               int kw, int group_size, int num_groups, int lut_stride, int folds_per_split,
                int splits, int split_blocks, cudaStream_t stream) {
   const bool vec_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && k % 8 == 0;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -963,33 +1024,34 @@ void launch_tn(const void* x, const void* codes, const void* scales, const void*
   const auto* lb = static_cast<const float*>(lut);
   const int dec_warps = min(splits, kDecWarps);
   const size_t dec_smem =
-      dec_smem_bytes(dec_warps, m, num_groups * group_size / kChunkA, splits);
+      dec_smem_bytes<C>(dec_warps, m, num_groups * group_size / kChunkA, splits);
   if (TN == 1 && dec_smem <= kMaxSmem) {
-    opt_in_smem<q4_post_mma_dec<OutT>>(kMaxSmem);  // it has no static shared memory
-    q4_post_mma_dec<OutT><<<(n + 15) / 16, dec_warps * 32, dec_smem, stream>>>(
+    opt_in_smem<q4_post_mma_dec<C, OutT>>(kMaxSmem);  // it has no static shared memory
+    q4_post_mma_dec<C, OutT><<<(n + 15) / 16, dec_warps * 32, dec_smem, stream>>>(
         xb, cb, sb, zb, lb, static_cast<OutT*>(y), m, n, k, kw, group_size, num_groups,
-        lut_stride, groups_per_split, splits, vec_ok);
+        lut_stride, folds_per_split, splits, vec_ok);
     return;
   }
   // (TN == 1 past the decode body's shared memory: the block body, one block
   // summing each tile's splits, which gives the same bits)
   const dim3 grid((n + kRowsA - 1) / kRowsA, (m + 8 * TN - 1) / (8 * TN), split_blocks);
-  opt_in_smem<q4_post_mma<TN, OutT>>(static_cast<int>(block_smem_bytes(TN)));
-  q4_post_mma<TN, OutT><<<grid, kThreadsA, block_smem_bytes(TN), stream>>>(
+  constexpr size_t smem = block_smem_bytes<C>(TN);
+  opt_in_smem<q4_post_mma<C, TN, OutT>>(static_cast<int>(smem));
+  q4_post_mma<C, TN, OutT><<<grid, kThreadsA, smem, stream>>>(
       xb, cb, sb, zb, lb, static_cast<OutT*>(y), static_cast<float*>(scratch),
       static_cast<int*>(counters), m, n, k, kw, group_size, num_groups, lut_stride,
-      groups_per_split, splits, vec_ok);
+      folds_per_split, splits, vec_ok);
 }
 
-template <typename OutT>
+template <int C, typename OutT>
 void launch_out(int tn, const void* x, const void* codes, const void* scales, const void* zeros,
                 const void* lut, void* y, void* scratch, void* counters, int m, int n, int k,
-                int kw, int group_size, int num_groups, int lut_stride, int groups_per_split,
+                int kw, int group_size, int num_groups, int lut_stride, int folds_per_split,
                 int splits, int split_blocks, cudaStream_t s) {
 #define POST_TN(TN)                                                                        \
-  launch_tn<TN, OutT>(x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw,     \
-                      group_size, num_groups, lut_stride, groups_per_split, splits,        \
-                      split_blocks, s)
+  launch_tn<C, TN, OutT>(x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw,  \
+                         group_size, num_groups, lut_stride, folds_per_split, splits,      \
+                         split_blocks, s)
   switch (tn) {
     case 1: POST_TN(1); break;
     case 2: POST_TN(2); break;
@@ -997,6 +1059,35 @@ void launch_out(int tn, const void* x, const void* codes, const void* scales, co
     default: POST_TN(8); break;
   }
 #undef POST_TN
+}
+
+// the C entry points' checks and dispatch on the output type
+template <int C>
+int launch_post(const void* x, const void* codes, const void* scales, const void* zeros,
+                const void* lut, void* y, int m, int n, int k, int kw, int group_size,
+                int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,
+                int split_blocks, void* scratch, void* counters, void* stream) {
+  if (group_size <= 0 || group_size % kChunkA || num_groups < 1 || folds_per_split < 1 ||
+      m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) ||
+      (C == kLut4 && lut == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nfolds = C == kLut4 ? num_groups : num_groups * (group_size / kChunkA);
+  const int splits = (nfolds + folds_per_split - 1) / folds_per_split;
+  if ((split_blocks != 1 && (split_blocks != splits || tn == 1)) || splits > 65535 ||
+      (split_blocks > 1 && (scratch == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define POST_OUT(T)                                                                          \
+  launch_out<C, T>(tn, x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw,     \
+                   group_size, num_groups, lut_stride, folds_per_split, splits, split_blocks, \
+                   s)
+  switch (out_dtype) {
+    case 0: POST_OUT(float); break;
+    case 1: POST_OUT(__nv_bfloat16); break;
+    default: POST_OUT(__half); break;
+  }
+#undef POST_OUT
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace post_mma
@@ -1008,38 +1099,29 @@ extern "C" {
 // kw: 32-bit words of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8).
 // out_dtype: 0 float32, 1 bfloat16, 2 float16.
 
-// Kernel A. tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the
-// block body); groups_per_split: the groups of k each split sums;
-// split_blocks: 1 (a block sums every split of its tile: in turn, or with tn
-// 1 by warps) or the number of splits (the block body, one block each).
-// With more than one split block, scratch holds splits * ceil(n / 64) *
-// ceil(m / (8 tn)) * 8 tn * 64 floats and counters ceil(n / 64) *
-// ceil(m / (8 tn)) ints that are 0, which the launch leaves at 0; launches
-// that share them must not overlap.
-int q4_lut_post(const void* x, const void* codes, const void* scales, const void* zeros,
-                const void* lut, void* y, int m, int n, int k, int kw, int group_size,
-                int num_groups, int lut_stride, int out_dtype, int tn, int groups_per_split,
-                int split_blocks, void* scratch, void* counters, void* stream) {
-  if (group_size <= 0 || group_size % post_mma::kChunkA || num_groups < 1 ||
-      groups_per_split < 1 || m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = (num_groups + groups_per_split - 1) / groups_per_split;
-  if ((split_blocks != 1 && (split_blocks != splits || tn == 1)) || splits > 65535 ||
-      (split_blocks > 1 && (scratch == nullptr || counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define POST_OUT(T)                                                                        \
-  post_mma::launch_out<T>(tn, x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, \
-                          kw, group_size, num_groups, lut_stride, groups_per_split, splits, \
-                          split_blocks, s)
-  switch (out_dtype) {
-    case 0: POST_OUT(float); break;
-    case 1: POST_OUT(__nv_bfloat16); break;
-    default: POST_OUT(__half); break;
+// Kernels A, C and int8_post (lut: kernel A's; C and int8_post read none).
+// tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the block body);
+// folds_per_split: the folds of k each split sums (kernel A: groups; C and
+// int8_post: 128-k slices); split_blocks: 1 (a block sums every split of its
+// tile: in turn, or with tn 1 by warps) or the number of splits (the block
+// body, one block each). With more than one split block, scratch holds splits
+// * ceil(n / 64) * ceil(m / (8 tn)) * 8 tn * 64 floats and counters ceil(n /
+// 64) * ceil(m / (8 tn)) ints that are 0, which the launch leaves at 0;
+// launches that share them must not overlap.
+#define POST_ENTRY(NAME, CODES)                                                                \
+  int NAME(const void* x, const void* codes, const void* scales, const void* zeros,            \
+           const void* lut, void* y, int m, int n, int k, int kw, int group_size,              \
+           int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,         \
+           int split_blocks, void* scratch, void* counters, void* stream) {                    \
+    return post_mma::launch_post<post_mma::CODES>(x, codes, scales, zeros, lut, y, m, n, k,    \
+                                                  kw, group_size, num_groups, lut_stride,      \
+                                                  out_dtype, tn, folds_per_split,              \
+                                                  split_blocks, scratch, counters, stream);    \
   }
-#undef POST_OUT
-  return static_cast<int>(cudaGetLastError());
-}
+
+POST_ENTRY(q4_lut_post, kLut4)
+POST_ENTRY(q4_int4_magic, kMagic4)
+POST_ENTRY(int8_post, kInt8)
 
 #define Q4_ENTRY(NAME, MODE)                                                                    \
   int NAME(const void* x, const void* codes, const void* scales, const void* zeros,           \
@@ -1050,9 +1132,7 @@ int q4_lut_post(const void* x, const void* codes, const void* scales, const void
   }
 
 Q4_ENTRY(q4_lut_fused, kFused)
-Q4_ENTRY(q4_int4_magic, kMagic)
 Q4_ENTRY(q4_lut_select, kSelect)
-Q4_ENTRY(int8_post, kPost8)
 Q4_ENTRY(int8_fused, kFused8)
 
 }  // extern "C"

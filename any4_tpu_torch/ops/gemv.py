@@ -2,33 +2,36 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. In ``csrc/q4_lut_gemv.cu``, kernel A on the tensor cores and
-five modes of one CUDA-core body:
+Ten kernels. In ``csrc/q4_lut_gemv.cu``, three on the tensor cores (A, C
+and ``int8_post``: ``mma.sync`` m16n8k16, bf16 in, f32 sums, at every m, in
+a decode body (m <= 8) and a block body that give the same bits, with k
+split by :func:`kernel_a_plan`; the bodies are templated on how a code
+becomes a bf16 value) and three modes of one CUDA-core body (B, E and
+``int8_fused``):
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
   times the LUT values are summed in f32 per group, and the group affine is
   applied after the dot, ``y += P_g * s_g + sum(x_g) * z_g``. Group sizes
-  that are multiples of 128. It runs ``mma.sync`` m16n8k16 (bf16 in, f32
-  sums) at every m, in a decode body (m <= 8) and a block body that give
-  the same bits, with k split by :func:`kernel_a_plan`.
+  that are multiples of 128.
 - :func:`q4_lut_fused` (kernel B) replaces ``_q4_kernel``: each weight is
   ``bf16(lut[c] * s + z)`` (one fused multiply-add in f32, then one bf16
   rounding) and the dot with bf16 x accumulates in f32. Group sizes that
   are multiples of 8. Row-layout int4 runs here at every group size, with
   the ramp ``lut = c - 8`` (:data:`INT4_RAMP`).
 - :func:`q4_int4_magic` (kernel C) replaces ``_q4pair_kernel`` (int4p):
-  ``(w >> 4p) & 0x000F000F | 0x43004300`` read as bf16 is ``128 + c``; per
-  128-wide slice ``y += P * s + sum(x) * (z - 136 s)``, with ``P`` the f32
-  dot of bf16 x and ``128 + c``. Group sizes that are multiples of 128.
+  each weight is ``128 + c`` (a code's nibble or'ed into the bf16 magic
+  number ``0x4300``); per 128-wide slice ``y += P * s + sum(x) * (z - 136
+  s)``, with ``P`` the f32 dot of bf16 x and ``128 + c``. Group sizes that
+  are multiples of 128.
 - :func:`q4_lut_select` (kernel E) replaces ``_q4select_kernel``: kernel B's
   function with the LUT value picked by 16 compare-selects instead of a
   table read; equal to kernel B bit for bit. Group sizes that are multiples
   of 128 (``linear(..., use_gather=False)``).
 - :func:`int8_post` replaces ``_int8q_kernel`` and ``_int8t_kernel``: bf16
-  x times the int8 codes converted to float (exact), f32 sums per 128-wide
-  slice, then ``y += P * s + sum(x) * z``. Group sizes that are multiples
-  of 128 (``int8q``/``int8t``/``int8g``).
+  x times the int8 codes as bf16 (exact), f32 sums per 128-wide slice, then
+  ``y += P * s + sum(x) * z``. Group sizes that are multiples of 128
+  (``int8q``/``int8t``/``int8g``).
 - :func:`int8_fused` replaces ``_int8_kernel``: kernel B's function with the
   int8 code ``q`` in place of ``lut[c]``, each weight ``bf16(q * s + z)``
   (one fused multiply-add), then the dot in f32. Group sizes of 16 or more
@@ -62,8 +65,8 @@ W4A8 and W8A8 kernels keep its precision.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Each launch adds one to
-``LAUNCHES[name]``. Kernel A's split-k scratch and ticket counters are kept
-per device and stream (:func:`_split_buffers`).
+``LAUNCHES[name]``. The tensor-core kernels' split-k scratch and ticket
+counters are kept per device and stream (:func:`_split_buffers`).
 """
 from __future__ import annotations
 
@@ -89,10 +92,13 @@ _W4A8_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
 _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
 _SMS = {}    # device -> streaming multiprocessors
-_SPLIT_BUFS = {}  # (device, stream) -> kernel A's (scratch, counters)
-# Kernel A's blocks (csrc/q4_lut_gemv.cu, post_mma): 64 weight rows each
-# (16 in the decode body); k is split until the decode body has about
-# A_DEC_WARPS_PER_SM warps per SM, whatever m is.
+_SPLIT_BUFS = {}  # (device, stream) -> the tensor-core kernels' buffers
+# the kernels on the tensor cores (csrc/q4_lut_gemv.cu, post_mma), which
+# take kernel_a_plan's launch plan and the split buffers
+POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post")
+# Their blocks: 64 weight rows each (16 in the decode body); k is split
+# until the decode body has about A_DEC_WARPS_PER_SM warps per SM, whatever
+# m is.
 A_ROWS = 64
 A_DEC_WARPS_PER_SM = 16
 # Largest m whose activations the W4A8 and W8A8 kernels quantize
@@ -121,8 +127,8 @@ def int4_ramp(device) -> torch.Tensor:
 
 
 def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
-    """Kernel A's launch plan: ``(tn, splits, groups_per_split,
-    split_blocks)``.
+    """The tensor-core kernels' launch plan: ``(tn, splits,
+    groups_per_split, split_blocks)``.
 
     ``tn`` n8 token tiles (1, 2, 4 or 8: the fewest that hold m, at most
     8). With ``tn`` 1 the decode body runs: a block takes 16 weight rows and
@@ -138,7 +144,11 @@ def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
     decode body ``A_DEC_WARPS_PER_SM`` warps per SM, one split each for each
     of the ``ceil(n / 16)`` row tiles: a function of ``(n, num_groups,
     sms)`` only, never of m. Each split's sum is its own, and the splits add
-    in split order, so a token's sums run in the same order at every m."""
+    in split order, so a token's sums run in the same order at every m.
+
+    Kernel A folds its affine once per group; C and ``int8_post`` fold once
+    per 128-wide slice, so their ``num_groups`` is the slice count ``kp /
+    128`` (at g=128 the same number)."""
     tn = next((t for t in (1, 2, 4) if m <= 8 * t), 8)
     row_blocks = -(-n // A_ROWS)
     want = min(num_groups, -(-A_DEC_WARPS_PER_SM * sms // -(-n // 16)))
@@ -362,10 +372,11 @@ def _sm_count(dev) -> int:
 
 
 def _split_buffers(dev, stream: int, floats: int, ints: int):
-    """Kernel A's split-k scratch (at least ``floats`` f32) and ticket
-    counters (at least ``ints`` int32 zeros), one pair per device and
-    stream: the last split of each tile sets its counter back to 0, so the
-    counters are zeroed once, and launches on one stream never overlap."""
+    """The tensor-core kernels' split-k scratch (at least ``floats`` f32)
+    and ticket counters (at least ``ints`` int32 zeros), one pair per device
+    and stream: the last split of each tile sets its counter back to 0, so
+    the counters are zeroed once, and launches on one stream never
+    overlap."""
     scratch, counters = _SPLIT_BUFS.get((dev, stream), (None, None))
     if scratch is None or scratch.numel() < floats:
         scratch = torch.empty(floats, dtype=torch.float32, device=dev)
@@ -376,11 +387,17 @@ def _split_buffers(dev, stream: int, floats: int, ints: int):
 
 
 def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
+    """Kernels A, C and ``int8_post`` on the tensor cores, with
+    :func:`kernel_a_plan`'s plan over their folds: kernel A's groups, the
+    others' 128-wide slices."""
     n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
                                out_dtype)
-    if lut is None or G * group_size > kw * 8:
-        raise ValueError(f"{name}: needs a lut and num_groups * group_size "
-                         f"<= kp, got {G} x {group_size} > {kw * 8}")
+    kp = kw * (4 if name in BYTE_KERNELS else 8)
+    want_lut = name == "q4_lut_post"
+    if (lut is not None) != want_lut or G * group_size > kp:
+        raise ValueError(f"{name}: needs {'a' if want_lut else 'no'} lut and "
+                         f"num_groups * group_size <= kp, got {G} x "
+                         f"{group_size} > {kp}")
     m, k = x.shape
     xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -388,18 +405,20 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
         return y
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tn, splits, per, split_blocks = kernel_a_plan(m, n, G, _sm_count(dev))
+    folds = G if name == "q4_lut_post" else G * group_size // SLICE
+    tn, splits, per, split_blocks = kernel_a_plan(m, n, folds, _sm_count(dev))
     scratch = counters = None
     if split_blocks > 1:
         tiles = -(-n // A_ROWS) * -(-m // (8 * tn))
         scratch, counters = _split_buffers(
             dev, stream, splits * tiles * 8 * tn * A_ROWS, tiles)
-    per_row = lut.shape[0] == n and n > 1
+    per_row = lut is not None and lut.shape[0] == n and n > 1
     err = _fn(name)(
         xb.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), lut.data_ptr(), y.data_ptr(), m, n, k, kw,
-        group_size, G, 16 if per_row else 0, _OUT_DTYPES[out_dtype], tn, per,
-        split_blocks, None if scratch is None else scratch.data_ptr(),
+        zeros.data_ptr(), None if lut is None else lut.data_ptr(),
+        y.data_ptr(), m, n, k, kw, group_size, G, 16 if per_row else 0,
+        _OUT_DTYPES[out_dtype], tn, per, split_blocks,
+        None if scratch is None else scratch.data_ptr(),
         None if counters is None else counters.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -431,8 +450,9 @@ def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
 
 
 def _launch_int8(name, x, packed, scales, zeros, group_size, out_dtype):
-    return _launch_q4(name, x, packed, scales, zeros, None, group_size,
-                      out_dtype)
+    launch = _launch_post if name in POST_KERNELS else _launch_q4
+    return launch(name, x, packed, scales, zeros, None, group_size,
+                  out_dtype)
 
 
 def _dispatch(name, plain, launch, x, *args):
@@ -473,7 +493,7 @@ def q4_lut_select(x, packed, scales, zeros, lut, group_size, out_dtype):
 def q4_int4_magic(x, packed, scales, zeros, group_size, out_dtype):
     """Kernel C on ``x [m, k]``; returns ``[m, n]`` of ``out_dtype``."""
     _need_group("q4_int4_magic", group_size, SLICE)
-    return _dispatch("q4_int4_magic", q4_int4_magic_plain, _launch_q4, x,
+    return _dispatch("q4_int4_magic", q4_int4_magic_plain, _launch_post, x,
                      packed, scales, zeros, None, group_size, out_dtype)
 
 

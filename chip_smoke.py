@@ -8,7 +8,9 @@ Phases, each printing JSON lines:
 1. setup: the card's ``nvidia-smi`` name and power limit, the torch and CUDA
    versions, and the time to build the CUDA kernels from
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
-   parallel).
+   parallel); then a ``ptxas`` line: the registers and spill bytes of each
+   instantiation of the tensor-core bodies (kernels A, C and ``int8_post``)
+   from nvcc's ``-Xptxas -v`` report.
 2. kernels: kernel A (``q4_lut_post``, g=128) at m in {1, 8, 16, 128,
    512} and kernel B (``q4_lut_fused``, g=64) at m in {1, 16, 128}, at
    Llama-3.2-1B's linear shapes, each held against its plain PyTorch
@@ -26,7 +28,10 @@ Phases, each printing JSON lines:
    by one element; and kernel A's bit equalities at three 1B shapes whose
    k is split: each row of a batch of 8, 16 and 130 gives the bits of that
    row alone (the decode body against the block body), and two calls give
-   the same bits.
+   the same bits. The same bit equalities for kernel C and ``int8_post``,
+   which run on kernel A's bodies (``post_bit_equal``), and their edge
+   cases as kernel A's, with g = 256 (two slices a group) and int8 codes
+   of -128 (``post_edge_cases``).
 3. attention_kernel: the four decode-attention kernels
    (``flash_paged_decode``/``_q8``, ``flash_contig_decode``/``_q8``) at the
    1B serving shapes (8 kv heads, rep 4, head_dim 64, page size 16, bf16 q)
@@ -64,11 +69,13 @@ Phases, each printing JSON lines:
    pool is within 2e-2 * max (5e-2 for int8 pools) of ``decode_step`` over
    a dense float32 cache at 3 positions. Prints tokens per second, ms per
    decode step, prefill ms, peak memory and the device's busy share
-   (``torch.profiler`` over 8 steps at 8 active slots).
+   (``torch.profiler`` over 8 steps at 8 active slots), with the attention
+   and the linear kernels' device ms per step.
 6. int kernels (slice 3): kernel C (``q4_int4_magic``), D (``w4a8``,
    int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
    int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
-   C and D at m in {1, 16, 128}, D-fused at {1, 16, 64}, E at {1, 16},
+   C at m in {1, 8, 16, 128, 512}, D at {1, 16, 128}, D-fused at {1, 16,
+   64}, E at {1, 16},
    timed and held against their plain versions as in 2: bf16 outputs
    within 1e-2 * max, float32 within 1e-4 * max (C, E) and 1e-5 * max (D,
    D-fused: exact integer dots); E equal to kernel B bit for bit. Then edge
@@ -77,8 +84,9 @@ Phases, each printing JSON lines:
    row whose x / sx lands on k + 0.5 (checked against
    ``quantize_activations``, which rounds half to even), and float32,
    bf16 and float16 outputs.
-7. int8 kernels (slice 4): ``w8a8`` (int8 x) and ``int8_post`` at m in
-   {1, 16, 128}, ``w8a8_fused`` at {1, 16, 64} (g=128) and ``int8_fused``
+7. int8 kernels (slice 4): ``w8a8`` (int8 x) at m in {1, 16, 128},
+   ``int8_post`` at {1, 8, 16, 128, 512}, ``w8a8_fused`` at {1, 16, 64}
+   (g=128) and ``int8_fused``
    (g=64) at {1, 16}, at the 1B linear shapes with random int8 codes (-128
    included), timed and held against their plain versions as in 2: bf16
    outputs within 1e-2 * max, float32 within 1e-5 * max (``w8a8``,
@@ -129,7 +137,8 @@ Phases, each printing JSON lines:
     linear, within 2e-2 * max of the dense float32 forward with float32
     activations; exact launch counts.
 12. the ``nvidia-smi`` name and power line again, then the line
-    ``{"kernels": [...]}``, one entry per kernel (fourteen).
+    ``{"kernels": [...]}``, one entry per kernel (fourteen; kernels A, C
+    and ``int8_post`` also ``by_m``).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -142,6 +151,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -169,7 +179,7 @@ W4A8_SOURCE = "any4_tpu_torch/ops/csrc/w4a8_gemv.cu"
 # slice 3: name -> (source, the TPU kernel it replaces, m of the kernel phase)
 INT_KERNELS = {
     "q4_int4_magic": (SOURCE, "any4_tpu/ops/pallas/gemv.py:457 "
-                      "_q4pair_kernel", (1, 16, 128)),
+                      "_q4pair_kernel", (1, 8, 16, 128, 512)),
     "w4a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel",
              (1, 16, 128)),
     "w4a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:550 "
@@ -190,7 +200,7 @@ INT8_KERNELS = {
                    "_w8a8tf_kernel", (1, 16, 64), 128),
     "int8_post": (SOURCE, "any4_tpu/ops/pallas/gemv.py:765 _int8q_kernel; "
                   "any4_tpu/ops/pallas/gemv.py:878 _int8t_kernel",
-                  (1, 16, 128), 128),
+                  (1, 8, 16, 128, 512), 128),
     "int8_fused": (SOURCE, "any4_tpu/ops/pallas/gemv.py:913 _int8_kernel",
                    (1, 16), 64),
 }
@@ -213,6 +223,9 @@ ATTN_HEADS, ATTN_REP, ATTN_HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16   # 1B serving
 ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
 ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
+# profiler kernel names of the linear kernels (SOURCE's two families,
+# W4A8_SOURCE's body)
+LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_kernel")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
 
@@ -381,14 +394,46 @@ def kernel_a_edge_cases(gemv, packing):
     return cases
 
 
-def kernel_a_bit_equal(gemv, packing):
-    """Kernel A's sums run in an order that depends on (n, k) alone: at the
-    1B shapes whose k is split (2048 x 2048, 512 x 2048 and 8192 x 2048:
-    one row runs the decode body, m = 16 a block per split, m = 130 at
-    8192 x 2048 one block for all of a tile's splits), every row of a batch
-    of m = 8, 16 and 130 gives the same float32 bits as that row alone, and
-    two calls on the same inputs give the same bits."""
+def post_operands(packing, name, n, k, g, gen):
+    """Random codes of one tensor-core kernel in the port's layout (int8
+    codes for ``int8_post``, -128 included), g-wide f32 scales and zeros
+    ``[kp/g, n]`` and, for kernel A, a per-row LUT (else None)."""
+    G = packing.padded_k(k) // g
+    if name == "int8_post":
+        packed = packing.pack_codes8(torch.randint(
+            -128, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8))
+    else:
+        packed = packing.pack_codes(torch.randint(
+            0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
+    scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01
+    zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+    lut = (torch.randn((n, 16), generator=gen, device="cuda")
+           if name == "q4_lut_post" else None)
+    return packed, scales, zeros, lut
+
+
+def post_call(gemv, name, plain=False):
+    """``f(x, packed, scales, zeros, lut, g, out)`` for one tensor-core
+    kernel's wrapper (or plain version); C ignores the lut, ``int8_post``
+    takes none."""
+    fn = getattr(gemv, name + ("_plain" if plain else ""))
+    if name == "q4_lut_post" or (plain and name == "q4_int4_magic"):
+        return fn
+    return lambda x, packed, scales, zeros, lut, g, out: fn(
+        x, packed, scales, zeros, g, out)
+
+
+def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
+    """The tensor-core kernels' sums run in an order that depends on (n, k)
+    alone: at the 1B shapes whose k is split (2048 x 2048, 512 x 2048 and
+    8192 x 2048: one row runs the decode body, m = 16 a block per split,
+    m = 130 at 8192 x 2048 one block for all of a tile's splits), every row
+    of a batch of m = 8, 16 and 130 gives the same float32 bits as that row
+    alone, and two calls on the same inputs give the same bits. Kernel A by
+    default; C and ``int8_post`` (g=128: their 128-k slices are the
+    groups) by name."""
     gen = torch.Generator(device="cuda").manual_seed(8)
+    fn = post_call(gemv, name)
     rows = 0
     splits = {}
     for n, k in ((2048, 2048), (512, 2048), (8192, 2048)):
@@ -397,28 +442,107 @@ def kernel_a_bit_equal(gemv, packing):
             1, n, G, torch.cuda.get_device_properties(0)
             .multi_processor_count)[1]
         check(splits[f"{n}x{k}"] > 1, f"{n}x{k} splits k")
-        packed = packing.pack_codes(torch.randint(
-            0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
-        args = (packed,
-                torch.rand((G, n), generator=gen, device="cuda") * 0.01,
-                torch.randn((G, n), generator=gen, device="cuda") * 0.01,
-                torch.randn((n, 16), generator=gen, device="cuda"), 128,
+        args = (*post_operands(packing, name, n, k, 128, gen), 128,
                 torch.float32)
         for m in (8, 16, 130):
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            y = gemv.q4_lut_post(x, *args)
+            y = fn(x, *args)
             check(torch.equal(y.view(torch.int32),
-                              gemv.q4_lut_post(x, *args).view(torch.int32)),
-                  f"kernel A n={n} k={k} m={m}: two calls differ")
+                              fn(x, *args).view(torch.int32)),
+                  f"{name} n={n} k={k} m={m}: two calls differ")
             for i in range(m):
-                one = gemv.q4_lut_post(x[i:i + 1], *args)
+                one = fn(x[i:i + 1], *args)
                 check(torch.equal(one.view(torch.int32),
                                   y[i:i + 1].view(torch.int32)),
-                      f"kernel A n={n} k={k}: row {i} of m={m} differs "
+                      f"{name} n={n} k={k}: row {i} of m={m} differs "
                       f"from the row alone")
                 rows += 1
     return {"rows": rows, "splits": splits}
+
+
+def post_edge_cases(gemv, packing, name):
+    """Kernel C or ``int8_post`` on shapes the 1B path does not give them,
+    as kernel A's edge cases: m in {3, 9, 17, 130}, n in {24, 1000}, k =
+    2048 and 1004, g = 128 and 256 (the slice fold reads each group's scale
+    twice), int8 codes of -128 (a quarter of the rows all -128), float32
+    (1e-4 * max), bf16 and float16 (1e-2 * max) outputs, x misaligned by
+    one element as well as aligned."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fn, plain = post_call(gemv, name), post_call(gemv, name, plain=True)
+    cases = 0
+    for n, k in ((24, 2048), (1000, 1004)):
+        for g in (128, 256):
+            packed, _, _, _ = post_operands(packing, name, n, k, g, gen)
+            if name == "int8_post":
+                packed[:n // 4 + 1] = -128
+            scales = packing.pad_groups(torch.rand(
+                (n, -(-k // g)), generator=gen, device="cuda") + 0.5, k, g)
+            zeros = packing.pad_groups(torch.randn(
+                (n, -(-k // g)), generator=gen, device="cuda"), k, g)
+            args = (packed, scales.t().contiguous(), zeros.t().contiguous(),
+                    None, g)
+            for m in (3, 9, 17, 130):
+                flat = torch.randn(m * k + 1, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                for misaligned in (False, True):
+                    x = flat[int(misaligned):][:m * k].view(m, k)
+                    check((x.data_ptr() % 16 != 0) == misaligned,
+                          "x alignment")
+                    for out, tol in ((torch.float32, 1e-4),
+                                     (torch.bfloat16, 1e-2),
+                                     (torch.float16, 1e-2)):
+                        y = fn(x, *args, out)
+                        ref = plain(x, *args, out)
+                        torch.cuda.synchronize()
+                        err = rel_err(y, ref)
+                        check(y.shape == (m, n) and y.dtype == out
+                              and bool(torch.isfinite(y).all())
+                              and err <= tol,
+                              f"{name} edge n={n} k={k} m={m} g={g} "
+                              f"misaligned={misaligned} {out}: {err} > {tol}")
+                        cases += 1
+    return cases
+
+
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(report: str, keep="post_mma"):
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    report whose mangled name holds ``keep`` (the tensor-core bodies:
+    each code policy x token tiles x output type), demangled by
+    ``c++filt`` where it is installed."""
+    found, name, spills = [], None, (None, None)
+    for line in report.splitlines():
+        hit = PTXAS_ENTRY.search(line)
+        if hit:
+            name = hit.group(1) if keep in hit.group(1) else None
+            continue
+        if name is None:
+            continue
+        hit = PTXAS_SPILLS.search(line)
+        if hit:
+            spills = (int(hit.group(1)), int(hit.group(2)))
+        hit = PTXAS_REGS.search(line)
+        if hit:
+            found.append({"kernel": name, "registers": int(hit.group(1)),
+                          "spill_stores": spills[0],
+                          "spill_loads": spills[1]})
+            name, spills = None, (None, None)
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(f["kernel"] for f in found),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = []
+    if len(names) == len(found):
+        for f, full in zip(found, names):
+            f["kernel"] = full.split(">(")[0].replace("void ", "").replace(
+                "(anonymous namespace)::", "").replace("post_mma::", "") + ">"
+    return found
 
 
 def edge_cases(gemv, packing):
@@ -1002,6 +1126,11 @@ def layer_summary(rows, name, lut=None, m=1,
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in mine
                                      if r["m"] == m) else "operations"
     return out
+
+
+def by_m(rows, name, ms, lut=None):
+    """A kernel's per-layer sums at each m of its kernel phase."""
+    return {m: layer_summary(rows, name, lut, m=m) for m in ms}
 
 
 def rel_err(a, ref) -> float:
@@ -1680,6 +1809,11 @@ def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
             "attention_ms_per_step": sum(
                 v for k, v in per_kernel.items() if "decode_kernel" in k)
             / 1e3 / steps,
+            # the 112 linear kernel launches of a step
+            "linear_ms_per_step": sum(
+                v for k, v in per_kernel.items()
+                if any(name in k for name in LINEAR_KERNEL_NAMES))
+            / 1e3 / steps,
             "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
                                         for k, v in top}}
 
@@ -1778,6 +1912,8 @@ def main():
           "build_s": build_s, "libraries": sorted(libs.values()),
           "bandwidth_bytes_per_s": bw, "bf16_flops_per_s": peak,
           "peaks_from": f"NVIDIA data sheet, {peak_name} (SXM unless PCIe)"})
+    emit({"phase": "ptxas", "source": SOURCE, "kernels": ptxas_summary(
+        build.PTXAS_REPORTS.get(os.path.basename(SOURCE), ""))})
 
     timer = Timer()
     rows = kernel_phase(gemv, packing, linear, timer, Timer(dirty=True), bw,
@@ -1787,6 +1923,11 @@ def main():
           "passed": kernel_a_edge_cases(gemv, packing)})
     emit({"phase": "kernel_a_bit_equal",
           **kernel_a_bit_equal(gemv, packing)})
+    for name in ("q4_int4_magic", "int8_post"):
+        emit({"phase": "post_bit_equal", "name": name,
+              **kernel_a_bit_equal(gemv, packing, name)})
+        emit({"phase": "post_edge_cases", "name": name,
+              "passed": post_edge_cases(gemv, packing, name)})
     int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "int_kernel_edge_cases",
           "passed": int_edge_cases(gemv, packing, quant)})
@@ -1873,6 +2014,9 @@ def main():
                               f"generate at b=1 and 4 over the "
                               f"{'int4' if name == 'q4_int4_magic' else 'w4a8'}"
                               f" model")})
+        if name in gemv.POST_KERNELS:
+            kernels[-1]["by_m"] = by_m(int_rows, name, INT_KERNELS[name][2],
+                                       lut)
     for name, (source, replaces, _, g) in INT8_KERNELS.items():
         summary = layer_summary(int8_rows, name)
         kernels.append({
@@ -1889,6 +2033,8 @@ def main():
                               f"generate at b=1 and 4 over the "
                               f"{'int8' if name == 'int8_post' else 'w8a8'}"
                               f" model")})
+        if name in gemv.POST_KERNELS:
+            kernels[-1]["by_m"] = by_m(int8_rows, name, INT8_KERNELS[name][2])
     print(smi, flush=True)      # the card's name and power limit
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

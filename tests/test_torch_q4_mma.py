@@ -1,25 +1,29 @@
-"""Kernel A (``q4_lut_post``) at the shapes its tensor-core tiles make
-ragged, and its launch plan, on the CPU.
+"""The tensor-core kernels (A ``q4_lut_post``, C ``q4_int4_magic`` and
+``int8_post``) at the shapes their tiles make ragged, and their launch
+plan, on the CPU.
 
-- The plain version, which the wrapper runs on CPU tensors and which the
-  CUDA kernel is held against on the card, against the JAX package's
-  interpreted ``_q4t_kernel`` at m in {8, 17, 130} (a full n8 token tile,
-  one past two, one past a 64-token block), n not a multiple of 16 (the
-  rows of one warp's mma tile) and g in {128, 256}, float32 output within
-  1e-4 * max (only the order of the f32 sums differs).
+- The plain versions, which the wrapper runs on CPU tensors and which the
+  CUDA kernels are held against on the card, against the JAX package's
+  interpreted ``_q4t_kernel`` (any4/nf4/fp4), ``_q4pair_kernel`` (int4p),
+  ``_int8q_kernel`` and ``_int8t_kernel`` at m in {8, 17, 130} (a full n8
+  token tile, one past two, one past a 64-token block), n not a multiple
+  of 16 (the rows of one warp's mma tile) and g in {128, 256} (for C and
+  ``int8_post`` two 128-wide slices fold with one group's scale), float32
+  output within 1e-4 * max (only the order of the f32 sums differs).
 - ``gemv.kernel_a_plan``: the split of k depends on (n, num_groups, sms)
   and never on m, so that a token's sums run in the same order at every m;
   the token tiles, row blocks and splits cover (m, n, k) exactly, with no
   empty split; each split gets a block of its own only where the tiles
-  alone leave SMs idle.
+  alone leave SMs idle. C and ``int8_post`` call it with their slice count
+  as ``num_groups``, which the same cases cover.
 """
 import numpy as np
 import pytest
 import torch
 
-from any4_tpu_torch.ops import gemv
+from any4_tpu_torch.ops import gemv, linear as tlin
 from test_torch_convert import assert_close_max
-from test_torch_gemv import _jax_mm, _pair, _port_mm
+from test_torch_gemv import _jax_mm, _pair
 
 # (fmt, g, n, k, m)
 TAILS = [
@@ -29,19 +33,42 @@ TAILS = [
     ("any4", 256, 72, 2048, 130),
     ("nf4", 256, 24, 1024, 8),
     ("fp4", 128, 200, 1024, 17),
+    ("int4", 128, 24, 2048, 8),
+    ("int4", 256, 200, 1024, 17),
+    ("int4", 128, 200, 2048, 130),
+    ("int4", 256, 24, 2048, 130),
+    ("int8q", 128, 200, 1024, 8),
+    ("int8q", 256, 24, 2048, 17),
+    ("int8q", 128, 24, 2048, 130),
+    ("int8t", 256, 200, 1024, 8),
+    ("int8t", 128, 24, 1024, 17),
+    ("int8t", 256, 200, 2048, 130),
 ]
+# the weight format each one quantizes to, and the port kernel it runs
+KERNEL_OF = {"any4": ("any4t", "q4_lut_post"), "nf4": ("nf4t", "q4_lut_post"),
+             "fp4": ("fp4t", "q4_lut_post"), "int4": ("int4p", "q4_int4_magic"),
+             "int8q": ("int8q", "int8_post"), "int8t": ("int8t", "int8_post")}
 
 
 @pytest.mark.parametrize("fmt,g,n,k,m", TAILS,
                          ids=[f"{f}-g{g}-n{n}-k{k}-m{m}"
                               for f, g, n, k, m in TAILS])
-def test_plain_matches_jax_kernel_at_tails(fmt, g, n, k, m):
+def test_plain_matches_jax_kernel_at_tails(fmt, g, n, k, m, monkeypatch):
     jqt, qt = _pair(fmt, g, None, n, k, seed=m)
-    assert qt.fmt == fmt + "t" and qt.group_size == g
+    weight_fmt, kernel = KERNEL_OF[fmt]
+    assert qt.fmt == weight_fmt and qt.group_size == g
     x = np.random.default_rng(k + m).standard_normal((m, k)).astype(
         np.float32)
+    plain = getattr(gemv, kernel + "_plain")
+    called = []
+    monkeypatch.setattr(gemv, kernel + "_plain",
+                        lambda *a: called.append(1) or plain(*a))
     before = dict(gemv.LAUNCHES)
-    y = _port_mm(x, qt)
+    y = gemv.quantized_matmul(
+        torch.from_numpy(x), qt.packed, qt.scales, qt.zeros, qt.lut,
+        group_size=g, out_dtype=torch.float32,
+        fmt=tlin._kernel_fmt(qt.fmt, qt.lut))
+    assert called == [1]                # the plain version of that kernel
     assert gemv.LAUNCHES == before      # CPU tensors launch nothing
     assert y.shape == (m, n) and y.dtype == torch.float32
     assert_close_max(y, _jax_mm(x, jqt), 1e-4)

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Time the port's kernel A (``q4_lut_post``, any4 at g=128) on one NVIDIA
-GPU at the 1B linear shapes across m, each held against its plain version.
+"""Time the port's quantized linear kernels on one NVIDIA GPU at the 1B
+linear shapes across m, each held against its plain version.
 
-    python3 tools/torch_gemv_sweep.py [--root DIR] [--ms 1,8,16,128,512]
-        [--shapes 2048x2048,512x2048,8192x2048,2048x8192] [--reps 20]
-        [--out FILE]
+    python3 tools/torch_gemv_sweep.py [--root DIR] [--kernels q4_lut_post]
+        [--ms 1,8,16,128,512] [--shapes 2048x2048,512x2048,8192x2048,2048x8192]
+        [--reps 20] [--out FILE]
 
-For each (n, k) shape and m it checks the kernel's bf16 output against the
-plain version within 1e-2 * max (``chip_smoke.py``'s bar) and prints one
+``--kernels`` takes a comma-separated list of ``q4_lut_post`` (kernel A,
+any4 with per-row LUTs; the default), ``q4_int4_magic`` (kernel C, int4),
+``int8_post`` (int8 codes), ``w4a8`` (kernel D: int8 activations, 4-bit
+codes) and ``w8a8`` (int8 activations and codes), all at g=128. For each
+kernel, (n, k) shape and m it checks the kernel's output against the plain
+version (bf16 within 1e-2 * max, ``chip_smoke.py``'s bar; D and ``w8a8``
+give f32, within 1e-5 * max: their integer dots are exact) and prints one
 JSON row with the kernel's median time (CUDA events over ``--reps``
 launches; ``ms`` with the L2 emptied by reading a 128 MB buffer before each
-launch, ``ms_dirty_l2`` by writing it), one bf16 ``torch.matmul`` on the
-dequantized weight (``library_ms``, the same two ways; the port never calls
-it) and the least time the card could take (``bound_ms``: bytes over the
-memory rate or 2mnk over the bf16 tensor-core rate, the larger). A last
-``layer`` row per m sums one Llama-3.2-1B decoder layer's 7 linears.
+launch, ``ms_dirty_l2`` by writing it), the plain version's (``plain_ms``,
+5 launches), one bf16 ``torch.matmul`` on the dequantized weight
+(``library_ms``, the same two ways; the port never calls it) and the least
+time the card could take (``bound_ms``: the bytes over the
+memory rate, or 2mnk over the tensor cores' bf16 rate (int8 for D and
+``w8a8``), the larger). A last ``layer`` row per kernel and m sums one
+Llama-3.2-1B decoder layer's 7 linears.
 
 ``--root DIR`` imports ``any4_tpu_torch`` and ``chip_smoke.py`` from another
 checkout (for example the parent commit unpacked with ``git archive``) and
-times its kernel A: the way to compare two versions within one call on one
+times its kernels: the way to compare two versions within one call on one
 card, run in turns (parent, this tree, this tree, parent). Rows also go to
 ``--out`` (JSON lines).
 """
@@ -33,16 +40,48 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 SHAPES = "2048x2048,512x2048,8192x2048,2048x8192"
+# kernel -> (format of its QuantizedTensor, int8 codes, int8 activations)
+KERNELS = {"q4_lut_post": ("any4", False, False),
+           "q4_int4_magic": ("int4", False, False),
+           "int8_post": ("int8", True, False),
+           "w4a8": ("int4", False, True),
+           "w8a8": ("int8", True, True)}
+
+
+def operands(torch, linear, packing, fmt, int8_codes, n, k, g, gen):
+    """Random codes in the port's layout (int8 codes with -128, or 4-bit),
+    g-wide scales and zeros and, for any4, a sorted per-row LUT, as a
+    ``QuantizedTensor``."""
+    if int8_codes:
+        packed = packing.pack_codes8(torch.randint(
+            -128, 128, (n, k), generator=gen, device="cuda",
+            dtype=torch.int8))
+    else:
+        packed = packing.pack_codes(torch.randint(
+            0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
+    lut = None
+    if fmt == "any4":
+        lut = (torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
+                          dim=1).values * 15.0 - 8.0).contiguous()
+    G = packing.padded_k(k) // g
+    scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 + 1e-3
+    zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+    return linear.QuantizedTensor(packed, scales, zeros, lut, fmt, g, (n, k))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--kernels", default="q4_lut_post")
     ap.add_argument("--ms", default="1,8,16,128,512")
     ap.add_argument("--shapes", default=SHAPES)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    names = args.kernels.split(",")
+    unknown = [name for name in names if name not in KERNELS]
+    if unknown:
+        ap.error(f"unknown kernels {unknown}; choose from {list(KERNELS)}")
     import torch
     if not torch.cuda.is_available():
         print("torch_gemv_sweep: no CUDA device", file=sys.stderr)
@@ -71,63 +110,72 @@ def main():
             out.write(json.dumps(row) + "\n")
             out.flush()
 
-    build.compile_source("q4_lut_gemv.cu", verbose=True)
+    build.build_all(verbose=True)
     dirty, clean = timers(cs)
     ms_list = [int(m) for m in args.ms.split(",")]
-    layer = {m: {} for m in ms_list}
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = 128
-    for shape in args.shapes.split(","):
-        n, k = (int(v) for v in shape.split("x"))
-        codes = torch.randint(0, 16, (n, k), generator=gen, device="cuda",
-                              dtype=torch.uint8)
-        lut = torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
-                         dim=1).values * 15.0 - 8.0
-        G = packing.padded_k(k) // g
-        scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 \
-            + 1e-3
-        zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
-        qt = linear.QuantizedTensor(packing.pack_codes(codes), scales, zeros,
-                                    lut.contiguous(), "any4", g, (n, k))
-        w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
-        fargs = (qt.packed, qt.scales, qt.zeros, qt.lut, g, torch.bfloat16)
-        for m in ms_list:
-            x = torch.randn((m, k), generator=gen, device="cuda").to(
-                torch.bfloat16)
-            y = gemv.q4_lut_post(x, *fargs)
-            ref = gemv.q4_lut_post_plain(x, *fargs)
-            torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
-            scale = float(ref.float().abs().max())
-            ok = bool(torch.isfinite(y).all()) and err <= 1e-2 * scale
-            nbytes = (qt.packed.numel() * 4 + 2 * G * n * 4 + n * 16 * 4
-                      + m * k * 2 + m * n * 2)
-            t_bytes, t_ops = nbytes / bw * 1e3, 2 * m * n * k / peak * 1e3
-            row = {
-                "name": "q4_lut_post", "n": n, "k": k, "m": m,
-                "ms": clean(lambda: gemv.q4_lut_post(x, *fargs),
-                            reps=args.reps),
-                "ms_dirty_l2": dirty(lambda: gemv.q4_lut_post(x, *fargs),
-                                     reps=args.reps),
-                "library_ms": clean(lambda: torch.matmul(x, w_bf16.t()),
-                                    reps=args.reps),
-                "library_ms_dirty_l2": dirty(
-                    lambda: torch.matmul(x, w_bf16.t()), reps=args.reps),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "rel_err": err / scale, "ok": ok}
-            row["bound_share"] = row["bound_ms"] / row["ms"]
-            emit(row)
-            if not ok:
-                raise RuntimeError(f"kernel A n={n} k={k} m={m}: {err} > "
-                                   f"1e-2 * {scale}")
-            for key in ("ms", "ms_dirty_l2", "library_ms",
-                        "library_ms_dirty_l2", "bound_ms"):
-                layer[m][key] = layer[m].get(key, 0.0) + \
-                    cs.LAYER_LINEARS.get((n, k), 0) * row[key]
-        del qt, w_bf16
-    for m, sums in layer.items():
-        emit({"name": "layer", "m": m, "linears": 7, **sums})
+    for name in names:
+        fmt, int8_codes, int8_x = KERNELS[name]
+        wrapper, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+        out_dtype, bar = ((torch.float32, 1e-5) if int8_x
+                          else (torch.bfloat16, 1e-2))
+        rate = cs.INT8_OPS if int8_x else peak
+        layer = {m: {} for m in ms_list}
+        for shape in args.shapes.split(","):
+            n, k = (int(v) for v in shape.split("x"))
+            qt = operands(torch, linear, packing, fmt, int8_codes, n, k, g,
+                          gen)
+            w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+            wargs = (qt.packed, qt.scales, qt.zeros) \
+                + ((qt.lut,) if name == "q4_lut_post" else ()) \
+                + (g, out_dtype)
+            pargs = wargs[:3] + ((None,) if name == "q4_int4_magic"
+                                 else ()) + wargs[3:]
+            for m in ms_list:
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                x = (torch.randint(-127, 128, (m, k), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                     if int8_x else x.to(torch.bfloat16))
+                xb = x.to(torch.bfloat16)
+                y = wrapper(x, *wargs)
+                ref = plain(x, *pargs)
+                torch.cuda.synchronize()
+                err = float((y.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                ok = bool(torch.isfinite(y).all()) and err <= bar * scale
+                nbytes = (qt.packed.numel() * qt.packed.element_size()
+                          + 2 * qt.scales.numel() * 4
+                          + (0 if qt.lut is None else qt.lut.numel() * 4)
+                          + x.numel() * x.element_size()
+                          + y.numel() * y.element_size())
+                t_bytes, t_ops = nbytes / bw * 1e3, 2 * m * n * k / rate * 1e3
+                row = {
+                    "name": name, "n": n, "k": k, "m": m,
+                    "ms": clean(lambda: wrapper(x, *wargs), reps=args.reps),
+                    "ms_dirty_l2": dirty(lambda: wrapper(x, *wargs),
+                                         reps=args.reps),
+                    "plain_ms": clean(lambda: plain(x, *pargs), reps=5),
+                    "library_ms": clean(lambda: torch.matmul(xb, w_bf16.t()),
+                                        reps=args.reps),
+                    "library_ms_dirty_l2": dirty(
+                        lambda: torch.matmul(xb, w_bf16.t()), reps=args.reps),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "rel_err": err / scale, "bar": bar, "ok": ok}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                emit(row)
+                if not ok:
+                    raise RuntimeError(f"{name} n={n} k={k} m={m}: {err} > "
+                                       f"{bar} * {scale}")
+                for key in ("ms", "ms_dirty_l2", "plain_ms", "library_ms",
+                            "library_ms_dirty_l2", "bound_ms"):
+                    layer[m][key] = layer[m].get(key, 0.0) + \
+                        cs.LAYER_LINEARS.get((n, k), 0) * row[key]
+            del qt, w_bf16
+        for m, sums in layer.items():
+            emit({"name": "layer", "kernel": name, "m": m, "linears": 7,
+                  **sums})
 
 
 if __name__ == "__main__":
