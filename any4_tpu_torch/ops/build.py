@@ -31,13 +31,13 @@ _I = ctypes.c_int
 # int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
 #        num_groups, lut_stride, out_dtype, stream)
 _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-# kernels A, C and int8_post: int fn(x, codes, scales, zeros, lut, y, m, n,
-#     k, kw, group_size, num_groups, lut_stride, out_dtype, tn,
-#     folds_per_split, split_blocks, scratch, counters, stream)
+# the tensor-core kernels (A, C, int8_post, D and w8a8): int fn(x, codes,
+#     scales, zeros, lut, y, m, n, k, kw, group_size, num_groups, lut_stride,
+#     out_dtype, tn, folds_per_split, split_blocks, scratch, counters, stream)
 _POST_ARGTYPES = _Q4_ARGTYPES[:-1] + [_I, _I, _I, _P, _P, _P]
-# int fn(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-#        x_dtype, out_dtype, stream)
-_W4A8_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# the fused W4A8/W8A8 kernels: int fn(x, codes, scales, zeros, y, m, n, k,
+#     kw, group_size, num_groups, x_dtype, out_dtype, stream)
+_A8_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # int fn(q, k, ks, v, vs, seq_lens, table, out, b, h, rep, d, tokens, ps,
 #        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, split, scratch,
 #        counters, stream)
@@ -48,8 +48,9 @@ KERNELS = {
             "q4_lut_post", "q4_int4_magic", "int8_post")},
         **{name: _Q4_ARGTYPES for name in (
             "q4_lut_fused", "q4_lut_select", "int8_fused")}},
-    "w4a8_gemv.cu": {name: _W4A8_ARGTYPES for name in (
-        "w4a8", "w4a8_fused", "w8a8", "w8a8_fused")},
+    "w4a8_gemv.cu": {"w4a8": _POST_ARGTYPES, "w8a8": _POST_ARGTYPES,
+                     "w4a8_fused": _A8_FUSED_ARGTYPES,
+                     "w8a8_fused": _A8_FUSED_ARGTYPES},
     "flash_decode.cu": {**{name: _FLASH_ARGTYPES for name in (
         "flash_paged_decode", "flash_paged_decode_q8",
         "flash_contig_decode", "flash_contig_decode_q8")},

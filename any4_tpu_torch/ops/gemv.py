@@ -2,12 +2,16 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. In ``csrc/q4_lut_gemv.cu``, three on the tensor cores (A, C
-and ``int8_post``: ``mma.sync`` m16n8k16, bf16 in, f32 sums, at every m, in
-a decode body (m <= 8) and a block body that give the same bits, with k
-split by :func:`kernel_a_plan`; the bodies are templated on how a code
-becomes a bf16 value) and three modes of one CUDA-core body (B, E and
-``int8_fused``):
+Ten kernels. Five on the tensor cores, at every m, in a decode body (m <=
+8) and a block body that give the same bits, with k split by
+:func:`kernel_a_plan` (:data:`POST_KERNELS`): in ``csrc/q4_lut_gemv.cu``
+A, C and ``int8_post`` (``mma.sync`` m16n8k16, bf16 in, f32 sums; the
+bodies are templated on how a code becomes a bf16 value), in
+``csrc/w4a8_gemv.cu`` D and ``w8a8`` (``mma.sync`` m16n8k32, int8 in,
+exact int32 sums per 128-wide slice; the bodies are templated on the code
+width). Three modes of one CUDA-core body in ``csrc/q4_lut_gemv.cu`` (B, E
+and ``int8_fused``), and one CUDA-core body in ``csrc/w4a8_gemv.cu`` for
+the fused W4A8/W8A8 entry points:
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
@@ -37,10 +41,10 @@ becomes a bf16 value) and three modes of one CUDA-core body (B, E and
   (one fused multiply-add), then the dot in f32. Group sizes of 16 or more
   that divide 128 or are multiples of it (row-layout ``int8``).
 
-In ``csrc/w4a8_gemv.cu``, four entry points of one body (int8 activations
-times 4-bit or int8 codes, exact int32 dots per 128-wide slice, then ``y +=
-P * s + sum(xq) * (z - 8 s)`` in f32 for the 4-bit codes and ``y += P * s +
-sum(xq) * z`` for the int8 ones):
+The W4A8 and W8A8 kernels multiply int8 activations with 4-bit or int8
+codes, exact int32 dots per 128-wide slice, then ``y += P * s + sum(xq) *
+(z - 8 s)`` in f32 for the 4-bit codes and ``y += P * s + sum(xq) * z`` for
+the int8 ones:
 
 - :func:`w4a8` (kernel D) replaces ``_w4a8_kernel``: int8 x quantized
   outside (:func:`~.quant.quantize_activations`), f32 y that the caller
@@ -88,14 +92,16 @@ LAUNCHES = {name: 0 for name in _SOURCES}
 # the kernels that read int8 codes [n, kp]; the others read 4-bit words
 BYTE_KERNELS = ("int8_post", "int8_fused", "w8a8", "w8a8_fused")
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_W4A8_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
+_FUSED_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
 _SMS = {}    # device -> streaming multiprocessors
 _SPLIT_BUFS = {}  # (device, stream) -> the tensor-core kernels' buffers
-# the kernels on the tensor cores (csrc/q4_lut_gemv.cu, post_mma), which
-# take kernel_a_plan's launch plan and the split buffers
-POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post")
+# the kernels on the tensor cores, which take kernel_a_plan's launch plan
+# and the split buffers: A, C and int8_post (csrc/q4_lut_gemv.cu, post_mma;
+# bf16 x) and D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x)
+POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post", "w4a8", "w8a8")
+INT8_X_KERNELS = ("w4a8", "w8a8")
 # Their blocks: 64 weight rows each (16 in the decode body); k is split
 # until the decode body has about A_DEC_WARPS_PER_SM warps per SM, whatever
 # m is.
@@ -387,9 +393,10 @@ def _split_buffers(dev, stream: int, floats: int, ints: int):
 
 
 def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
-    """Kernels A, C and ``int8_post`` on the tensor cores, with
+    """The tensor-core kernels (:data:`POST_KERNELS`), with
     :func:`kernel_a_plan`'s plan over their folds: kernel A's groups, the
-    others' 128-wide slices."""
+    others' 128-wide slices. D and ``w8a8`` take int8 x, the others x
+    rounded to bf16."""
     n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
                                out_dtype)
     kp = kw * (4 if name in BYTE_KERNELS else 8)
@@ -399,7 +406,12 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
                          f"num_groups * group_size <= kp, got {G} x "
                          f"{group_size} > {kp}")
     m, k = x.shape
-    xb = x.to(torch.bfloat16).contiguous()
+    if name in INT8_X_KERNELS:
+        if x.dtype != torch.int8:
+            raise ValueError(f"{name}: x must be int8, got {x.dtype}")
+        xb = x.contiguous()
+    else:
+        xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return y
@@ -426,14 +438,14 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
     return y
 
 
-def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
+def _launch_a8_fused(name, x, packed, scales, zeros, group_size, out_dtype):
+    """Kernels D-fused and ``w8a8_fused`` (the CUDA-core body) on float x."""
     n, kw, G = _check_operands(name, x, packed, scales, zeros, None,
                                out_dtype)
     m, k = x.shape
     if x.dtype == torch.float16:
-        x = x.float()          # exact; the kernel reads bf16, f32 or int8
-    if x.dtype not in _W4A8_X_DTYPES or \
-            (x.dtype == torch.int8) != (name in ("w4a8", "w8a8")):
+        x = x.float()          # exact; the kernel reads bf16 or f32
+    if x.dtype not in _FUSED_X_DTYPES:
         raise ValueError(f"{name}: unsupported x dtype {x.dtype}")
     x = x.contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -441,7 +453,7 @@ def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
         return y
     err = _fn(name)(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        y.data_ptr(), m, n, k, kw, group_size, G, _W4A8_X_DTYPES[x.dtype],
+        y.data_ptr(), m, n, k, kw, group_size, G, _FUSED_X_DTYPES[x.dtype],
         _OUT_DTYPES[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -449,7 +461,9 @@ def _launch_w4a8(name, x, packed, scales, zeros, group_size, out_dtype):
     return y
 
 
-def _launch_int8(name, x, packed, scales, zeros, group_size, out_dtype):
+def _launch_no_lut(name, x, packed, scales, zeros, group_size, out_dtype):
+    """The kernels that read no LUT: D, ``w8a8`` and ``int8_post`` on the
+    tensor cores, ``int8_fused`` on the CUDA-core body."""
     launch = _launch_post if name in POST_KERNELS else _launch_q4
     return launch(name, x, packed, scales, zeros, None, group_size,
                   out_dtype)
@@ -501,22 +515,22 @@ def w4a8(x, packed, scales, zeros, group_size, out_dtype=torch.float32):
     """Kernel D on int8 ``x [m, k]``; returns ``[m, n]`` (the caller
     multiplies by the activation scales)."""
     _need_group("w4a8", group_size, SLICE)
-    return _dispatch("w4a8", w4a8_plain, _launch_w4a8, x, packed, scales,
+    return _dispatch("w4a8", w4a8_plain, _launch_no_lut, x, packed, scales,
                      zeros, group_size, out_dtype)
 
 
 def w4a8_fused(x, packed, scales, zeros, group_size, out_dtype):
     """Kernel D-fused on float ``x [m, k]``; returns ``[m, n]``."""
     _need_group("w4a8_fused", group_size, SLICE)
-    return _dispatch("w4a8_fused", w4a8_fused_plain, _launch_w4a8, x, packed,
-                     scales, zeros, group_size, out_dtype)
+    return _dispatch("w4a8_fused", w4a8_fused_plain, _launch_a8_fused, x,
+                     packed, scales, zeros, group_size, out_dtype)
 
 
 def w8a8(x, packed, scales, zeros, group_size, out_dtype=torch.float32):
     """``w8a8`` on int8 ``x [m, k]`` and int8 codes; returns ``[m, n]`` (the
     caller multiplies by the activation scales)."""
     _need_group("w8a8", group_size, SLICE)
-    return _dispatch("w8a8", w8a8_plain, _launch_w4a8, x, packed, scales,
+    return _dispatch("w8a8", w8a8_plain, _launch_no_lut, x, packed, scales,
                      zeros, group_size, out_dtype)
 
 
@@ -524,14 +538,14 @@ def w8a8_fused(x, packed, scales, zeros, group_size, out_dtype):
     """``w8a8_fused`` on float ``x [m, k]`` and int8 codes; returns
     ``[m, n]``."""
     _need_group("w8a8_fused", group_size, SLICE)
-    return _dispatch("w8a8_fused", w8a8_fused_plain, _launch_w4a8, x, packed,
-                     scales, zeros, group_size, out_dtype)
+    return _dispatch("w8a8_fused", w8a8_fused_plain, _launch_a8_fused, x,
+                     packed, scales, zeros, group_size, out_dtype)
 
 
 def int8_post(x, packed, scales, zeros, group_size, out_dtype):
     """``int8_post`` on ``x [m, k]`` and int8 codes; returns ``[m, n]``."""
     _need_group("int8_post", group_size, SLICE)
-    return _dispatch("int8_post", int8_post_plain, _launch_int8, x, packed,
+    return _dispatch("int8_post", int8_post_plain, _launch_no_lut, x, packed,
                      scales, zeros, group_size, out_dtype)
 
 
@@ -541,7 +555,7 @@ def int8_fused(x, packed, scales, zeros, group_size, out_dtype):
     if group_size < 16 or (SLICE % group_size and group_size % SLICE):
         raise ValueError(f"int8_fused needs a group_size >= 16 that divides "
                          f"{SLICE} or is a multiple of it, got {group_size}")
-    return _dispatch("int8_fused", int8_fused_plain, _launch_int8, x, packed,
+    return _dispatch("int8_fused", int8_fused_plain, _launch_no_lut, x, packed,
                      scales, zeros, group_size, out_dtype)
 
 

@@ -8,9 +8,9 @@ Phases, each printing JSON lines:
 1. setup: the card's ``nvidia-smi`` name and power limit, the torch and CUDA
    versions, and the time to build the CUDA kernels from
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
-   parallel); then a ``ptxas`` line: the registers and spill bytes of each
-   instantiation of the tensor-core bodies (kernels A, C and ``int8_post``)
-   from nvcc's ``-Xptxas -v`` report.
+   parallel); then two ``ptxas`` lines: the registers and spill bytes of each
+   instantiation of the tensor-core bodies (kernels A, C and ``int8_post``;
+   kernels D and ``w8a8``) from nvcc's ``-Xptxas -v`` report.
 2. kernels: kernel A (``q4_lut_post``, g=128) at m in {1, 8, 16, 128,
    512} and kernel B (``q4_lut_fused``, g=64) at m in {1, 16, 128}, at
    Llama-3.2-1B's linear shapes, each held against its plain PyTorch
@@ -29,9 +29,11 @@ Phases, each printing JSON lines:
    k is split: each row of a batch of 8, 16 and 130 gives the bits of that
    row alone (the decode body against the block body), and two calls give
    the same bits. The same bit equalities for kernel C and ``int8_post``,
-   which run on kernel A's bodies (``post_bit_equal``), and their edge
-   cases as kernel A's, with g = 256 (two slices a group) and int8 codes
-   of -128 (``post_edge_cases``).
+   which run on kernel A's bodies, and for D and ``w8a8`` on int8 x, which
+   run on their own pair of tensor-core bodies (``post_bit_equal``), and
+   their edge cases as kernel A's, with g = 256 (two slices a group), int8
+   codes of -128, and int8 x for D and ``w8a8`` (float32 within 1e-5 *
+   max: exact integer dots) (``post_edge_cases``).
 3. attention_kernel: the four decode-attention kernels
    (``flash_paged_decode``/``_q8``, ``flash_contig_decode``/``_q8``) at the
    1B serving shapes (8 kv heads, rep 4, head_dim 64, page size 16, bf16 q)
@@ -74,8 +76,8 @@ Phases, each printing JSON lines:
 6. int kernels (slice 3): kernel C (``q4_int4_magic``), D (``w4a8``,
    int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
    int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
-   C at m in {1, 8, 16, 128, 512}, D at {1, 16, 128}, D-fused at {1, 16,
-   64}, E at {1, 16},
+   C at m in {1, 8, 16, 128, 512}, D at {1, 8, 16, 128, 512, 1024} (the
+   W4A8 prefill's chunk), D-fused at {1, 16, 64}, E at {1, 16},
    timed and held against their plain versions as in 2: bf16 outputs
    within 1e-2 * max, float32 within 1e-4 * max (C, E) and 1e-5 * max (D,
    D-fused: exact integer dots); E equal to kernel B bit for bit. Then edge
@@ -84,7 +86,8 @@ Phases, each printing JSON lines:
    row whose x / sx lands on k + 0.5 (checked against
    ``quantize_activations``, which rounds half to even), and float32,
    bf16 and float16 outputs.
-7. int8 kernels (slice 4): ``w8a8`` (int8 x) at m in {1, 16, 128},
+7. int8 kernels (slice 4): ``w8a8`` (int8 x) at m in {1, 8, 16, 128, 512,
+   1024},
    ``int8_post`` at {1, 8, 16, 128, 512}, ``w8a8_fused`` at {1, 16, 64}
    (g=128) and ``int8_fused``
    (g=64) at {1, 16}, at the 1B linear shapes with random int8 codes (-128
@@ -112,7 +115,8 @@ Phases, each printing JSON lines:
    exact launch counts: C once per linear per forward (per 512-row chunk);
    D-fused once per linear per forward of at most 64 rows, D once per
    linear per larger forward (per ``_int8_m_tile(k)`` chunk above 1024
-   rows). Then each model behind the engine (paged bf16 pools, the prompts
+   rows); then one forward over a 1024-token prompt as in 4 (host ms, best
+   of 3). Then each model behind the engine (paged bf16 pools, the prompts
    of 5) at ``run(burst=1)`` and ``run(burst=8, pipeline=True)``: tokens in
    the vocabulary, both runs equal, exact launch counts, and the figures of
    5.
@@ -137,8 +141,8 @@ Phases, each printing JSON lines:
     linear, within 2e-2 * max of the dense float32 forward with float32
     activations; exact launch counts.
 12. the ``nvidia-smi`` name and power line again, then the line
-    ``{"kernels": [...]}``, one entry per kernel (fourteen; kernels A, C
-    and ``int8_post`` also ``by_m``).
+    ``{"kernels": [...]}``, one entry per kernel (fourteen; the tensor-core
+    kernels A, C, ``int8_post``, D and ``w8a8`` also ``by_m``).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -181,7 +185,7 @@ INT_KERNELS = {
     "q4_int4_magic": (SOURCE, "any4_tpu/ops/pallas/gemv.py:457 "
                       "_q4pair_kernel", (1, 8, 16, 128, 512)),
     "w4a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel",
-             (1, 16, 128)),
+             (1, 8, 16, 128, 512, 1024)),
     "w4a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:550 "
                    "_w4a8f_kernel", (1, 16, 64)),
     "q4_lut_select": (SOURCE, "any4_tpu/ops/pallas/gemv.py:63 "
@@ -192,8 +196,8 @@ INT_KERNELS = {
 INT8_KERNELS = {
     "w8a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:650 _w8a8_kernel; "
              "any4_tpu/ops/pallas/gemv.py:685 _w8a8q_kernel; "
-             "any4_tpu/ops/pallas/gemv.py:799 _w8a8t_kernel", (1, 16, 128),
-             128),
+             "any4_tpu/ops/pallas/gemv.py:799 _w8a8t_kernel",
+             (1, 8, 16, 128, 512, 1024), 128),
     "w8a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:612 "
                    "_w8a8f_kernel; any4_tpu/ops/pallas/gemv.py:725 "
                    "_w8a8qf_kernel; any4_tpu/ops/pallas/gemv.py:838 "
@@ -224,8 +228,8 @@ ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
 ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 # profiler kernel names of the linear kernels (SOURCE's two families,
-# W4A8_SOURCE's body)
-LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_kernel")
+# W4A8_SOURCE's two)
+LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_mma", "a8_kernel")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
 
@@ -394,12 +398,12 @@ def kernel_a_edge_cases(gemv, packing):
     return cases
 
 
-def post_operands(packing, name, n, k, g, gen):
+def post_operands(gemv, packing, name, n, k, g, gen):
     """Random codes of one tensor-core kernel in the port's layout (int8
-    codes for ``int8_post``, -128 included), g-wide f32 scales and zeros
-    ``[kp/g, n]`` and, for kernel A, a per-row LUT (else None)."""
+    codes for ``int8_post`` and ``w8a8``, -128 included), g-wide f32 scales
+    and zeros ``[kp/g, n]`` and, for kernel A, a per-row LUT (else None)."""
     G = packing.padded_k(k) // g
-    if name == "int8_post":
+    if name in gemv.BYTE_KERNELS:
         packed = packing.pack_codes8(torch.randint(
             -128, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8))
     else:
@@ -414,13 +418,23 @@ def post_operands(packing, name, n, k, g, gen):
 
 def post_call(gemv, name, plain=False):
     """``f(x, packed, scales, zeros, lut, g, out)`` for one tensor-core
-    kernel's wrapper (or plain version); C ignores the lut, ``int8_post``
-    takes none."""
+    kernel's wrapper (or plain version); C ignores the lut, ``int8_post``,
+    D and ``w8a8`` take none."""
     fn = getattr(gemv, name + ("_plain" if plain else ""))
     if name == "q4_lut_post" or (plain and name == "q4_int4_magic"):
         return fn
     return lambda x, packed, scales, zeros, lut, g, out: fn(
         x, packed, scales, zeros, g, out)
+
+
+def post_x(gemv, name, m, k, gen):
+    """Random activations ``[m, k]`` for one tensor-core kernel: int8 codes
+    in [-127, 127] for D and ``w8a8``, else bf16."""
+    if name in gemv.INT8_X_KERNELS:
+        return torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn((m, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
 
 
 def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
@@ -430,8 +444,8 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
     m = 130 at 8192 x 2048 one block for all of a tile's splits), every row
     of a batch of m = 8, 16 and 130 gives the same float32 bits as that row
     alone, and two calls on the same inputs give the same bits. Kernel A by
-    default; C and ``int8_post`` (g=128: their 128-k slices are the
-    groups) by name."""
+    default; C, ``int8_post``, D and ``w8a8`` (g=128: their 128-k slices
+    are the groups; int8 x for D and ``w8a8``) by name."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     fn = post_call(gemv, name)
     rows = 0
@@ -442,11 +456,10 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
             1, n, G, torch.cuda.get_device_properties(0)
             .multi_processor_count)[1]
         check(splits[f"{n}x{k}"] > 1, f"{n}x{k} splits k")
-        args = (*post_operands(packing, name, n, k, 128, gen), 128,
+        args = (*post_operands(gemv, packing, name, n, k, 128, gen), 128,
                 torch.float32)
         for m in (8, 16, 130):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(
-                torch.bfloat16)
+            x = post_x(gemv, name, m, k, gen)
             y = fn(x, *args)
             check(torch.equal(y.view(torch.int32),
                               fn(x, *args).view(torch.int32)),
@@ -462,34 +475,39 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
 
 
 def post_edge_cases(gemv, packing, name):
-    """Kernel C or ``int8_post`` on shapes the 1B path does not give them,
-    as kernel A's edge cases: m in {3, 9, 17, 130}, n in {24, 1000}, k =
-    2048 and 1004, g = 128 and 256 (the slice fold reads each group's scale
-    twice), int8 codes of -128 (a quarter of the rows all -128), float32
-    (1e-4 * max), bf16 and float16 (1e-2 * max) outputs, x misaligned by
-    one element as well as aligned."""
+    """Kernel C, ``int8_post``, D or ``w8a8`` on shapes the 1B path does
+    not give them, as kernel A's edge cases: m in {3, 9, 17, 130}, n in
+    {24, 1000}, k = 2048 and 1004, g = 128 and 256 (the slice fold reads
+    each group's scale twice), int8 codes of -128 (a quarter of the rows
+    all -128), float32 (1e-4 * max; 1e-5 for D and ``w8a8``, whose integer
+    dots are exact), bf16 and float16 (1e-2 * max) outputs, x (int8 for D
+    and ``w8a8``) misaligned by one element as well as aligned."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     fn, plain = post_call(gemv, name), post_call(gemv, name, plain=True)
     cases = 0
     for n, k in ((24, 2048), (1000, 1004)):
         for g in (128, 256):
-            packed, _, _, _ = post_operands(packing, name, n, k, g, gen)
-            if name == "int8_post":
+            packed, _, _, _ = post_operands(gemv, packing, name, n, k, g,
+                                            gen)
+            if name in gemv.BYTE_KERNELS:
                 packed[:n // 4 + 1] = -128
+            # int8 x runs to 127 where bf16 x is about 1: scales and zeros
+            # 2^-7 as large keep float16 outputs finite
+            int8_x = name in gemv.INT8_X_KERNELS
+            mag = 2.0 ** -7 if int8_x else 1.0
             scales = packing.pad_groups(torch.rand(
                 (n, -(-k // g)), generator=gen, device="cuda") + 0.5, k, g)
             zeros = packing.pad_groups(torch.randn(
                 (n, -(-k // g)), generator=gen, device="cuda"), k, g)
-            args = (packed, scales.t().contiguous(), zeros.t().contiguous(),
-                    None, g)
+            args = (packed, (scales * mag).t().contiguous(),
+                    (zeros * mag).t().contiguous(), None, g)
             for m in (3, 9, 17, 130):
-                flat = torch.randn(m * k + 1, generator=gen,
-                                   device="cuda").to(torch.bfloat16)
+                flat = post_x(gemv, name, 1, m * k + 1, gen)[0]
                 for misaligned in (False, True):
                     x = flat[int(misaligned):][:m * k].view(m, k)
                     check((x.data_ptr() % 16 != 0) == misaligned,
                           "x alignment")
-                    for out, tol in ((torch.float32, 1e-4),
+                    for out, tol in ((torch.float32, 1e-5 if int8_x else 1e-4),
                                      (torch.bfloat16, 1e-2),
                                      (torch.float16, 1e-2)):
                         y = fn(x, *args, out)
@@ -512,9 +530,10 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 def ptxas_summary(report: str, keep="post_mma"):
     """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
-    report whose mangled name holds ``keep`` (the tensor-core bodies:
-    each code policy x token tiles x output type), demangled by
-    ``c++filt`` where it is installed."""
+    report whose mangled name holds ``keep`` (a namespace of tensor-core
+    bodies: ``post_mma`` in SOURCE, ``a8_mma`` in W4A8_SOURCE; each code
+    policy x token tiles x output type), demangled by ``c++filt`` where it
+    is installed."""
     found, name, spills = [], None, (None, None)
     for line in report.splitlines():
         hit = PTXAS_ENTRY.search(line)
@@ -541,7 +560,7 @@ def ptxas_summary(report: str, keep="post_mma"):
     if len(names) == len(found):
         for f, full in zip(found, names):
             f["kernel"] = full.split(">(")[0].replace("void ", "").replace(
-                "(anonymous namespace)::", "").replace("post_mma::", "") + ">"
+                "(anonymous namespace)::", "").replace(f"{keep}::", "") + ">"
     return found
 
 
@@ -1540,6 +1559,7 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     prof = device_profile(gen_mod, llama, qparams, cfg, prompt)
     prof["busy_share_b1"] = (prof["device_ms_per_step"]
                              / figs[1]["decode_ms_per_token"])
+    prefill = prefill_chunks(llama, qparams, cfg, gen)
     emit({"phase": f"main_path_{fmt}", "model": "llama_3_2_1b",
           "layers": cfg.num_hidden_layers, "fmt": kind,
           "fmt_down_proj": down_kind, "group_size": 128, **qkw,
@@ -1547,7 +1567,7 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
           "launches_per_forward": per_forward, "generate_ms": gen_ms,
           "max_memory_allocated": peak_mem,
           "model_bytes": api.model_size_bytes(qparams), fmt: figs,
-          "profile_b1": prof,
+          "profile_b1": prof, "prefill_1024_tokens_forward_ms": prefill,
           "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
     return launches, qparams, cfg
 
@@ -1912,8 +1932,9 @@ def main():
           "build_s": build_s, "libraries": sorted(libs.values()),
           "bandwidth_bytes_per_s": bw, "bf16_flops_per_s": peak,
           "peaks_from": f"NVIDIA data sheet, {peak_name} (SXM unless PCIe)"})
-    emit({"phase": "ptxas", "source": SOURCE, "kernels": ptxas_summary(
-        build.PTXAS_REPORTS.get(os.path.basename(SOURCE), ""))})
+    for source, keep in ((SOURCE, "post_mma"), (W4A8_SOURCE, "a8_mma")):
+        emit({"phase": "ptxas", "source": source, "kernels": ptxas_summary(
+            build.PTXAS_REPORTS.get(os.path.basename(source), ""), keep)})
 
     timer = Timer()
     rows = kernel_phase(gemv, packing, linear, timer, Timer(dirty=True), bw,
@@ -1923,7 +1944,7 @@ def main():
           "passed": kernel_a_edge_cases(gemv, packing)})
     emit({"phase": "kernel_a_bit_equal",
           **kernel_a_bit_equal(gemv, packing)})
-    for name in ("q4_int4_magic", "int8_post"):
+    for name in ("q4_int4_magic", "int8_post", "w4a8", "w8a8"):
         emit({"phase": "post_bit_equal", "name": name,
               **kernel_a_bit_equal(gemv, packing, name)})
         emit({"phase": "post_edge_cases", "name": name,

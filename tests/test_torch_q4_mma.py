@@ -1,6 +1,6 @@
-"""The tensor-core kernels (A ``q4_lut_post``, C ``q4_int4_magic`` and
-``int8_post``) at the shapes their tiles make ragged, and their launch
-plan, on the CPU.
+"""The tensor-core kernels (A ``q4_lut_post``, C ``q4_int4_magic``,
+``int8_post``, D ``w4a8`` and ``w8a8``) at the shapes their tiles make
+ragged, and their launch plan, on the CPU.
 
 - The plain versions, which the wrapper runs on CPU tensors and which the
   CUDA kernels are held against on the card, against the JAX package's
@@ -10,17 +10,26 @@ plan, on the CPU.
   of 16 (the rows of one warp's mma tile) and g in {128, 256} (for C and
   ``int8_post`` two 128-wide slices fold with one group's scale), float32
   output within 1e-4 * max (only the order of the f32 sums differs).
+- The same for D and ``w8a8`` on int8 x from the JAX package's
+  ``quantize_activations``, against the interpreted ``_w4a8_kernel``,
+  ``_w8a8_kernel`` (row layout), ``_w8a8q_kernel`` and ``_w8a8t_kernel``
+  at m in {8, 17, 130, 1024} (1024: the W4A8/W8A8 prefill's chunk), n in
+  {24, 200} and g in {128, 256}, within 1e-5 * max (their integer dots are
+  exact).
 - ``gemv.kernel_a_plan``: the split of k depends on (n, num_groups, sms)
   and never on m, so that a token's sums run in the same order at every m;
   the token tiles, row blocks and splits cover (m, n, k) exactly, with no
   empty split; each split gets a block of its own only where the tiles
-  alone leave SMs idle. C and ``int8_post`` call it with their slice count
-  as ``num_groups``, which the same cases cover.
+  alone leave SMs idle. C, ``int8_post``, D and ``w8a8`` call it with
+  their slice count as ``num_groups``, which the same cases cover; D's and
+  ``w8a8``'s 1B shapes also at the m of their prefill, up to 1024.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from any4_tpu.ops import linear as jlin
 from any4_tpu_torch.ops import gemv, linear as tlin
 from test_torch_convert import assert_close_max
 from test_torch_gemv import _jax_mm, _pair
@@ -74,15 +83,70 @@ def test_plain_matches_jax_kernel_at_tails(fmt, g, n, k, m, monkeypatch):
     assert_close_max(y, _jax_mm(x, jqt), 1e-4)
 
 
+# (fmt, layout, g, n, k, m): D and the three W8A8 TPU layouts on int8 x
+A8_TAILS = [
+    ("w4a8", None, 128, 24, 2048, 8),
+    ("w4a8", None, 256, 200, 1024, 17),
+    ("w4a8", None, 128, 200, 2048, 130),
+    ("w4a8", None, 256, 24, 1024, 1024),
+    ("w8a8", "row", 128, 200, 1024, 8),
+    ("w8a8", "row", 256, 24, 2048, 130),
+    ("w8a8", "row", 128, 24, 1024, 1024),
+    ("w8a8q", None, 256, 24, 2048, 17),
+    ("w8a8q", None, 128, 200, 1024, 130),
+    ("w8a8q", None, 256, 200, 1024, 1024),
+    ("w8a8t", None, 128, 200, 2048, 8),
+    ("w8a8t", None, 256, 24, 1024, 17),
+    ("w8a8t", None, 128, 200, 1024, 1024),
+]
+
+
+@pytest.mark.parametrize("fmt,layout,g,n,k,m", A8_TAILS,
+                         ids=[f"{f}-g{g}-n{n}-k{k}-m{m}"
+                              for f, _, g, n, k, m in A8_TAILS])
+def test_a8_plain_matches_jax_kernel_at_tails(fmt, layout, g, n, k, m,
+                                              monkeypatch):
+    """int8 x through ``quantized_matmul`` runs D's or ``w8a8``'s plain
+    version, which holds the f32 sum before ``* sx`` of the JAX kernel of
+    that layout."""
+    jqt, qt = _pair(fmt, g, layout, n, k, seed=m)
+    kernel = "w4a8" if fmt == "w4a8" else "w8a8"
+    assert qt.fmt == jqt.fmt == fmt and qt.group_size == g
+    x = np.random.default_rng(k + m).standard_normal((m, k)).astype(
+        np.float32)
+    xq = np.array(jlin.quantize_activations(jnp.asarray(x))[0])
+    assert xq.dtype == np.int8
+    plain = getattr(gemv, kernel + "_plain")
+    called = []
+    monkeypatch.setattr(gemv, kernel + "_plain",
+                        lambda *a: called.append(1) or plain(*a))
+    before = dict(gemv.LAUNCHES)
+    y = gemv.quantized_matmul(
+        torch.from_numpy(xq), qt.packed, qt.scales, qt.zeros,
+        group_size=g, out_dtype=torch.float32, fmt=tlin._kernel_fmt(qt.fmt))
+    assert called == [1]                # the plain version of that kernel
+    assert gemv.LAUNCHES == before      # CPU tensors launch nothing
+    assert y.shape == (m, n) and y.dtype == torch.float32
+    assert_close_max(y, _jax_mm(xq, jqt), 1e-5)
+
+
 SHAPES = [(n, G) for n in (1, 24, 64, 200, 512, 1000, 2048, 8192)
           for G in (1, 2, 8, 16, 64)]
+PLAN_MS = (1, 3, 8, 9, 16, 17, 32, 33, 64, 130, 512, 4096)
+# D's and w8a8's 1B linears (n, 128-k slices: 16 at k = 2048, 64 at 8192)
+# at the m of their prefill, up to the 1024-row chunk
+A8_PLAN_MS = (1, 8, 9, 16, 17, 64, 65, 128, 129, 512, 513, 1000, 1024)
+PLAN_CASES = [(n, G, PLAN_MS) for n, G in SHAPES] + [
+    (n, G, A8_PLAN_MS) for n, G in ((2048, 16), (512, 16), (8192, 16),
+                                    (2048, 64))]
 
 
 @pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("n,G", SHAPES)
-def test_plan_splits_k_alike_at_every_m(n, G, sms):
-    plans = {m: gemv.kernel_a_plan(m, n, G, sms)
-             for m in (1, 3, 8, 9, 16, 17, 32, 33, 64, 130, 512, 4096)}
+@pytest.mark.parametrize("n,G,ms", PLAN_CASES,
+                         ids=[f"{n}-{G}" if ms is PLAN_MS else f"a8-{n}-{G}"
+                              for n, G, ms in PLAN_CASES])
+def test_plan_splits_k_alike_at_every_m(n, G, ms, sms):
+    plans = {m: gemv.kernel_a_plan(m, n, G, sms) for m in ms}
     assert len({p[1:3] for p in plans.values()}) == 1
     for m, (tn, splits, per, split_blocks) in plans.items():
         assert tn in (1, 2, 4, 8)
