@@ -35,9 +35,8 @@ _Q4_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 #     scales, zeros, lut, y, m, n, k, kw, group_size, num_groups, lut_stride,
 #     out_dtype, tn, folds_per_split, split_blocks, scratch, counters, stream)
 _POST_ARGTYPES = _Q4_ARGTYPES[:-1] + [_I, _I, _I, _P, _P, _P]
-# the fused W4A8/W8A8 kernels: int fn(x, codes, scales, zeros, y, m, n, k,
-#     kw, group_size, num_groups, x_dtype, out_dtype, stream)
-_A8_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# the fused W4A8/W8A8 kernels, on the same bodies: the same, then x_dtype
+_A8_FUSED_ARGTYPES = _POST_ARGTYPES + [_I]
 # int fn(q, k, ks, v, vs, seq_lens, table, out, b, h, rep, d, tokens, ps,
 #        pps, max_ctx, ctx_bucket, scale, pool_dtype, q_dtype, split, scratch,
 #        counters, stream)

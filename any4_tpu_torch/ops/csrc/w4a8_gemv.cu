@@ -1,11 +1,10 @@
 // W4A8 and W8A8 matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
 // with x quantized per row to int8, x ~= xq * sx, and W stored as 4-bit uniform
 // codes c (weight (c - 8) * s + z) or as centered int8 codes q (weight q * s + z),
-// per-group f32 scales/zeros. Two families: the external entry points, whose x
-// arrives as int8, on a pair of tensor-core bodies (a8_mma below: a decode body
-// and a block body, templated on the code width), and the fused entry points,
-// whose x arrives as float and is quantized in the kernel, on one CUDA-core
-// body (a8_kernel).
+// per-group f32 scales/zeros. All four entry points run on one pair of
+// tensor-core bodies (a8_mma below: a decode body and a block body, templated
+// on the code width): the external ones on int8 x, the fused ones on float x
+// that they quantize themselves first.
 //
 // Kernel D, w4a8, replaces any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel: x
 // arrives as int8 (quantized outside the kernel) and y is written as the f32
@@ -13,17 +12,17 @@
 // (row layout), gemv.py:685 _w8a8q_kernel (quad words) and gemv.py:799
 // _w8a8t_kernel (transposed): kernel D on int8 codes. The three TPU kernels
 // compute the same numbers over three TPU layouts; here all read one layout.
-// Both run on the tensor cores at every m (a8_mma).
 //
-// Kernel D-fused, w4a8_fused, replaces gemv.py:550 _w4a8f_kernel: x arrives as
-// bf16 or f32 and each block quantizes its rows itself with the same math as
-// the JAX package's quantize_activations: sx = max(max|x|, 1e-8) / 127 over
-// the whole row (IEEE division), xq = clamp(rint(x / sx), -127, 127) (round
-// half to even, IEEE division; the build has no fast-math flags), and
-// y = acc * sx is written in the requested type. w8a8_fused replaces
+// Kernel D-fused, w4a8_fused, replaces gemv.py:550 _w4a8f_kernel: x arrives
+// as bf16 or f32 and is quantized per row with the math of the JAX package's
+// quantize_activations: sx = max(max|x|, 1e-8) / 127 over the whole row (IEEE
+// division), xq = clamp(rint(x / sx), -127, 127) (round half to even, IEEE
+// division; the build has no fast-math flags); then kernel D's dot, and
+// y = acc * sx in f32 is written in the requested type. w8a8_fused replaces
 // gemv.py:612 _w8a8f_kernel, gemv.py:725 _w8a8qf_kernel and gemv.py:838
-// _w8a8tf_kernel: kernel D-fused on int8 codes. Both run on the CUDA-core body
-// (a8_kernel).
+// _w8a8tf_kernel: kernel D-fused on int8 codes. Since the fused entry points
+// take the external ones' plan and bodies, w4a8_fused(x) gives the bits of
+// (w4a8(xq) * sx).to(out), and w8a8_fused likewise.
 //
 // All four compute, per 128-wide k slice, the exact int32 dot P of xq with the
 // codes and the exact int32 sum of xq (|P| <= 128 * 128 * 128 < 2^24, so
@@ -40,24 +39,26 @@
 // What bounds them on this card: at small m the weight bytes -- 0.5 B (4-bit)
 // or 1 B (int8) per weight plus 8 B per group -- read once from device memory
 // at 3.35 TB/s (H100 SXM); at the 1024-row prefill chunks the int8 dot
-// products, 2mnk operations at the tensor cores' int8 rate (1979 TOP/s). The
-// tensor-core bodies' design is set out at a8_mma below.
+// products, 2mnk operations at the tensor cores' int8 rate (1979 TOP/s).
 //
-// The CUDA-core body (the fused entry points):
-//   - one warp per output row, 8 rows per block; per 1024-k step each lane
-//     loads its 32 consecutive k of the row (one 16-byte load of nibbles, two
-//     of bytes), and the next step's codes are loaded before the current ones
-//     are used;
-//   - the block quantizes its MT rows of x for the step into shared memory,
-//     once for its 8 rows, so that a lane reads its 32 k of each row with two
-//     16-byte loads that hit distinct banks: split into even and odd bytes for
-//     4-bit codes (w & 0x0F0F0F0F holds the codes of a word's even k as four
-//     bytes and (w >> 4) & 0x0F0F0F0F those of its odd k, so __dp4a multiplies
-//     them with x staged as the even and the odd bytes of each 8-k run), as
-//     the first and the second 16 k of the lane for int8 ones;
-//   - 4 lanes cover one 128-wide slice; two xor shuffles add their integer
-//     partials exactly before one lane applies the slice's affine;
-//   - each row's absmax is computed once per block, before the k loop.
+// How the fused entry points quantize x. Each token needs its sx before any of
+// its slices can be quantized, so each needs the absmax of its whole row. A
+// pre-pass kernel (quantize_rows, one block per row, launched by the same C
+// call) reads each row once for its absmax and again, from L1/L2, to write xq
+// (0 past k) and sx to the caller's scratch; the mma body then runs on xq
+// exactly as for the external entry points and multiplies its sums by sx
+// before the store. It is launched with programmatic stream serialization, so
+// its blocks stage their first code slices while the pre-pass runs and wait
+// (griddepcontrol.wait) only before their first read of x. Where the block
+// body gives each split a block (512 blocks a linear at m = 64 for q/o,
+// gate/up and down_proj), were each block to take the absmax of its 64 rows,
+// that would be 256 KB of L2 reads a block at k = 2048 and 1 MB at 8192, about
+// 1.1 GB a layer. For the decode body the alternative was measured: each
+// block reading its <= 8 float rows (twice: absmax, then quantization into a
+// shared int8 x buffer) re-quantizes x ceil(n / 16) times, and per 1B layer
+// on the H100 (700 W) it took 0.0791 / 0.0841 / 0.0987 / 0.1313 ms at m = 1 /
+// 2 / 4 / 8 for w4a8_fused against the pre-pass's 0.0790 / 0.0802 / 0.0816 /
+// 0.0868 (tools/torch_gemv_sweep.py, one call).
 //
 // Each C entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -71,251 +72,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;             // output rows per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 1024;          // k per step: 32 lanes x 32 k
-constexpr int kWords = kChunk / 8;    // words of 8 k per step and row
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// clamp(rint(v / sx), -127, 127): IEEE division, round half to even.
-__device__ __forceinline__ uint32_t quant_byte(float v, float sx) {
-  const int q = max(-127, min(127, __float2int_rn(v / sx)));
-  return static_cast<uint32_t>(q) & 0xFFu;
-}
-
-// out_dtype: 0 float32, 1 bfloat16, 2 float16.
-__device__ __forceinline__ void store_out(void* y, size_t i, float v, int out_dtype) {
-  if (out_dtype == 0)
-    static_cast<float*>(y)[i] = v;
-  else if (out_dtype == 1)
-    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<__half*>(y)[i] = __float2half_rn(v);
-}
-
-// Eight consecutive x of row gm from k index gk (zero past k), quantized with
-// the row's sx, as int8 bytes lo = x[gk .. gk+3], hi = x[gk+4 .. gk+7].
-template <typename XT>
-__device__ __forceinline__ void load8(const XT* __restrict__ src, int gk, int k, bool vec,
-                                      float sx, uint32_t& lo, uint32_t& hi) {
-  float v[8];
-  if (vec) {
-    if constexpr (std::is_same_v<XT, float>) {
-      const float4 a = reinterpret_cast<const float4*>(src)[0];
-      const float4 c = reinterpret_cast<const float4*>(src)[1];
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
-    } else {
-      const uint4 t = *reinterpret_cast<const uint4*>(src);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        v[2 * j] = f.x;
-        v[2 * j + 1] = f.y;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = gk + j < k ? to_float(src[j]) : 0.f;
-  }
-  uint32_t b[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) b[j] = quant_byte(v[j], sx);
-  lo = b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24;
-  hi = b[4] | b[5] << 8 | b[6] << 16 | b[7] << 24;
-}
-
-// A lane's 32 consecutive k of its row from k index k0: one 16-byte load of
-// 4-bit words (w[1] unused), or two of int8 codes; zero past kp.
-template <bool kBytes>
-__device__ __forceinline__ void load_lane(const int32_t* __restrict__ row_codes, int k0, int lane,
-                                          int kp, uint4 (&w)[2]) {
-  w[0] = w[1] = make_uint4(0u, 0u, 0u, 0u);
-  if (k0 >= kp) return;
-  if (kBytes) {
-    const uint4* p = reinterpret_cast<const uint4*>(row_codes + k0 / 4 + lane * 8);
-    w[0] = p[0];
-    w[1] = p[1];
-  } else {
-    w[0] = *reinterpret_cast<const uint4*>(row_codes + k0 / 8 + lane * 4);
-  }
-}
-
-// Kernels D-fused and w8a8_fused: XT float or __nv_bfloat16. kBytes: int8
-// codes (w8a8_fused), else 4-bit codes (w4a8_fused).
-template <int MT, typename XT, bool kBytes>
-__global__ void __launch_bounds__(kThreads)
-a8_kernel(const XT* __restrict__ x, const int32_t* __restrict__ codes,
-          const float* __restrict__ scales, const float* __restrict__ zeros,
-          void* __restrict__ y, int m, int n, int k, int kw, int group_size, int num_groups,
-          int out_dtype) {
-  // 4-bit codes: the even-k (xe) and odd-k (xo) bytes of each 8-k run. int8
-  // codes: the first (xe) and second (xo) 16 k of each lane's 32.
-  __shared__ __align__(16) int32_t xe[MT][kWords];
-  __shared__ __align__(16) int32_t xo[MT][kWords];
-  __shared__ float sx_s[MT];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  const int m0 = blockIdx.y * MT;
-  const bool active = row < n;  // uniform across the warp
-  const int kp = kBytes ? kw * 4 : kw * 8;
-  const bool vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
-
-  // each row's scale over the whole row, once per block
-  for (int r = warp; r < MT; r += kWarps) {
-    float amax = 0.f;
-    if (m0 + r < m) {
-      const XT* xr = x + (size_t)(m0 + r) * k;
-      for (int j = lane; j < k; j += 32) amax = fmaxf(amax, fabsf(to_float(xr[j])));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) sx_s[r] = fmaxf(amax, 1e-8f) / 127.f;
-  }
-
-  const int32_t* row_codes = codes + (size_t)(active ? row : 0) * kw;
-  float acc[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) acc[i] = 0.f;
-
-  uint4 wv[2];
-  load_lane<kBytes>(row_codes, active ? 0 : kp, lane, kp, wv);
-  for (int k0 = 0; k0 < kp; k0 += kChunk) {
-    __syncthreads();  // the previous step's readers are done with xe/xo (and sx_s is set)
-    for (int v = threadIdx.x; v < MT * kWords; v += kThreads) {
-      const int r = v / kWords, wi = v % kWords;
-      const int gm = m0 + r, gk = k0 + 8 * wi;
-      uint32_t lo = 0u, hi = 0u;
-      if (gm < m && gk < k)
-        load8<XT>(x + (size_t)gm * k + gk, gk, k, vec && gk + 8 <= k, sx_s[r], lo, hi);
-      if (kBytes) {
-        // run wi is words 2(wi%4), 2(wi%4)+1 of lane wi/4's eight: the first
-        // four words of a lane go to xe, the last four to xo
-        const int w = 2 * (wi % 4);
-        int32_t* dst = (w < 4 ? xe[r] : xo[r]) + (wi / 4) * 4 + (w & 3);
-        dst[0] = static_cast<int32_t>(lo);
-        dst[1] = static_cast<int32_t>(hi);
-      } else {
-        xe[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x6420));
-        xo[r][wi] = static_cast<int32_t>(__byte_perm(lo, hi, 0x7531));
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-    uint4 wnext[2];
-    load_lane<kBytes>(row_codes, k0 + kChunk, lane, kp, wnext);
-    const uint32_t w0[4] = {wv[0].x, wv[0].y, wv[0].z, wv[0].w};
-    const uint32_t w1[4] = {wv[1].x, wv[1].y, wv[1].z, wv[1].w};
-    int ce[4], co[4];  // the codes that multiply xe and xo, four bytes each
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      ce[w] = static_cast<int>(kBytes ? w0[w] : w0[w] & 0x0F0F0F0Fu);
-      co[w] = static_cast<int>(kBytes ? w1[w] : (w0[w] >> 4) & 0x0F0F0F0Fu);
-    }
-    int P[MT], XS[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int4 e = *reinterpret_cast<const int4*>(&xe[i][lane * 4]);
-      const int4 o = *reinterpret_cast<const int4*>(&xo[i][lane * 4]);
-      const int es[4] = {e.x, e.y, e.z, e.w}, os[4] = {o.x, o.y, o.z, o.w};
-      int p = 0, s = 0;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        p = __dp4a(ce[w], es[w], p);
-        p = __dp4a(co[w], os[w], p);
-        s = __dp4a(es[w], 0x01010101, s);
-        s = __dp4a(os[w], 0x01010101, s);
-      }
-      // the 4 lanes of one 128-wide slice: exact integer sums
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      P[i] = p;
-      XS[i] = s;
-    }
-    if ((lane & 3) == 0) {
-      const int g = (k0 + lane * 32) / group_size;
-      const bool real = g < num_groups;
-      const float s = real ? scales[(size_t)g * n + row] : 0.f;
-      const float z = real ? zeros[(size_t)g * n + row] : 0.f;
-      const float zz = kBytes ? z : z - 8.f * s;
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        acc[i] = acc[i] + static_cast<float>(P[i]) * s + static_cast<float>(XS[i]) * zz;
-    }
-    wv[0] = wnext[0];
-    wv[1] = wnext[1];
-  }
-  if (!active) return;
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && m0 + i < m) store_out(y, (size_t)(m0 + i) * n + row, v * sx_s[i], out_dtype);
-  }
-}
-
-template <int MT, typename XT, bool kBytes>
-void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
-               cudaStream_t stream) {
-  const dim3 grid((n + kWarps - 1) / kWarps, (m + MT - 1) / MT);
-  a8_kernel<MT, XT, kBytes><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const int32_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(zeros), y, m, n, k, kw,
-      group_size, num_groups, out_dtype);
-}
-
-template <typename XT, bool kBytes>
-void launch_x(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-              int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
-              cudaStream_t s) {
-  if (m <= 1)
-    launch_mt<1, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                             out_dtype, s);
-  else if (m <= 2)
-    launch_mt<2, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                             out_dtype, s);
-  else if (m <= 4)
-    launch_mt<4, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                             out_dtype, s);
-  else if (m <= 8)
-    launch_mt<8, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                             out_dtype, s);
-  else
-    launch_mt<16, XT, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                              out_dtype, s);
-}
-
-// x_dtype: 0 float32, 1 bfloat16.
-template <bool kBytes>
-int launch_fused(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-                 int m, int n, int k, int kw, int group_size, int num_groups, int x_dtype,
-                 int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0)
-    launch_x<float, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                            out_dtype, s);
-  else if (x_dtype == 1)
-    launch_x<__nv_bfloat16, kBytes>(x, codes, scales, zeros, y, m, n, k, kw, group_size,
-                                    num_groups, out_dtype, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Kernels D (w4a8) and w8a8 on the tensor cores: mma.sync.m16n8k32 s8 x s8 ->
-// s32, with the weight as the A operand (16 output rows per warp tile) and the
-// int8 tokens as the B operand (8 per n8 tile). The pattern is kernel A's
+// The tensor-core bodies: mma.sync.m16n8k32 s8 x s8 -> s32, with the weight as
+// the A operand (16 output rows per warp tile) and the int8 tokens as the B
+// operand (8 per n8 tile). The pattern is kernel A's
 // (q4_lut_gemv.cu, post_mma): the same split plan, the same two bodies, the
 // same order of f32 operations; what differs is the operand type, the mma
 // shape, the x staging unit (16 k of one token: 16 bytes) and the fold from
@@ -429,6 +188,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// programmatic dependent launch: a kernel launched behind the pre-pass may
+// start before it ends, and waits here, before its first read of x, for the
+// pre-pass to end and its writes to be seen (a no-op in a normal launch); the
+// pre-pass lets it start at once
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void start_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <typename T>
@@ -597,6 +366,96 @@ __device__ __forceinline__ uint4 load_x16(const int8_t* __restrict__ x, int tok,
   return tmp.v;
 }
 
+// ---- float x: the quantization of the fused entry points ----
+
+constexpr int kQuantThreads = 256;        // threads of the pre-pass, one block per row
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// x[gk .. gk + 8) of one row of k floats as f32, zeros past k: 16- or 32-byte
+// vector loads where vec (the row start 16-byte aligned) and the 8 lie in the
+// row, else scalar loads
+template <typename XT>
+__device__ __forceinline__ void load8f(const XT* __restrict__ row, int gk, int k, bool vec,
+                                       float (&v)[8]) {
+  if (vec && gk + 8 <= k) {
+    if constexpr (std::is_same_v<XT, float>) {
+      const float4 a = *reinterpret_cast<const float4*>(row + gk);
+      const float4 c = *reinterpret_cast<const float4*>(row + gk + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+    } else {
+      const uint4 t = *reinterpret_cast<const uint4*>(row + gk);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        v[2 * j] = f.x;
+        v[2 * j + 1] = f.y;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = gk + j < k ? to_float(row[gk + j]) : 0.f;
+}
+
+// clamp(rint(v / sx), -127, 127) as a byte: IEEE division, round half to even
+__device__ __forceinline__ uint32_t quant_byte(float v, float sx) {
+  const int q = max(-127, min(127, __float2int_rn(v / sx)));
+  return static_cast<uint32_t>(q) & 0xFFu;
+}
+
+// x[gk .. gk + 16) of one row quantized with sx: 16 int8 bytes
+template <typename XT>
+__device__ __forceinline__ uint4 quant16(const XT* __restrict__ row, int gk, int k, bool vec,
+                                         float sx) {
+  uint32_t w[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[8];
+    load8f<XT>(row, gk + 8 * h, k, vec, v);
+    w[2 * h] = quant_byte(v[0], sx) | quant_byte(v[1], sx) << 8 | quant_byte(v[2], sx) << 16 |
+               quant_byte(v[3], sx) << 24;
+    w[2 * h + 1] = quant_byte(v[4], sx) | quant_byte(v[5], sx) << 8 |
+                   quant_byte(v[6], sx) << 16 | quant_byte(v[7], sx) << 24;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The pre-pass of the fused entry points: block t reads row t of float x once
+// for its absmax, then again (from L1/L2) to write sx[t] = max(absmax, 1e-8) /
+// 127 (IEEE division) and xq[t][0 .. kx) (zeros past k; kx = k rounded up to
+// 16). It lets the kernel behind it start at once.
+template <typename XT>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows(const XT* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int k,
+              int kx, bool vec) {
+  __shared__ float red[kQuantThreads / 32];
+  start_dependents();
+  const int tid = threadIdx.x;
+  const XT* row = x + (size_t)blockIdx.x * k;
+  float a = 0.f;
+  for (int j = tid; 8 * j < k; j += kQuantThreads) {
+    float v[8];
+    load8f<XT>(row, 8 * j, k, vec, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(v[e]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  if (tid % 32 == 0) red[tid / 32] = a;
+  __syncthreads();
+  a = red[0];
+#pragma unroll
+  for (int w = 1; w < kQuantThreads / 32; ++w) a = fmaxf(a, red[w]);
+  const float s = fmaxf(a, 1e-8f) / 127.f;
+  if (tid == 0) sx[blockIdx.x] = s;
+  uint4* dst = reinterpret_cast<uint4*>(xq + (size_t)blockIdx.x * kx);
+  for (int u = tid; 16 * u < kx; u += kQuantThreads) dst[u] = quant16<XT>(row, 16 * u, k, vec, s);
+}
+
 // the block body's dynamic shared memory: x stages, codes, the slice's group's
 // scales and zeros, two rows of XS
 template <int C>
@@ -620,14 +479,16 @@ void opt_in_smem(int bytes) {
 
 // The block body (TN = 2, 4, 8): 4 warps on 4 row tiles of 16 and the same
 // 8 * TN tokens, one ring of stages for the block. (TN = 1 serves m <= 8
-// only where the decode body's shared memory would not fit.)
+// only where the decode body's shared memory would not fit.) sx: null, or the
+// per-token scales that the sums are multiplied by before the store (the
+// fused entry points).
 template <int C, int TN, typename OutT>
 __global__ void __launch_bounds__(kThreadsA)
 a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
              const float* __restrict__ scales, const float* __restrict__ zeros,
-             OutT* __restrict__ y, float* __restrict__ scratch, int* __restrict__ counters, int m,
-             int n, int k, int kw, int group_size, int nfolds, int folds_per_split, int splits,
-             bool vec_ok) {
+             const float* __restrict__ sx, OutT* __restrict__ y, float* __restrict__ scratch,
+             int* __restrict__ counters, int m, int n, int k, int kw, int group_size, int nfolds,
+             int folds_per_split, int splits, bool vec_ok) {
   constexpr int T = 8 * TN;                       // tokens per block
   constexpr int NST = kBlockStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
@@ -638,7 +499,7 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
   auto xs = reinterpret_cast<uint4(*)[T][kXRow]>(dyn);                    // [NST]
   auto cs = reinterpret_cast<uint4(*)[kRowsA][CS]>(xs + NST);             // [NST]
   auto sz_s = reinterpret_cast<float(*)[2][kRowsA]>(cs + NST);            // [NST]
-  auto sx_s = reinterpret_cast<int(*)[T]>(sz_s + NST);                    // [2]
+  auto xsum = reinterpret_cast<int(*)[T]>(sz_s + NST);                    // [2]
   __shared__ int last_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -652,7 +513,7 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
 
   // slice c of the block's folds into stage st: codes, the slice's group's
   // scales and zeros, then x
-  auto stage = [&](int c, int st) {
+  auto stage_w = [&](int c, int st) {
     const int kc = (f0 + c) * kSlice, grp = kc / group_size;
     for (int i = tid; i < kRowsA * CU; i += kThreadsA) {
       const int r = min(row0 + i / CU, n - 1);    // rows past n: discarded
@@ -664,6 +525,9 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
       const float* src = (i < kRowsA ? scales : zeros) + (size_t)grp * n;
       cp_async4(&sz_s[st][i / kRowsA][i % kRowsA], r < n ? src + r : src, r < n ? 4 : 0);
     }
+  };
+  auto stage_xs = [&](int c, int st) {
+    const int kc = (f0 + c) * kSlice;
     for (int i = tid; i < T * kUnits; i += kThreadsA) {
       const int r = i / kUnits, u = i % kUnits;
       stage_x(&xs[st][r][u], x, tok0 + r, m, k, kc + u * 16, vec_ok);
@@ -689,8 +553,8 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
   auto finish_fold = [&]() {
 #pragma unroll
     for (int i = 0; i < TN; ++i) {
-      const int2 sx = *reinterpret_cast<const int2*>(&sx_s[pending & 1][8 * i + 2 * tq]);
-      add_z(acc[i], z_lo, z_hi, sx.x, sx.y);
+      const int2 xs = *reinterpret_cast<const int2*>(&xsum[pending & 1][8 * i + 2 * tq]);
+      add_z(acc[i], z_lo, z_hi, xs.x, xs.y);
     }
     if ((pending + 1) % folds_per_split == 0 || pending + 1 == f1) {
 #pragma unroll
@@ -705,16 +569,30 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
     pending = -1;
   };
 
+  // the first stages; behind the pre-pass (sx set) their codes first, then,
+  // once it has ended, their x
+  if (sx) {
+#pragma unroll
+    for (int c = 0; c < NST - 1; ++c)
+      if (c < nslices) stage_w(c, c);
+    wait_prior_grid();
+  }
 #pragma unroll
   for (int c = 0; c < NST - 1; ++c) {
-    if (c < nslices) stage(c, c);
+    if (c < nslices) {
+      if (!sx) stage_w(c, c);
+      stage_xs(c, c);
+    }
     cp_async_commit();
   }
 
   for (int c = 0; c < nslices; ++c) {
     cp_async_wait<NST - 2>();
     __syncthreads();  // slice c landed; the stage of slice c - 1 and the last sums are free
-    if (c + NST - 1 < nslices) stage(c + NST - 1, (c + NST - 1) % NST);
+    if (c + NST - 1 < nslices) {
+      stage_w(c + NST - 1, (c + NST - 1) % NST);
+      stage_xs(c + NST - 1, (c + NST - 1) % NST);
+    }
     cp_async_commit();
     const int st = c % NST;
     const int fold = f0 + c;
@@ -727,7 +605,7 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
       int p = r < T ? sum_bytes(xs[st][r][2 * q + 1], sum_bytes(xs[st][r][2 * q], 0)) : 0;
       p += __shfl_xor_sync(0xffffffffu, p, 1);
       p += __shfl_xor_sync(0xffffffffu, p, 2);
-      if (q == 0 && r < T) sx_s[fold & 1][r] = p;
+      if (q == 0 && r < T) xsum[fold & 1][r] = p;
     }
 
     slice_dot<C, TN>(P, cs[st][warp * 16 + gq], cs[st][warp * 16 + gq + 8], xs[st], gq, tq);
@@ -754,8 +632,10 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
   if (!own_split) {
     for (int idx = tid; idx < T * kRowsA; idx += kThreadsA) {
       const int tok = tok0 + idx / kRowsA, row = row0 + idx % kRowsA;
-      if (tok < m && row < n)
-        store_typed(y + (size_t)tok * n + row, tile[(idx / kRowsA) * kTileRow + idx % kRowsA]);
+      if (tok < m && row < n) {
+        const float v = tile[(idx / kRowsA) * kTileRow + idx % kRowsA];
+        store_typed(y + (size_t)tok * n + row, sx ? v * sx[tok] : v);
+      }
     }
     return;
   }
@@ -795,9 +675,10 @@ a8_mma_block(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
         }
     }
     const float o[4] = {s.x, s.y, s.z, s.w};
+    const float f = sx ? sx[tok] : 1.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (r4 + j < n) store_typed(y + (size_t)tok * n + r4 + j, o[j]);
+      if (r4 + j < n) store_typed(y + (size_t)tok * n + r4 + j, sx ? o[j] * f : o[j]);
   }
   if (tid == 0) counters[tile_id] = 0;  // ready for the next launch
 }
@@ -818,13 +699,14 @@ __host__ __device__ constexpr size_t dec_smem_bytes(int warps, int m, int nslice
 // of every (token, slice) from global memory. Each split's sum goes to shared
 // memory, and at the end the block adds them in split order. The splits,
 // their sums and their order are the block body's, so a token's bits are the
-// same.
+// same. sx: null, or the per-token scales that the sums are multiplied by
+// before the store (the fused entry points).
 template <int C, typename OutT>
 __global__ void __launch_bounds__(kDecWarps * 32)
 a8_mma_dec(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
            const float* __restrict__ scales, const float* __restrict__ zeros,
-           OutT* __restrict__ y, int m, int n, int k, int kw, int group_size, int nslices,
-           int folds_per_split, int splits, bool vec_ok) {
+           const float* __restrict__ sx, OutT* __restrict__ y, int m, int n, int k, int kw,
+           int group_size, int nslices, int folds_per_split, int splits, bool vec_ok) {
   constexpr int NST = kDecStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
   const int W = blockDim.x / 32, nthreads = blockDim.x;
@@ -862,6 +744,7 @@ a8_mma_dec(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
     if (j < total && slice_of(j) >= 0) stage(slice_of(j), j);
     cp_async_commit();
   }
+  if (sx) wait_prior_grid();  // x from the pre-pass: it has ended
 
   // meanwhile: each (token, slice)'s XS (four lanes sum 32 bytes each, then
   // two xor shuffles), as the block body
@@ -935,48 +818,88 @@ a8_mma_dec(const int8_t* __restrict__ x, const int32_t* __restrict__ codes,
       for (int j = 0; j < 4; ++j)
         if (s0 + j < splits) out += v[j];
     }
-    store_typed(y + (size_t)t * n + row, out);
+    store_typed(y + (size_t)t * n + row, sx ? out * sx[t] : out);
   }
 }
 
-template <int C, int TN, typename OutT>
-void launch_tn(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-               void* scratch, void* counters, int m, int n, int k, int kw, int group_size,
-               int nslices, int folds_per_split, int splits, int split_blocks,
-               cudaStream_t stream) {
-  const bool vec_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && k % 16 == 0;
-  const auto* xb = static_cast<const int8_t*>(x);
-  const auto* cb = static_cast<const int32_t*>(codes);
-  const auto* sb = static_cast<const float*>(scales);
-  const auto* zb = static_cast<const float*>(zeros);
-  const int dec_warps = min(splits, kDecWarps);
-  const size_t dec_smem = dec_smem_bytes<C>(dec_warps, m, nslices, splits);
-  if (TN == 1 && dec_smem <= kMaxSmem) {
-    opt_in_smem<a8_mma_dec<C, OutT>>(kMaxSmem);  // it has no static shared memory
-    a8_mma_dec<C, OutT><<<(n + 15) / 16, dec_warps * 32, dec_smem, stream>>>(
-        xb, cb, sb, zb, static_cast<OutT*>(y), m, n, k, kw, group_size, nslices,
-        folds_per_split, splits, vec_ok);
-    return;
+// launch kernel f; behind the pre-pass (pdl) with programmatic stream
+// serialization, so that its blocks stage their first code slices while the
+// pre-pass runs (1.5-2 us a launch less at m = 16-64 on the H100)
+template <typename... P, typename... A>
+void launch_kernel(bool pdl, void (*f)(P...), dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  cudaLaunchKernelEx(&cfg, f, static_cast<P>(args)...);
+}
+
+// The decode body where the plan takes it (TN = 1) and its shared memory fits,
+// else the block body (TN = 1 past the decode body's shared memory: one block
+// summing each tile's splits, which gives the same bits). Float x goes
+// through the pre-pass into xq, with sx beside it.
+template <int C, typename XT, int TN, typename OutT>
+void launch_tn(const XT* x, const int32_t* codes, const float* scales, const float* zeros,
+               OutT* y, float* scratch, int* counters, float* sx, int8_t* xq, int m, int n,
+               int k, int kw, int group_size, int nslices, int folds_per_split, int splits,
+               int split_blocks, cudaStream_t stream) {
+  constexpr bool kFloatX = !std::is_same_v<XT, int8_t>;
+  // 16-byte loads of x: each row start aligned (float x: 8 elements, int8 x: 16)
+  const bool x_vec =
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0 && k % (kFloatX ? 8 : 16) == 0;
+  const int8_t* xb;
+  const float* sxb = nullptr;
+  int kb;
+  bool vec_ok;
+  if constexpr (kFloatX) {
+    kb = (k + 15) / 16 * 16;
+    quantize_rows<XT><<<m, kQuantThreads, 0, stream>>>(x, xq, sx, k, kb, x_vec);
+    xb = xq;
+    sxb = sx;
+    vec_ok = true;
+  } else {
+    xb = x;
+    kb = k;
+    vec_ok = x_vec;
   }
-  // (TN == 1 past the decode body's shared memory: the block body, one block
-  // summing each tile's splits, which gives the same bits)
+  if constexpr (TN == 1) {
+    const int dec_warps = min(splits, kDecWarps);
+    const size_t dec_smem = dec_smem_bytes<C>(dec_warps, m, nslices, splits);
+    if (dec_smem <= kMaxSmem) {
+      opt_in_smem<a8_mma_dec<C, OutT>>(kMaxSmem);  // it has no static shared memory
+      launch_kernel(kFloatX, a8_mma_dec<C, OutT>, dim3((n + 15) / 16), dec_warps * 32,
+                    dec_smem, stream, xb, codes, scales, zeros, sxb, y, m, n, kb, kw,
+                    group_size, nslices, folds_per_split, splits, vec_ok);
+      return;
+    }
+  }
   const dim3 grid((n + kRowsA - 1) / kRowsA, (m + 8 * TN - 1) / (8 * TN), split_blocks);
   constexpr size_t smem = block_smem_bytes<C>(TN);
   opt_in_smem<a8_mma_block<C, TN, OutT>>(static_cast<int>(smem));
-  a8_mma_block<C, TN, OutT><<<grid, kThreadsA, smem, stream>>>(
-      xb, cb, sb, zb, static_cast<OutT*>(y), static_cast<float*>(scratch),
-      static_cast<int*>(counters), m, n, k, kw, group_size, nslices, folds_per_split, splits,
-      vec_ok);
+  launch_kernel(kFloatX, a8_mma_block<C, TN, OutT>, grid, kThreadsA, smem, stream, xb, codes,
+                scales, zeros, sxb, y, scratch, counters, m, n, kb, kw, group_size, nslices,
+                folds_per_split, splits, vec_ok);
 }
 
-template <int C, typename OutT>
+template <int C, typename XT, typename OutT>
 void launch_out(int tn, const void* x, const void* codes, const void* scales, const void* zeros,
-                void* y, void* scratch, void* counters, int m, int n, int k, int kw,
-                int group_size, int nslices, int folds_per_split, int splits, int split_blocks,
-                cudaStream_t s) {
-#define A8_TN(TN)                                                                       \
-  launch_tn<C, TN, OutT>(x, codes, scales, zeros, y, scratch, counters, m, n, k, kw,    \
-                         group_size, nslices, folds_per_split, splits, split_blocks, s)
+                void* y, void* scratch, void* counters, float* sx, int8_t* xq, int m, int n,
+                int k, int kw, int group_size, int nslices, int folds_per_split, int splits,
+                int split_blocks, cudaStream_t s) {
+#define A8_TN(TN)                                                                             \
+  launch_tn<C, XT, TN, OutT>(static_cast<const XT*>(x), static_cast<const int32_t*>(codes),   \
+                             static_cast<const float*>(scales),                              \
+                             static_cast<const float*>(zeros), static_cast<OutT*>(y),         \
+                             static_cast<float*>(scratch), static_cast<int*>(counters), sx,   \
+                             xq, m, n, k, kw, group_size, nslices, folds_per_split, splits,   \
+                             split_blocks, s)
   switch (tn) {
     case 1: A8_TN(1); break;
     case 2: A8_TN(2); break;
@@ -986,24 +909,36 @@ void launch_out(int tn, const void* x, const void* codes, const void* scales, co
 #undef A8_TN
 }
 
-// the C entry points' checks and dispatch on the output type
-template <int C>
+// the C entry points' checks, the fused ones' share of the scratch, and the
+// dispatch on the output type
+template <int C, typename XT>
 int launch(const void* x, const void* codes, const void* scales, const void* zeros,
            const void* lut, void* y, int m, int n, int k, int kw, int group_size, int num_groups,
            int out_dtype, int tn, int folds_per_split, int split_blocks, void* scratch,
            void* counters, void* stream) {
+  constexpr bool kFloatX = !std::is_same_v<XT, int8_t>;
   if (group_size <= 0 || group_size % kSlice || num_groups < 1 || folds_per_split < 1 ||
-      m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) || lut != nullptr)
+      m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) || lut != nullptr ||
+      (kFloatX && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nslices = num_groups * (group_size / kSlice);
   const int splits = (nslices + folds_per_split - 1) / folds_per_split;
   if ((split_blocks != 1 && (split_blocks != splits || tn == 1)) || splits > 65535 ||
       (split_blocks > 1 && (scratch == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // float x: sx [ceil4(m)] and xq [m][ceil16(k)] follow the split partials
+  float* sx = nullptr;
+  int8_t* xq = nullptr;
+  if (kFloatX) {
+    const size_t tiles = (size_t)((n + kRowsA - 1) / kRowsA) * ((m + 8 * tn - 1) / (8 * tn));
+    sx = static_cast<float*>(scratch) +
+         (split_blocks > 1 ? (size_t)splits * tiles * 8 * tn * kRowsA : 0);
+    xq = reinterpret_cast<int8_t*>(sx + (m + 3) / 4 * 4);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define A8_OUT(T)                                                                             \
-  launch_out<C, T>(tn, x, codes, scales, zeros, y, scratch, counters, m, n, k, kw, group_size, \
-                   nslices, folds_per_split, splits, split_blocks, s)
+#define A8_OUT(T)                                                                              \
+  launch_out<C, XT, T>(tn, x, codes, scales, zeros, y, scratch, counters, sx, xq, m, n, k, kw, \
+                       group_size, nslices, folds_per_split, splits, split_blocks, s)
   switch (out_dtype) {
     case 0: A8_OUT(float); break;
     case 1: A8_OUT(__nv_bfloat16); break;
@@ -1019,44 +954,55 @@ int launch(const void* x, const void* codes, const void* scales, const void* zer
 
 extern "C" {
 
-// kw: 32-bit words of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8).
-// out_dtype: 0 float32, 1 bfloat16, 2 float16.
+// The arguments of q4_lut_gemv.cu's tensor-core entry points. kw: 32-bit words
+// of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8). lut must be null
+// (lut_stride is not read). out_dtype: 0 float32, 1 bfloat16, 2 float16. tn:
+// n8 token tiles per warp (1: the decode body; 2, 4 or 8: the block body);
+// folds_per_split: the 128-k slices each split sums; split_blocks: 1 (a block
+// sums every split of its tile: in turn, or with tn 1 by warps) or the number
+// of splits (the block body, one block each). With more than one split block,
+// scratch begins with splits * ceil(n / 64) * ceil(m / (8 tn)) * 8 tn * 64
+// floats and counters holds ceil(n / 64) * ceil(m / (8 tn)) ints that are 0,
+// which the launch leaves at 0; launches that share them must not overlap.
 
-// Kernels D and w8a8 on the tensor cores, with the arguments of
-// q4_lut_gemv.cu's tensor-core entry points: lut must be null (lut_stride is
-// not read); tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the
-// block body); folds_per_split: the 128-k slices each split sums;
-// split_blocks: 1 (a block sums every split of its tile: in turn, or with tn 1
-// by warps) or the number of splits (the block body, one block each). With
-// more than one split block, scratch holds splits * ceil(n / 64) * ceil(m /
-// (8 tn)) * 8 tn * 64 floats and counters ceil(n / 64) * ceil(m / (8 tn)) ints
-// that are 0, which the launch leaves at 0; launches that share them must not
-// overlap.
+// Kernels D and w8a8: int8 x.
 #define A8_MMA_ENTRY(NAME, CODES)                                                             \
   int NAME(const void* x, const void* codes, const void* scales, const void* zeros,           \
            const void* lut, void* y, int m, int n, int k, int kw, int group_size,             \
            int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,        \
            int split_blocks, void* scratch, void* counters, void* stream) {                   \
     (void)lut_stride;                                                                         \
-    return a8_mma::launch<a8_mma::CODES>(x, codes, scales, zeros, lut, y, m, n, k, kw,        \
-                                         group_size, num_groups, out_dtype, tn,               \
-                                         folds_per_split, split_blocks, scratch, counters,    \
-                                         stream);                                             \
+    return a8_mma::launch<a8_mma::CODES, int8_t>(x, codes, scales, zeros, lut, y, m, n, k,    \
+                                                 kw, group_size, num_groups, out_dtype, tn,   \
+                                                 folds_per_split, split_blocks, scratch,      \
+                                                 counters, stream);                           \
   }
 
 A8_MMA_ENTRY(w4a8, kNib4)
 A8_MMA_ENTRY(w8a8, kByte8)
 
-// Kernels D-fused and w8a8_fused; x_dtype: 0 float32, 1 bfloat16.
-#define A8_FUSED_ENTRY(NAME, BYTES)                                                          \
-  int NAME(const void* x, const void* codes, const void* scales, const void* zeros, void* y,  \
-           int m, int n, int k, int kw, int group_size, int num_groups, int x_dtype,          \
-           int out_dtype, void* stream) {                                                     \
-    return launch_fused<BYTES>(x, codes, scales, zeros, y, m, n, k, kw, group_size,           \
-                               num_groups, x_dtype, out_dtype, stream);                       \
+// Kernels D-fused and w8a8_fused: float x, x_dtype 0 float32, 1 bfloat16. Their
+// scratch is never null: after the split partials (if any) it holds ceil(m / 4)
+// * 4 floats of sx and m * ceil(k / 16) * 16 bytes of xq.
+#define A8_FUSED_ENTRY(NAME, CODES)                                                           \
+  int NAME(const void* x, const void* codes, const void* scales, const void* zeros,           \
+           const void* lut, void* y, int m, int n, int k, int kw, int group_size,             \
+           int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,        \
+           int split_blocks, void* scratch, void* counters, void* stream, int x_dtype) {      \
+    (void)lut_stride;                                                                         \
+    if (x_dtype == 0)                                                                         \
+      return a8_mma::launch<a8_mma::CODES, float>(x, codes, scales, zeros, lut, y, m, n, k,   \
+                                                  kw, group_size, num_groups, out_dtype, tn,  \
+                                                  folds_per_split, split_blocks, scratch,     \
+                                                  counters, stream);                          \
+    if (x_dtype == 1)                                                                         \
+      return a8_mma::launch<a8_mma::CODES, __nv_bfloat16>(                                    \
+          x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups, out_dtype,    \
+          tn, folds_per_split, split_blocks, scratch, counters, stream);                      \
+    return static_cast<int>(cudaErrorInvalidValue);                                           \
   }
 
-A8_FUSED_ENTRY(w4a8_fused, false)
-A8_FUSED_ENTRY(w8a8_fused, true)
+A8_FUSED_ENTRY(w4a8_fused, kNib4)
+A8_FUSED_ENTRY(w8a8_fused, kByte8)
 
 }  // extern "C"

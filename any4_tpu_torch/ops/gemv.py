@@ -2,16 +2,16 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. Five on the tensor cores, at every m, in a decode body (m <=
-8) and a block body that give the same bits, with k split by
+Ten kernels. Seven on the tensor cores, at every m, in a decode body (m
+<= 8) and a block body that give the same bits, with k split by
 :func:`kernel_a_plan` (:data:`POST_KERNELS`): in ``csrc/q4_lut_gemv.cu``
 A, C and ``int8_post`` (``mma.sync`` m16n8k16, bf16 in, f32 sums; the
 bodies are templated on how a code becomes a bf16 value), in
-``csrc/w4a8_gemv.cu`` D and ``w8a8`` (``mma.sync`` m16n8k32, int8 in,
-exact int32 sums per 128-wide slice; the bodies are templated on the code
-width). Three modes of one CUDA-core body in ``csrc/q4_lut_gemv.cu`` (B, E
-and ``int8_fused``), and one CUDA-core body in ``csrc/w4a8_gemv.cu`` for
-the fused W4A8/W8A8 entry points:
+``csrc/w4a8_gemv.cu`` the four W4A8/W8A8 entry points (``mma.sync``
+m16n8k32, int8 in, exact int32 sums per 128-wide slice; the bodies are
+templated on the code width, and the fused entry points quantize float x
+first). Three modes of one CUDA-core body in ``csrc/q4_lut_gemv.cu`` (B, E
+and ``int8_fused``):
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
@@ -51,7 +51,8 @@ the int8 ones:
   multiplies by ``sx``;
 - :func:`w4a8_fused` (kernel D-fused) replaces ``_w4a8f_kernel``: float x
   as it comes, quantized per row inside the kernel with the same math, and
-  ``y * sx`` written in ``out_dtype``;
+  ``y * sx`` written in ``out_dtype``: on the card the bits of
+  ``(w4a8(xq) * sx).to(out_dtype)``;
 - :func:`w8a8` replaces ``_w8a8_kernel``, ``_w8a8q_kernel`` and
   ``_w8a8t_kernel``: kernel D on int8 codes;
 - :func:`w8a8_fused` replaces ``_w8a8f_kernel``, ``_w8a8qf_kernel`` and
@@ -70,7 +71,8 @@ W4A8 and W8A8 kernels keep its precision.
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]``. The tensor-core kernels' split-k scratch and ticket
-counters are kept per device and stream (:func:`_split_buffers`).
+counters, and the fused W4A8/W8A8 kernels' quantized x, are kept per device
+and stream (:func:`_split_buffers`, sized by :func:`post_launch_plan`).
 """
 from __future__ import annotations
 
@@ -92,6 +94,7 @@ LAUNCHES = {name: 0 for name in _SOURCES}
 # the kernels that read int8 codes [n, kp]; the others read 4-bit words
 BYTE_KERNELS = ("int8_post", "int8_fused", "w8a8", "w8a8_fused")
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the x types of the fused W4A8/W8A8 kernels (float16 x is widened to f32)
 _FUSED_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
@@ -99,9 +102,12 @@ _SMS = {}    # device -> streaming multiprocessors
 _SPLIT_BUFS = {}  # (device, stream) -> the tensor-core kernels' buffers
 # the kernels on the tensor cores, which take kernel_a_plan's launch plan
 # and the split buffers: A, C and int8_post (csrc/q4_lut_gemv.cu, post_mma;
-# bf16 x) and D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x)
-POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post", "w4a8", "w8a8")
+# bf16 x), D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x) and their fused
+# twins (a8_mma; float x)
+POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post", "w4a8", "w8a8",
+                "w4a8_fused", "w8a8_fused")
 INT8_X_KERNELS = ("w4a8", "w8a8")
+FLOAT_X_KERNELS = ("w4a8_fused", "w8a8_fused")
 # Their blocks: 64 weight rows each (16 in the decode body); k is split
 # until the decode body has about A_DEC_WARPS_PER_SM warps per SM, whatever
 # m is.
@@ -162,6 +168,25 @@ def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
     splits = -(-num_groups // per)
     tiles = row_blocks * -(-m // (8 * tn))
     return tn, splits, per, 1 if tn == 1 or tiles >= sms else splits
+
+
+def post_launch_plan(name: str, m: int, n: int, k: int, num_groups: int,
+                     group_size: int, sms: int):
+    """The launch of one tensor-core kernel: ``(tn, folds_per_split,
+    split_blocks, scratch_floats, counter_ints)``. :func:`kernel_a_plan`
+    over the kernel's folds (kernel A's groups, the others' 128-wide
+    slices), the split-k scratch and tickets that it needs, and for the
+    fused W4A8/W8A8 kernels room after the partials for the pre-pass's
+    ``sx`` (``ceil(m / 4) * 4`` floats) and ``xq`` (``m * ceil(k / 16) *
+    16`` bytes). A fused kernel and its external twin get the same plan."""
+    folds = num_groups if name == "q4_lut_post" \
+        else num_groups * group_size // SLICE
+    tn, splits, per, split_blocks = kernel_a_plan(m, n, folds, sms)
+    tiles = -(-n // A_ROWS) * -(-m // (8 * tn))
+    floats = splits * tiles * 8 * tn * A_ROWS if split_blocks > 1 else 0
+    if name in FLOAT_X_KERNELS:
+        floats += -(-m // 4) * 4 + -(-m * (-(-k // 16) * 16) // 4)
+    return tn, per, split_blocks, floats, tiles if split_blocks > 1 else 0
 
 
 def _lut_values(packed: torch.Tensor, lut: torch.Tensor):
@@ -393,10 +418,10 @@ def _split_buffers(dev, stream: int, floats: int, ints: int):
 
 
 def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
-    """The tensor-core kernels (:data:`POST_KERNELS`), with
-    :func:`kernel_a_plan`'s plan over their folds: kernel A's groups, the
-    others' 128-wide slices. D and ``w8a8`` take int8 x, the others x
-    rounded to bf16."""
+    """The tensor-core kernels (:data:`POST_KERNELS`) with
+    :func:`post_launch_plan`'s launch. D and ``w8a8`` take int8 x, their
+    fused twins float x (bf16 or f32, f16 widened to f32 exactly), the
+    others x rounded to bf16."""
     n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
                                out_dtype)
     kp = kw * (4 if name in BYTE_KERNELS else 8)
@@ -410,6 +435,12 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
         if x.dtype != torch.int8:
             raise ValueError(f"{name}: x must be int8, got {x.dtype}")
         xb = x.contiguous()
+    elif name in FLOAT_X_KERNELS:
+        if x.dtype == torch.float16:
+            x = x.float()          # exact; the kernel reads bf16 or f32
+        if x.dtype not in _FUSED_X_DTYPES:
+            raise ValueError(f"{name}: unsupported x dtype {x.dtype}")
+        xb = x.contiguous()
     else:
         xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -417,44 +448,20 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
         return y
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    folds = G if name == "q4_lut_post" else G * group_size // SLICE
-    tn, splits, per, split_blocks = kernel_a_plan(m, n, folds, _sm_count(dev))
+    tn, per, split_blocks, floats, ints = post_launch_plan(
+        name, m, n, k, G, group_size, _sm_count(dev))
     scratch = counters = None
-    if split_blocks > 1:
-        tiles = -(-n // A_ROWS) * -(-m // (8 * tn))
-        scratch, counters = _split_buffers(
-            dev, stream, splits * tiles * 8 * tn * A_ROWS, tiles)
+    if floats:
+        scratch, counters = _split_buffers(dev, stream, floats, ints)
     per_row = lut is not None and lut.shape[0] == n and n > 1
+    extra = (_FUSED_X_DTYPES[xb.dtype],) if name in FLOAT_X_KERNELS else ()
     err = _fn(name)(
         xb.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         zeros.data_ptr(), None if lut is None else lut.data_ptr(),
         y.data_ptr(), m, n, k, kw, group_size, G, 16 if per_row else 0,
         _OUT_DTYPES[out_dtype], tn, per, split_blocks,
         None if scratch is None else scratch.data_ptr(),
-        None if counters is None else counters.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return y
-
-
-def _launch_a8_fused(name, x, packed, scales, zeros, group_size, out_dtype):
-    """Kernels D-fused and ``w8a8_fused`` (the CUDA-core body) on float x."""
-    n, kw, G = _check_operands(name, x, packed, scales, zeros, None,
-                               out_dtype)
-    m, k = x.shape
-    if x.dtype == torch.float16:
-        x = x.float()          # exact; the kernel reads bf16 or f32
-    if x.dtype not in _FUSED_X_DTYPES:
-        raise ValueError(f"{name}: unsupported x dtype {x.dtype}")
-    x = x.contiguous()
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return y
-    err = _fn(name)(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        y.data_ptr(), m, n, k, kw, group_size, G, _FUSED_X_DTYPES[x.dtype],
-        _OUT_DTYPES[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        None if counters is None else counters.data_ptr(), stream, *extra)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
@@ -462,8 +469,9 @@ def _launch_a8_fused(name, x, packed, scales, zeros, group_size, out_dtype):
 
 
 def _launch_no_lut(name, x, packed, scales, zeros, group_size, out_dtype):
-    """The kernels that read no LUT: D, ``w8a8`` and ``int8_post`` on the
-    tensor cores, ``int8_fused`` on the CUDA-core body."""
+    """The kernels that read no LUT: the W4A8/W8A8 kernels and
+    ``int8_post`` on the tensor cores, ``int8_fused`` on the CUDA-core
+    body."""
     launch = _launch_post if name in POST_KERNELS else _launch_q4
     return launch(name, x, packed, scales, zeros, None, group_size,
                   out_dtype)
@@ -522,7 +530,7 @@ def w4a8(x, packed, scales, zeros, group_size, out_dtype=torch.float32):
 def w4a8_fused(x, packed, scales, zeros, group_size, out_dtype):
     """Kernel D-fused on float ``x [m, k]``; returns ``[m, n]``."""
     _need_group("w4a8_fused", group_size, SLICE)
-    return _dispatch("w4a8_fused", w4a8_fused_plain, _launch_a8_fused, x,
+    return _dispatch("w4a8_fused", w4a8_fused_plain, _launch_no_lut, x,
                      packed, scales, zeros, group_size, out_dtype)
 
 
@@ -538,7 +546,7 @@ def w8a8_fused(x, packed, scales, zeros, group_size, out_dtype):
     """``w8a8_fused`` on float ``x [m, k]`` and int8 codes; returns
     ``[m, n]``."""
     _need_group("w8a8_fused", group_size, SLICE)
-    return _dispatch("w8a8_fused", w8a8_fused_plain, _launch_a8_fused, x,
+    return _dispatch("w8a8_fused", w8a8_fused_plain, _launch_no_lut, x,
                      packed, scales, zeros, group_size, out_dtype)
 
 

@@ -10,7 +10,8 @@ Phases, each printing JSON lines:
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
    parallel); then two ``ptxas`` lines: the registers and spill bytes of each
    instantiation of the tensor-core bodies (kernels A, C and ``int8_post``;
-   kernels D and ``w8a8``) from nvcc's ``-Xptxas -v`` report.
+   the four W4A8/W8A8 kernels, with the fused ones' pre-pass) from nvcc's
+   ``-Xptxas -v`` report.
 2. kernels: kernel A (``q4_lut_post``, g=128) at m in {1, 8, 16, 128,
    512} and kernel B (``q4_lut_fused``, g=64) at m in {1, 16, 128}, at
    Llama-3.2-1B's linear shapes, each held against its plain PyTorch
@@ -29,9 +30,15 @@ Phases, each printing JSON lines:
    k is split: each row of a batch of 8, 16 and 130 gives the bits of that
    row alone (the decode body against the block body), and two calls give
    the same bits. The same bit equalities for kernel C and ``int8_post``,
-   which run on kernel A's bodies, and for D and ``w8a8`` on int8 x, which
-   run on their own pair of tensor-core bodies (``post_bit_equal``), and
-   their edge cases as kernel A's, with g = 256 (two slices a group), int8
+   which run on kernel A's bodies, for D and ``w8a8`` on int8 x, which
+   run on their own pair of tensor-core bodies, and for D-fused and
+   ``w8a8_fused`` on bf16 and float32 x (m = 8, 16, 33 and 64) on the same
+   bodies (``post_bit_equal``); then ``fused_equals_external``: at the 1B
+   shapes, m in {1, 8, 16, 64}, bf16 and float32 x, float32 and bf16
+   outputs, ``w4a8_fused(x)`` gives the bits of ``(w4a8(xq) * sx).to(out)``
+   with ``xq, sx = quantize_activations(x)``, and ``w8a8_fused`` those of
+   ``w8a8``'s. C's, ``int8_post``'s, D's and ``w8a8``'s edge cases as
+   kernel A's, with g = 256 (two slices a group), int8
    codes of -128, and int8 x for D and ``w8a8`` (float32 within 1e-5 *
    max: exact integer dots) (``post_edge_cases``).
 3. attention_kernel: the four decode-attention kernels
@@ -77,18 +84,19 @@ Phases, each printing JSON lines:
    int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
    int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
    C at m in {1, 8, 16, 128, 512}, D at {1, 8, 16, 128, 512, 1024} (the
-   W4A8 prefill's chunk), D-fused at {1, 16, 64}, E at {1, 16},
+   W4A8 prefill's chunk), D-fused at {1, 8, 16, 32, 64}, E at {1, 16},
    timed and held against their plain versions as in 2: bf16 outputs
    within 1e-2 * max, float32 within 1e-4 * max (C, E) and 1e-5 * max (D,
    D-fused: exact integer dots); E equal to kernel B bit for bit. Then edge
    cases: n not a multiple of 8 with k = 1408 and 1407, x misaligned by one
    element, float32 x for D-fused, an all-zero x row (the 1e-8 floor), a
-   row whose x / sx lands on k + 0.5 (checked against
-   ``quantize_activations``, which rounds half to even), and float32,
-   bf16 and float16 outputs.
+   row whose x / sx lands on k + 0.5 (D-fused bit-equal to
+   ``quantize_activations``, which rounds half to even, then D), and
+   float32, bf16 and float16 outputs.
 7. int8 kernels (slice 4): ``w8a8`` (int8 x) at m in {1, 8, 16, 128, 512,
    1024},
-   ``int8_post`` at {1, 8, 16, 128, 512}, ``w8a8_fused`` at {1, 16, 64}
+   ``int8_post`` at {1, 8, 16, 128, 512}, ``w8a8_fused`` at {1, 8, 16,
+   32, 64}
    (g=128) and ``int8_fused``
    (g=64) at {1, 16}, at the 1B linear shapes with random int8 codes (-128
    included), timed and held against their plain versions as in 2: bf16
@@ -142,7 +150,8 @@ Phases, each printing JSON lines:
     activations; exact launch counts.
 12. the ``nvidia-smi`` name and power line again, then the line
     ``{"kernels": [...]}``, one entry per kernel (fourteen; the tensor-core
-    kernels A, C, ``int8_post``, D and ``w8a8`` also ``by_m``).
+    kernels A, C, ``int8_post`` and the four W4A8/W8A8 kernels also
+    ``by_m``).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -187,7 +196,7 @@ INT_KERNELS = {
     "w4a8": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:502 _w4a8_kernel",
              (1, 8, 16, 128, 512, 1024)),
     "w4a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:550 "
-                   "_w4a8f_kernel", (1, 16, 64)),
+                   "_w4a8f_kernel", (1, 8, 16, 32, 64)),
     "q4_lut_select": (SOURCE, "any4_tpu/ops/pallas/gemv.py:63 "
                       "_q4select_kernel", (1, 16)),
 }
@@ -201,7 +210,7 @@ INT8_KERNELS = {
     "w8a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:612 "
                    "_w8a8f_kernel; any4_tpu/ops/pallas/gemv.py:725 "
                    "_w8a8qf_kernel; any4_tpu/ops/pallas/gemv.py:838 "
-                   "_w8a8tf_kernel", (1, 16, 64), 128),
+                   "_w8a8tf_kernel", (1, 8, 16, 32, 64), 128),
     "int8_post": (SOURCE, "any4_tpu/ops/pallas/gemv.py:765 _int8q_kernel; "
                   "any4_tpu/ops/pallas/gemv.py:878 _int8t_kernel",
                   (1, 8, 16, 128, 512), 128),
@@ -228,8 +237,8 @@ ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
 ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 # profiler kernel names of the linear kernels (SOURCE's two families,
-# W4A8_SOURCE's two)
-LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_mma", "a8_kernel")
+# W4A8_SOURCE's one, its pre-pass included)
+LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_mma")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
 
@@ -427,14 +436,20 @@ def post_call(gemv, name, plain=False):
         x, packed, scales, zeros, g, out)
 
 
-def post_x(gemv, name, m, k, gen):
+def post_x(gemv, name, m, k, gen, dtype=torch.bfloat16):
     """Random activations ``[m, k]`` for one tensor-core kernel: int8 codes
-    in [-127, 127] for D and ``w8a8``, else bf16."""
+    in [-127, 127] for D and ``w8a8``, else ``dtype`` (bf16 by default)."""
     if name in gemv.INT8_X_KERNELS:
         return torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                              dtype=torch.int8)
-    return torch.randn((m, k), generator=gen, device="cuda").to(
-        torch.bfloat16)
+    return torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, types and bits."""
+    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(view), b.view(view))
 
 
 def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
@@ -445,9 +460,16 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
     of a batch of m = 8, 16 and 130 gives the same float32 bits as that row
     alone, and two calls on the same inputs give the same bits. Kernel A by
     default; C, ``int8_post``, D and ``w8a8`` (g=128: their 128-k slices
-    are the groups; int8 x for D and ``w8a8``) by name."""
+    are the groups; int8 x for D and ``w8a8``) by name, and the fused
+    W4A8/W8A8 kernels on bf16 and float32 x at m = 8, 16, 33 and 64 (they
+    stop at ``FUSED_ACT_M_MAX``; m = 33 leaves 31 rows of a 64-token tile
+    empty)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     fn = post_call(gemv, name)
+    fused = name in gemv.FLOAT_X_KERNELS
+    cases = ([(m, dt) for m in (8, 16, 33, 64)
+              for dt in (torch.bfloat16, torch.float32)] if fused
+             else [(m, torch.bfloat16) for m in (8, 16, 130)])
     rows = 0
     splits = {}
     for n, k in ((2048, 2048), (512, 2048), (8192, 2048)):
@@ -458,8 +480,8 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
         check(splits[f"{n}x{k}"] > 1, f"{n}x{k} splits k")
         args = (*post_operands(gemv, packing, name, n, k, 128, gen), 128,
                 torch.float32)
-        for m in (8, 16, 130):
-            x = post_x(gemv, name, m, k, gen)
+        for m, dt in cases:
+            x = post_x(gemv, name, m, k, gen, dt)
             y = fn(x, *args)
             check(torch.equal(y.view(torch.int32),
                               fn(x, *args).view(torch.int32)),
@@ -472,6 +494,35 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
                       f"from the row alone")
                 rows += 1
     return {"rows": rows, "splits": splits}
+
+
+def fused_equals_external(gemv, packing, quant):
+    """The fused W4A8/W8A8 kernels take their external twins' plan and
+    bodies: at the 1B linear shapes, m in {1, 8, 16, 64} (the decode body,
+    the block body at 16 and 64 tokens), bf16 and float32 x, float32 and
+    bf16 outputs, ``w4a8_fused(x)`` gives the bits of ``(w4a8(xq) *
+    sx).to(out)`` with ``xq, sx = quantize_activations(x)``, and
+    ``w8a8_fused`` those of ``w8a8``'s: what ``linear._act_int8_linear``
+    computes above 64 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = 0
+    for fused, ext in (("w4a8_fused", "w4a8"), ("w8a8_fused", "w8a8")):
+        for n, k in KERNEL_SHAPES:
+            packed, scales, zeros, _ = post_operands(gemv, packing, fused, n,
+                                                     k, 128, gen)
+            args = (packed, scales, zeros, 128)
+            for m in (1, 8, 16, 64):
+                for xdt in (torch.bfloat16, torch.float32):
+                    x = post_x(gemv, fused, m, k, gen, xdt) * 3
+                    xq, sx = quant.quantize_activations(x)
+                    y32 = getattr(gemv, ext)(xq, *args, torch.float32) * sx
+                    for out in (torch.float32, torch.bfloat16):
+                        y = getattr(gemv, fused)(x, *args, out)
+                        check(same_bits(y, y32.to(out)),
+                              f"{fused} n={n} k={k} m={m} x {xdt} {out}: "
+                              f"not the bits of {ext}(xq) * sx")
+                        cases += 1
+    return cases
 
 
 def post_edge_cases(gemv, packing, name):
@@ -736,7 +787,7 @@ def int_edge_cases(gemv, packing, quant):
     lands on k + 0.5 (round half to even), and float32, bf16 and float16
     outputs. float32 outputs within 1e-5 * max of the plain version for
     D/D-fused and 1e-4 for C/E, bf16/f16 within 1e-2; E equal to kernel B
-    bit for bit."""
+    and D-fused to ``quantize_activations`` + D bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     cases = 0
     for n, k, m, offset in ((1000, 1408, 3, 0), (130, 1408, 17, 1),
@@ -773,9 +824,9 @@ def int_edge_cases(gemv, packing, quant):
                         xq, sx = quant.quantize_activations(x)
                         ext = (gemv.w4a8(xq, packed, scales, zeros, 128)
                                * sx).to(out)
-                        e = rel_err(y, ext)
-                        check(e <= tol, f"w4a8_fused vs quantize_activations"
-                              f" + w4a8 (half to even) {xdt} {out}: {e}")
+                        check(same_bits(y, ext), f"w4a8_fused != "
+                              f"quantize_activations + w4a8 (half to even) "
+                              f"bit for bit, n={n} k={k} m={m} {xdt} {out}")
                     if name == "q4_lut_select":
                         for lt in (lut, gemv.int4_ramp("cuda")):
                             args = (x, packed, scales, zeros, lt, 128, out)
@@ -873,7 +924,8 @@ def int8_edge_cases(gemv, packing, quant, linear):
     float32 x for ``w8a8_fused``, an all-zero x row (the 1e-8 floor), a row
     whose x / sx lands on k + 0.5 (round half to even), group sizes 16, 64
     and 256 for ``int8_fused``, and float32, bf16 and float16 outputs;
-    bars as in the kernel phase. Then the identity weight through
+    bars as in the kernel phase, and ``w8a8_fused`` bit-equal to
+    ``quantize_activations`` + ``w8a8``. Then the identity weight through
     ``int8_fused`` (x back bit for bit) and any4q8's LUT snap on the card
     against the CPU's on the same LUTs (equal codes and row scales)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -915,9 +967,9 @@ def int8_edge_cases(gemv, packing, quant, linear):
                         xq, sx = quant.quantize_activations(x)
                         ext = (gemv.w8a8(xq, packed, scales, zeros, 128)
                                * sx).to(out)
-                        e = rel_err(y, ext)
-                        check(e <= tol, f"w8a8_fused vs quantize_activations"
-                              f" + w8a8 (half to even) {xdt} {out}: {e}")
+                        check(same_bits(y, ext), f"w8a8_fused != "
+                              f"quantize_activations + w8a8 (half to even) "
+                              f"bit for bit, n={n} k={k} m={m} {xdt} {out}")
                     cases += 1
     for k, g in ((1024, 128), (2048, 64)):
         qt = linear.quantize_tensor(torch.eye(k, device="cuda"), "int8", g,
@@ -1949,6 +2001,11 @@ def main():
               **kernel_a_bit_equal(gemv, packing, name)})
         emit({"phase": "post_edge_cases", "name": name,
               "passed": post_edge_cases(gemv, packing, name)})
+    for name in gemv.FLOAT_X_KERNELS:
+        emit({"phase": "post_bit_equal", "name": name,
+              **kernel_a_bit_equal(gemv, packing, name)})
+    emit({"phase": "fused_equals_external",
+          "passed": fused_equals_external(gemv, packing, quant)})
     int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "int_kernel_edge_cases",
           "passed": int_edge_cases(gemv, packing, quant)})

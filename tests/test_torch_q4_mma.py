@@ -1,6 +1,7 @@
 """The tensor-core kernels (A ``q4_lut_post``, C ``q4_int4_magic``,
-``int8_post``, D ``w4a8`` and ``w8a8``) at the shapes their tiles make
-ragged, and their launch plan, on the CPU.
+``int8_post``, D ``w4a8``, ``w8a8`` and their fused twins ``w4a8_fused``
+and ``w8a8_fused``) at the shapes their tiles make ragged, and their launch
+plan, on the CPU.
 
 - The plain versions, which the wrapper runs on CPU tensors and which the
   CUDA kernels are held against on the card, against the JAX package's
@@ -16,6 +17,18 @@ ragged, and their launch plan, on the CPU.
   at m in {8, 17, 130, 1024} (1024: the W4A8/W8A8 prefill's chunk), n in
   {24, 200} and g in {128, 256}, within 1e-5 * max (their integer dots are
   exact).
+- The same for ``w4a8_fused`` and ``w8a8_fused`` on float x (bf16 and f32)
+  against the interpreted ``_w4a8f_kernel``, ``_w8a8f_kernel``,
+  ``_w8a8qf_kernel`` and ``_w8a8tf_kernel`` (the kernels that quantize
+  x themselves), at m in {1, 8, 9, 17, 33, 64} (the decode body, one past
+  it, and the 16-, 32- and 64-token tiles of the block body up to
+  ``FUSED_ACT_M_MAX``), within 1e-5 * max of the f32 output, and against
+  the JAX package's external path (its ``quantize_activations``, the
+  interpreted external kernel, ``* sx``). Interpreted on the CPU, XLA
+  computes the fused JAX kernels' ``max|x| / 127`` as ``max|x| * (1 /
+  127)``, one ulp off ``quantize_activations``' scale in some rows (where
+  x / sx lies near a half, that moves a code); those rows are held against
+  the external path alone.
 - ``gemv.kernel_a_plan``: the split of k depends on (n, num_groups, sms)
   and never on m, so that a token's sums run in the same order at every m;
   the token tiles, row blocks and splits cover (m, n, k) exactly, with no
@@ -23,6 +36,10 @@ ragged, and their launch plan, on the CPU.
   alone leave SMs idle. C, ``int8_post``, D and ``w8a8`` call it with
   their slice count as ``num_groups``, which the same cases cover; D's and
   ``w8a8``'s 1B shapes also at the m of their prefill, up to 1024.
+- ``gemv.post_launch_plan``, which every tensor-core launch goes through:
+  at the 1B shapes a fused kernel gets its external twin's plan at every
+  m <= 64, so that it runs the same bodies in the same order, and room
+  for its quantized x beside the split scratch.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -130,6 +147,62 @@ def test_a8_plain_matches_jax_kernel_at_tails(fmt, layout, g, n, k, m,
     assert_close_max(y, _jax_mm(xq, jqt), 1e-5)
 
 
+# (fmt, layout, g, n, k, m): the fused kernels on float x, m <= 64
+A8F_TAILS = [
+    ("w4a8", None, 128, 24, 2048, 1),
+    ("w4a8", None, 256, 200, 1024, 8),
+    ("w4a8", None, 128, 200, 1024, 9),
+    ("w4a8", None, 256, 24, 2048, 17),
+    ("w4a8", None, 128, 200, 2048, 33),
+    ("w4a8", None, 256, 24, 1024, 64),
+    ("w8a8", "row", 256, 200, 1024, 1),
+    ("w8a8", "row", 128, 24, 2048, 9),
+    ("w8a8", "row", 256, 200, 2048, 64),
+    ("w8a8q", None, 128, 200, 2048, 8),
+    ("w8a8q", None, 256, 24, 1024, 17),
+    ("w8a8q", None, 128, 24, 1024, 33),
+    ("w8a8t", None, 128, 24, 1024, 1),
+    ("w8a8t", None, 256, 200, 2048, 9),
+    ("w8a8t", None, 128, 200, 1024, 64),
+]
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fmt,layout,g,n,k,m", A8F_TAILS,
+                         ids=[f"{f}-g{g}-n{n}-k{k}-m{m}"
+                              for f, _, g, n, k, m in A8F_TAILS])
+def test_a8_fused_plain_matches_jax_kernel_at_tails(fmt, layout, g, n, k, m,
+                                                    x_dtype, monkeypatch):
+    """Float x through ``quantized_matmul`` runs ``w4a8_fused``'s or
+    ``w8a8_fused``'s plain version, which holds the JAX package's external
+    path and the JAX kernel of that layout that quantizes x itself, on the
+    same bf16 or f32 values (the latter on the rows where its interpreted
+    scale is ``quantize_activations``')."""
+    jqt, qt = _pair(fmt, g, layout, n, k, seed=m + 1)
+    kernel = "w4a8_fused" if fmt == "w4a8" else "w8a8_fused"
+    assert qt.fmt == jqt.fmt == fmt and qt.group_size == g
+    x = torch.from_numpy(np.random.default_rng(k + m + 1).standard_normal(
+        (m, k)).astype(np.float32) * 3).to(getattr(torch, x_dtype))
+    plain = getattr(gemv, kernel + "_plain")
+    called = []
+    monkeypatch.setattr(gemv, kernel + "_plain",
+                        lambda *a: called.append(1) or plain(*a))
+    before = dict(gemv.LAUNCHES)
+    y = gemv.quantized_matmul(
+        x, qt.packed, qt.scales, qt.zeros, group_size=g,
+        out_dtype=torch.float32, fmt=tlin._kernel_fmt(qt.fmt))
+    assert called == [1]                # the plain version of that kernel
+    assert gemv.LAUNCHES == before      # CPU tensors launch nothing
+    assert y.shape == (m, n) and y.dtype == torch.float32
+    xj = jnp.asarray(x.float().numpy()).astype(getattr(jnp, x_dtype))
+    xq, sx = jlin.quantize_activations(xj)
+    assert_close_max(y, _jax_mm(xq, jqt) * np.asarray(sx), 1e-5)
+    amax = np.maximum(np.abs(x.float().numpy()).max(axis=1), np.float32(1e-8))
+    same = amax * (np.float32(1) / np.float32(127)) == np.asarray(sx)[:, 0]
+    assert same.sum() >= m // 2
+    assert_close_max(y[same], _jax_mm(xj, jqt)[same], 1e-5)
+
+
 SHAPES = [(n, G) for n in (1, 24, 64, 200, 512, 1000, 2048, 8192)
           for G in (1, 2, 8, 16, 64)]
 PLAN_MS = (1, 3, 8, 9, 16, 17, 32, 33, 64, 130, 512, 4096)
@@ -175,3 +248,31 @@ def test_plan_fills_the_card():
     # a 512-row prefill chunk: 128 x 8 tiles, each block sums its splits
     assert gemv.kernel_a_plan(512, 8192, 16, 132) == (8, 4, 4, 1)
     assert gemv.kernel_a_plan(512, 8192, 2, 1) == (8, 1, 2, 1)
+
+
+# the 1B linears (n, k) that the fused kernels serve
+A8F_PLAN_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n,k", A8F_PLAN_SHAPES,
+                         ids=[f"{n}x{k}" for n, k in A8F_PLAN_SHAPES])
+def test_fused_takes_the_external_plan(n, k, sms):
+    """At every m up to ``FUSED_ACT_M_MAX`` a fused kernel launches with its
+    external twin's token tiles, k splits and split blocks (so the bits of
+    ``fused(x)`` are those of ``external(xq) * sx``), the same ticket
+    counters, and scratch for the split partials plus its pre-pass's
+    ``sx`` and ``xq``."""
+    G = k // 128
+    for m in range(1, gemv.FUSED_ACT_M_MAX + 1):
+        for fused, ext in (("w4a8_fused", "w4a8"), ("w8a8_fused", "w8a8")):
+            f = gemv.post_launch_plan(fused, m, n, k, G, 128, sms)
+            e = gemv.post_launch_plan(ext, m, n, k, G, 128, sms)
+            assert f[:3] == e[:3] and f[4] == e[4]
+            tn, per, split_blocks = e[:3]
+            assert (tn, -(-G // per), per) == gemv.kernel_a_plan(
+                m, n, G, sms)[:3]
+            assert f[3] == e[3] + -(-m // 4) * 4 + m * k // 4
+            tiles = -(-n // gemv.A_ROWS) * -(-m // (8 * tn))
+            assert e[3] == (0 if split_blocks == 1 else
+                            -(-G // per) * tiles * 8 * tn * gemv.A_ROWS)

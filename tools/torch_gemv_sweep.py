@@ -9,19 +9,28 @@ linear shapes across m, each held against its plain version.
 ``--kernels`` takes a comma-separated list of ``q4_lut_post`` (kernel A,
 any4 with per-row LUTs; the default), ``q4_int4_magic`` (kernel C, int4),
 ``int8_post`` (int8 codes), ``w4a8`` (kernel D: int8 activations, 4-bit
-codes) and ``w8a8`` (int8 activations and codes), all at g=128. For each
-kernel, (n, k) shape and m it checks the kernel's output against the plain
-version (bf16 within 1e-2 * max, ``chip_smoke.py``'s bar; D and ``w8a8``
-give f32, within 1e-5 * max: their integer dots are exact) and prints one
+codes), ``w8a8`` (int8 activations and codes), ``w4a8_fused`` and
+``w8a8_fused`` (D-fused and ``w8a8_fused``: bf16 activations, which they
+quantize themselves), all at g=128. For each kernel, (n, k) shape and m it
+checks the kernel's output against the plain version (bf16 within 1e-2 *
+max, ``chip_smoke.py``'s bar; D and ``w8a8`` give f32, within 1e-5 * max:
+their integer dots are exact) and prints one
 JSON row with the kernel's median time (CUDA events over ``--reps``
 launches; ``ms`` with the L2 emptied by reading a 128 MB buffer before each
 launch, ``ms_dirty_l2`` by writing it), the plain version's (``plain_ms``,
 5 launches), one bf16 ``torch.matmul`` on the dequantized weight
 (``library_ms``, the same two ways; the port never calls it) and the least
 time the card could take (``bound_ms``: the bytes over the
-memory rate, or 2mnk over the tensor cores' bf16 rate (int8 for D and
-``w8a8``), the larger). A last ``layer`` row per kernel and m sums one
-Llama-3.2-1B decoder layer's 7 linears.
+memory rate, or 2mnk over the tensor cores' bf16 rate (int8 for the four
+W4A8/W8A8 kernels), the larger). A last ``layer`` row per kernel and m sums
+one Llama-3.2-1B decoder layer's 7 linears.
+
+To time the fused kernels against D and ``w8a8`` on pre-quantized x and
+against a parent checkout, in one call (parent, this tree, this tree,
+parent)::
+
+    python3 tools/torch_gemv_sweep.py --kernels w4a8_fused,w8a8_fused,w4a8,w8a8 \
+        --ms 1,8,16,32,64 --root chip_check/parent
 
 ``--root DIR`` imports ``any4_tpu_torch`` and ``chip_smoke.py`` from another
 checkout (for example the parent commit unpacked with ``git archive``) and
@@ -40,12 +49,15 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 SHAPES = "2048x2048,512x2048,8192x2048,2048x8192"
-# kernel -> (format of its QuantizedTensor, int8 codes, int8 activations)
-KERNELS = {"q4_lut_post": ("any4", False, False),
-           "q4_int4_magic": ("int4", False, False),
-           "int8_post": ("int8", True, False),
-           "w4a8": ("int4", False, True),
-           "w8a8": ("int8", True, True)}
+# kernel -> (format of its QuantizedTensor, int8 codes, activations: bf16,
+# int8, or bf16 that the kernel quantizes to int8)
+KERNELS = {"q4_lut_post": ("any4", False, "bf16"),
+           "q4_int4_magic": ("int4", False, "bf16"),
+           "int8_post": ("int8", True, "bf16"),
+           "w4a8": ("int4", False, "int8"),
+           "w8a8": ("int8", True, "int8"),
+           "w4a8_fused": ("int4", False, "quantized"),
+           "w8a8_fused": ("int8", True, "quantized")}
 
 
 def operands(torch, linear, packing, fmt, int8_codes, n, k, g, gen):
@@ -116,11 +128,12 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = 128
     for name in names:
-        fmt, int8_codes, int8_x = KERNELS[name]
+        fmt, int8_codes, x_kind = KERNELS[name]
+        int8_x = x_kind == "int8"
         wrapper, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
         out_dtype, bar = ((torch.float32, 1e-5) if int8_x
                           else (torch.bfloat16, 1e-2))
-        rate = cs.INT8_OPS if int8_x else peak
+        rate = peak if x_kind == "bf16" else cs.INT8_OPS
         layer = {m: {} for m in ms_list}
         for shape in args.shapes.split(","):
             n, k = (int(v) for v in shape.split("x"))
