@@ -1,10 +1,9 @@
 // Weight-only matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
 // with bf16 x and W stored as 4-bit codes (with a 16-entry lookup table per
 // row or global, or uniform) or as int8 codes, and per-group affine scales and
-// zeros. Two families: three kernels on the tensor cores that apply the affine
-// after the dot (A, C, int8_post: one pair of mma.sync bodies, templated on how
-// a code becomes a bf16 value), and three modes of one CUDA-core body that
-// fold the affine into each weight (B, E, int8_fused).
+// zeros. Five kernels on the tensor cores (A, B, C, E, int8_post: one pair of
+// mma.sync bodies, templated on how a code becomes a bf16 value), and one
+// CUDA-core kernel (int8_fused).
 //
 // Kernel A, q4_lut_post, replaces the TPU kernels any4_tpu/ops/pallas/gemv.py
 // _q4t_kernel (gemv.py:230, transposed layout) and _q4post_kernel (gemv.py:172,
@@ -13,6 +12,12 @@
 // is applied after the dot in f32:  y += P_g * s_g + sum(x_g) * z_g.
 // Group sizes that are multiples of 128.
 //
+// Kernel B, q4_lut_fused, replaces gemv.py:106 _q4_kernel, the fused-table
+// kernel: each weight becomes bf16(LUT[c] * s + z) (one f32 fma, then one
+// rounding to bf16), and the dot with bf16 x accumulates in f32. This keeps the
+// rounding point of dequantize-then-matmul. Group sizes that are multiples of
+// 8. Row-layout int4 runs here too, with the ramp LUT c - 8 (global).
+//
 // Kernel C, q4_int4_magic, replaces gemv.py:457 _q4pair_kernel (int4p, the
 // default uniform-int4 format): each weight is 128 + c (exact in bf16: 8
 // significant bits), made without a table by the magic number 0x4300 (the
@@ -20,6 +25,12 @@
 // slice's affine with its group's s and z: y += P * s + sum(x) * (z - 136 s).
 // The 128 * sum(x) * s terms cancel in f32, as on the TPU. Group sizes that are
 // multiples of 128.
+//
+// Kernel E, q4_lut_select, replaces gemv.py:63 _q4select_kernel: kernel B's
+// function, bf16(LUT[c] * s + z) and the same f32 dot in the same order, with
+// LUT[c] picked from 16 registers by 16 compare-selects instead of a shared
+// table read. On the same operands it equals kernel B bit for bit. Group sizes
+// that are multiples of 128.
 //
 // int8_post replaces gemv.py:765 _int8q_kernel (quad words) and gemv.py:878
 // _int8t_kernel (transposed), which compute the same numbers: each weight is
@@ -31,24 +42,10 @@
 // computes the plain versions' products; only the order of the f32 sums
 // differs. Their design is set out at post_mma below.
 //
-// Kernel B, q4_lut_fused, replaces gemv.py:106 _q4_kernel, the fused-table
-// kernel: each weight becomes bf16(LUT[c] * s + z) (one f32 fma, then one
-// rounding to bf16), and the dot with bf16 x accumulates in f32. This keeps the
-// rounding point of dequantize-then-matmul. Group sizes 16, 32, 64 (any
-// multiple of 8 works). Row-layout int4 runs here too, with the ramp LUT
-// c - 8 (global).
-//
-// Kernel E, q4_lut_select, replaces gemv.py:63 _q4select_kernel: kernel B's
-// function, bf16(LUT[c] * s + z) and the same f32 dot in the same order, with
-// LUT[c] picked from 16 registers by 16 compare-selects instead of a shared
-// table read. On the same operands it equals kernel B bit for bit.
-//
 // int8_fused replaces gemv.py:913 _int8_kernel (row layout): kernel B's
-// fused table with q in place of LUT[c], each weight bf16(q * s + z) (one f32
+// function with q in place of LUT[c], each weight bf16(q * s + z) (one f32
 // fma, then one rounding to bf16), then the dot with f32 accumulation. Group
-// sizes of 16 or more that divide 128 or are multiples of it. It lives in
-// kernel B's body because only its code loads (32 bytes a lane instead of 16)
-// and the value of a code differ.
+// sizes of 16 or more that divide 128 or are multiples of it.
 //
 // Code layouts (any4_tpu_torch/ops/packing.py): 4-bit codes are int32 words
 // [n, kp/8], row major, 8 consecutive k per word (nibble j holds k = 8*word +
@@ -63,17 +60,15 @@
 // the memory rate (3.35 TB/s on an H100 SXM). At prefill (m in the hundreds)
 // the tensor-core kernels' arithmetic, 2mnk, reaches the tensor cores' rate.
 //
-// The CUDA-core body (kernels B, E, int8_fused):
+// The CUDA-core kernel (int8_fused):
 //   - one warp per output row; each lane loads its 32 consecutive codes per
-//     step (16 bytes of nibbles or 32 of int8), so a warp reads 512 or 1024
-//     contiguous bytes of its row per step, and the next step's codes are
-//     loaded before the current ones are used;
+//     step (32 bytes), so a warp reads 1024 contiguous bytes of its row per
+//     step, and the next step's codes are loaded before the current ones are
+//     used;
 //   - a block of 8 warps (8 consecutive rows) shares one staged copy of x in
 //     shared memory, and one 32-byte sector of each scale/zero row serves all
 //     8 warps; each lane's 32 k sit in a padded 80-byte slot so the 16-byte
 //     shared loads of a quarter warp hit distinct banks;
-//   - kernel B's 16 LUT values live in a per-warp shared table: 16 entries in
-//     16 banks, so a lookup never conflicts (kernel E keeps them in registers);
 //   - m is tiled by MT (1, 2, 4, 8 or 16 rows of x, a template parameter) along
 //     grid.y; each m tile reads the weight again, which is the cost of prefill
 //     chunks in this simple design.
@@ -85,6 +80,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -110,9 +107,6 @@ __device__ __forceinline__ void store_out<__half>(__half* p, float v) {
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-
-// The three modes of the CUDA-core body.
-enum Mode { kFused = 1, kSelect = 3, kFused8 = 5 };
 
 // Stage x[m0 : m0+MT, k0 : k0+kChunk] (bf16) into shared memory, zero outside
 // [0, m) x [0, k). Shared layout: xs[row][lane][kLaneSlot], lane = kk / 32.
@@ -145,20 +139,15 @@ __device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const __nv_bfloat16* 
   }
 }
 
-// A lane's 32 consecutive codes from k index k0: one 16-byte load of 4-bit
-// words (w[1] unused), or two of int8 codes; zero past kp.
-template <bool kBytes>
+// A lane's 32 consecutive int8 codes from k index k0: two 16-byte loads;
+// zero past kp.
 __device__ __forceinline__ void load_codes(const int32_t* __restrict__ row_codes, int k0,
                                            int lane, int kp, uint4 (&w)[2]) {
   w[0] = w[1] = make_uint4(0u, 0u, 0u, 0u);
   if (k0 >= kp) return;
-  if (kBytes) {
-    const uint4* p = reinterpret_cast<const uint4*>(row_codes + k0 / 4 + lane * 8);
-    w[0] = p[0];
-    w[1] = p[1];
-  } else {
-    w[0] = *reinterpret_cast<const uint4*>(row_codes + k0 / 8 + lane * 4);
-  }
+  const uint4* p = reinterpret_cast<const uint4*>(row_codes + k0 / 4 + lane * 8);
+  w[0] = p[0];
+  w[1] = p[1];
 }
 
 // The int8 code in byte j of w, as float (exact).
@@ -166,32 +155,21 @@ __device__ __forceinline__ float byte_code(uint32_t w, int j) {
   return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xFFu));
 }
 
-// MODE kFused: kernel B (per-weight bf16(LUT*s + z), LUT read from shared).
-// MODE kSelect: kernel E (kernel B with the LUT read by 16 selects).
-// MODE kFused8: int8_fused (per-weight bf16(q*s + z)).
-template <int MT, int MODE, typename OutT>
+// int8_fused: per weight bf16(q*s + z), then the dot in f32.
+template <int MT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
               const float* __restrict__ scales, const float* __restrict__ zeros,
-              const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k,
-              int kw, int group_size, int num_groups, int lut_stride) {
-  constexpr bool kBytes = MODE == kFused8;
+              OutT* __restrict__ y, int m, int n, int k, int kw, int group_size,
+              int num_groups) {
   __shared__ __align__(16) __nv_bfloat16 xs[MT * 32 * kLaneSlot];
-  __shared__ float lut_s[kWarps][16];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + warp;
   const int m0 = blockIdx.y * MT;
   const bool active = row < n;  // uniform across the warp
-  const int kp = kBytes ? kw * 4 : kw * 8;
+  const int kp = kw * 4;
   const bool vec_ok = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
-
-  if (MODE == kFused && active && lane < 16) lut_s[warp][lane] = lut[(size_t)row * lut_stride + lane];
-  float lreg[16];  // kernel E: the row's LUT in registers
-  if (MODE == kSelect) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) lreg[j] = active ? lut[(size_t)row * lut_stride + j] : 0.f;
-  }
 
   const int32_t* row_codes = codes + (size_t)(active ? row : 0) * kw;
   float acc[MT];
@@ -199,15 +177,15 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
   for (int i = 0; i < MT; ++i) acc[i] = 0.f;
 
   uint4 wv[2];
-  load_codes<kBytes>(row_codes, active ? 0 : kp, lane, kp, wv);
+  load_codes(row_codes, active ? 0 : kp, lane, kp, wv);
   for (int k0 = 0; k0 < kp; k0 += kChunk) {
     __syncthreads();  // the previous step's readers are done with xs
     stage_x<MT>(xs, x, m0, m, k, k0, vec_ok);
     __syncthreads();
     if (!active) continue;
     uint4 wnext[2];
-    load_codes<kBytes>(row_codes, k0 + kChunk, lane, kp, wnext);
-    // 4-bit: word w holds k = kl + 8w .. +7. int8: words 2w and 2w+1 do.
+    load_codes(row_codes, k0 + kChunk, lane, kp, wnext);
+    // words 2w and 2w+1 hold k = kl + 8w .. +7
     const uint32_t words[8] = {wv[0].x, wv[0].y, wv[0].z, wv[0].w,
                                wv[1].x, wv[1].y, wv[1].z, wv[1].w};
     const int kl = k0 + lane * kLaneK;  // this lane's first k
@@ -225,20 +203,7 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
       const float z = real ? zeros[(size_t)g * n + row] : 0.f;
       float lv[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t c = (words[w] >> (4 * j)) & 0xF;
-        float val;
-        if (MODE == kFused8) {
-          val = byte_code(words[2 * w + j / 4], j % 4);
-        } else if (MODE == kSelect) {
-          val = 0.f;
-#pragma unroll
-          for (int v = 0; v < 16; ++v) val = c == (uint32_t)v ? lreg[v] : val;
-        } else {
-          val = lut_s[warp][c];
-        }
-        lv[j] = round_bf16(fmaf(val, s, z));
-      }
+      for (int j = 0; j < 8; ++j) lv[j] = round_bf16(fmaf(byte_code(words[2 * w + j / 4], j % 4), s, z));
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const uint4 xv = *reinterpret_cast<const uint4*>(xl + i * 32 * kLaneSlot + w * 8);
@@ -267,71 +232,67 @@ q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ c
   }
 }
 
-template <int MT, int MODE>
-void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros,
-               const void* lut, void* y, int m, int n, int k, int kw, int group_size,
-               int num_groups, int lut_stride, int out_dtype, cudaStream_t stream) {
+template <int MT>
+void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
+               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
+               cudaStream_t stream) {
   const dim3 grid((n + kWarps - 1) / kWarps, (m + MT - 1) / MT);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* cb = static_cast<const int32_t*>(codes);
   const auto* sb = static_cast<const float*>(scales);
   const auto* zb = static_cast<const float*>(zeros);
-  const auto* lb = static_cast<const float*>(lut);
   switch (out_dtype) {
     case 0:
-      q4_lut_kernel<MT, MODE, float><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, lb, static_cast<float*>(y), m, n, k, kw, group_size, num_groups,
-          lut_stride);
+      q4_lut_kernel<MT, float><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, static_cast<float*>(y), m, n, k, kw, group_size, num_groups);
       break;
     case 1:
-      q4_lut_kernel<MT, MODE, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, lb, static_cast<__nv_bfloat16*>(y), m, n, k, kw, group_size,
-          num_groups, lut_stride);
+      q4_lut_kernel<MT, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, static_cast<__nv_bfloat16*>(y), m, n, k, kw, group_size, num_groups);
       break;
     default:
-      q4_lut_kernel<MT, MODE, __half><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, lb, static_cast<__half*>(y), m, n, k, kw, group_size, num_groups,
-          lut_stride);
+      q4_lut_kernel<MT, __half><<<grid, kThreads, 0, stream>>>(
+          xb, cb, sb, zb, static_cast<__half*>(y), m, n, k, kw, group_size, num_groups);
       break;
   }
 }
 
-template <int MODE>
-int launch(const void* x, const void* codes, const void* scales, const void* zeros,
-           const void* lut, void* y, int m, int n, int k, int kw, int group_size,
-           int num_groups, int lut_stride, int out_dtype, void* stream) {
+int launch_int8_fused(const void* x, const void* codes, const void* scales, const void* zeros,
+                      void* y, int m, int n, int k, int kw, int group_size, int num_groups,
+                      int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define INT8_MT(MT) \
+  launch_mt<MT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s)
   if (m <= 1)
-    launch_mt<1, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                       lut_stride, out_dtype, s);
+    INT8_MT(1);
   else if (m <= 2)
-    launch_mt<2, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                       lut_stride, out_dtype, s);
+    INT8_MT(2);
   else if (m <= 4)
-    launch_mt<4, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                       lut_stride, out_dtype, s);
+    INT8_MT(4);
   else if (m <= 8)
-    launch_mt<8, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                       lut_stride, out_dtype, s);
+    INT8_MT(8);
   else
-    launch_mt<16, MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-                        lut_stride, out_dtype, s);
+    INT8_MT(16);
+#undef INT8_MT
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// Kernels A, C and int8_post on the tensor cores: mma.sync.m16n8k16 with the
-// weight as the A operand (16 output rows per warp tile) and the tokens as the
-// B operand (8 per n8 tile), so decode at m = 1..8 already fills one mma. One
-// pair of bodies serves the three; a template parameter, the code policy,
+// Kernels A, B, C, E and int8_post on the tensor cores: mma.sync.m16n8k16 with
+// the weight as the A operand (16 output rows per warp tile) and the tokens as
+// the B operand (8 per n8 tile), so decode at m = 1..8 already fills one mma.
+// One pair of bodies serves the five; a template parameter, the code policy,
 // sets what differs:
 //
-//   policy   | code bytes per row  | A value of a code    | LUT staged | affine folds
-//            | and 128-k chunk     |                      |            | per
-//   kLut4 A  | 64 (16 words)       | bf16(LUT[row][c])    | yes        | group: z
-//   kMagic4 C| 64 (16 words)       | 128 + c              | no         | 128-k slice: z - 136 s
-//   kInt8    | 128 (staged rows    | q                    | no         | 128-k slice: z
-//            |  padded to 144)     |                      |            |
+//   policy       | code bytes per row | A value of a code       | LUT staged   | affine folds
+//                | and 128-k chunk    |                         |              | per
+//   kLut4 A      | 64 (16 words)      | bf16(LUT[row][c])       | bf16 rows    | group: z
+//   kMagic4 C    | 64 (16 words)      | 128 + c                 | no           | 128-k slice: z - 136 s
+//   kInt8        | 128 (staged rows   | q                       | no           | 128-k slice: z
+//                |  padded to 144)    |                         |              |
+//   kFusedLut B  | 64 (16 words)      | bf16(fma(LUT[c], s, z)) | f32 rows     | none: in the weight
+//   kSelectLut E | 64 (16 words)      | the same, LUT[c] by 16  | no: 32 regs  | none: in the weight
+//                |                    | compare-selects         |  (by halves) |
 //
 //   - The code layouts are fed as they are: a permutation of k applied to both
 //     operands leaves the dot unchanged. k goes in chunks of 128. In sub-step
@@ -347,51 +308,74 @@ int launch(const void* x, const void* codes, const void* scales, const void* zer
 //     sub-step s, mma q, slot 2t + 8h + e of lane t holds k = 8(4t + s) + 4q
 //     + 2h + e; over t, q, h, e (4 x 2 x 2 x 2) that is each of the 32 k of
 //     words 4t + s exactly once, and over s each of the chunk's 128 k once: a
-//     bijection, the same for A and B, and the same for the three policies.
-//   - A values (a_frags). kLut4: the tile's rows' tables sit in shared memory
-//     as bf16, 16 entries a row; with a global LUT (nf4, fp4) every lane
-//     reads one 16-entry table, which never bank-conflicts. kMagic4: codes j
-//     and j + 1 (j even) of word w are the low nibbles of byte j / 2 of w and
-//     of w >> 4; one byte permute puts them in the two halves' low bytes, and
-//     (.. & 0x000F000F) | 0x43004300 makes the bf16 pair 128 + c. kInt8:
-//     with l the low 7 bits of q and b its sign bit, q = (128 + l) - (128 +
-//     128 b), both bf16 by a mask and an or, and one bf16x2 fma forms the
-//     difference exactly (an integer of magnitude <= 128).
-//   - The affine. The dot of one fold (a group of 128 j k for kLut4, a 128-k
-//     slice for the others) sums into a zeroed fragment P, folded at the
-//     fold's end as acc = fma(s, P, acc) with the scale of the fragment's row
-//     and of the fold's group, then acc = fma(z', sum(x_f), acc), z' = z or z
-//     - 136 s. sum(x_f) is computed once per token: per chunk four lanes sum
-//     32 consecutive bf16 values each, two xor shuffles add them, and a fold's
-//     chunks add in order.
-//   - Split-k. The folds are cut into `splits` runs of `folds_per_split`, a
-//     function of (n, the number of folds) and the SM count only (gemv.py,
-//     kernel_a_plan). Each split's sum is its own, and the splits add in split
-//     order (s0 + s1, then + s2, ...). So a token's output bits depend neither
-//     on m nor on its place in the batch: both bodies below do the same f32
-//     operations in the same order.
+//     bijection, the same for A and B, and the same for the five policies.
+//   - A values (a_frags, fused_frags). kLut4: the tile's rows' tables sit in
+//     shared memory as bf16, 16 entries a row; with a global LUT (nf4, fp4)
+//     every lane reads one 16-entry table, which never bank-conflicts.
+//     kMagic4: codes j and j + 1 (j even) of word w are the low nibbles of byte
+//     j / 2 of w and of w >> 4; one byte permute puts them in the two halves'
+//     low bytes, and (.. & 0x000F000F) | 0x43004300 makes the bf16 pair 128 + c.
+//     kInt8: with l the low 7 bits of q and b its sign bit, q = (128 + l) -
+//     (128 + 128 b), both bf16 by a mask and an or, and one bf16x2 fma forms
+//     the difference exactly (an integer of magnitude <= 128). kFusedLut and
+//     kSelectLut: one f32 fma of the code's f32 LUT value with its group's s
+//     and z, then one rounding to bf16 (the pair packed by cvt.rn.bf16x2): the
+//     plain version's weight, bit for bit. The LUT stays f32 up to the fma (a
+//     bf16 table would round twice). B reads its rows' tables from shared
+//     memory, f32 (a global LUT, the int4 ramp, is one table); E holds the
+//     tables of rows g and g + 8 in 32 registers and picks a value by 16
+//     compare-selects, the codes of rows g and g + 8 at one k compared as
+//     one f16 pair and each f32 entry moved as two 16-bit halves under the
+//     pair's masks (PairLut): a chain of f32 selects, two instructions a
+//     code and entry, ran 20% slower than the CUDA-core kernel at m = 1.
+//     Since the group size is a multiple of 8, a lane's 8 k
+//     of a sub-step lie in one group, so a lane reads one (s, z) per row and
+//     sub-step: group (k0 + 8(4t + s)) / g. A stage holds the s and z of the
+//     groups its chunk spans (max(1, 128 / g), or ceil(128 / g) + 1 where g
+//     does not divide 128), a row of scales and a row of zeros per group,
+//     padded by 4 floats so that the lanes of one sub-step read distinct
+//     banks at g >= 32; groups at or past num_groups
+//     read as s = z = 0, so their weights are 0, as the plain version cuts x
+//     at G g.
+//   - The affine (A, C, int8_post). The dot of one fold (a group of 128 j k
+//     for kLut4, a 128-k slice for the others) sums into a zeroed fragment P,
+//     folded at the fold's end as acc = fma(s, P, acc) with the scale of the
+//     fragment's row and of the fold's group, then acc = fma(z', sum(x_f),
+//     acc), z' = z or z - 136 s. sum(x_f) is computed once per token: per
+//     chunk four lanes sum 32 consecutive bf16 values each, two xor shuffles
+//     add them, and a fold's chunks add in order. B and E fold nothing: their
+//     mmas sum a whole split into P, and compute no sum(x).
+//   - Split-k. The folds (B and E: the ceil(G g / 128) chunks) are cut into
+//     `splits` runs of `folds_per_split`, a function of (n, the number of
+//     folds) and the SM count only (gemv.py, kernel_a_plan). Each split's sum
+//     is its own, and the splits add in split order (s0 + s1, then + s2,
+//     ...). So a token's output bits depend neither on m nor on its place in
+//     the batch: both bodies below do the same f32 operations in the same
+//     order. B and E get the same plan, so E = B bit for bit.
 //   - The decode body (m <= 8, q4_post_mma_dec): the weight bytes bound it.
 //     W = min(splits, 16) warps share one 16-row tile, warp w running splits
 //     w, w + W, ...; each streams its code words, scales and zeros through a
 //     4-stage cp.async ring of its own and reads its B fragments from global
 //     memory (L1 serves the block's warps). The block stages the LUT rows
-//     (kLut4) and every chunk's sum(x) before the loop; the splits' sums meet
-//     in shared memory. k_proj and v_proj (n = 512) get 32 blocks of 16 warps.
+//     (kLut4, kFusedLut) and every chunk's sum(x) (A, C, int8_post) before the
+//     loop; the splits' sums meet in shared memory. k_proj and v_proj (n =
+//     512) get 32 blocks of 16 warps.
 //   - The block body (m > 8, q4_post_mma<TN>): 4 warps on 64 rows and 8 * TN
 //     tokens (TN = 2, 4 or 8). Each A fragment feeds all TN mmas of its warp,
-//     so a prefill chunk reads the weight once per 8 * TN tokens. The block's
-//     codes, scales, zeros and x tile go through a 3-stage cp.async ring (16
-//     bytes, .cg; x rows past m and k past the end zero-filled); x rows are
-//     skewed (unit u of a row at u + u / 8, rows 18 units apart) so that the B
-//     loads of a quarter warp hit 8 distinct 4-bank groups; a misaligned x or
-//     k % 8 != 0 takes scalar loads. Where the tiles fill the card a block runs
-//     its tile's splits in turn; otherwise each split has a block, which
-//     writes f32 partials to the caller's scratch and takes a ticket from a
-//     per-tile counter, and the last one adds them in split order and sets the
-//     counter back to 0.
+//     so a prefill chunk reads the weight once per 8 * TN tokens, and B's and
+//     E's per-weight fma and selects are paid once per 8 * TN tokens. The
+//     block's codes, scales, zeros and x tile go through a 3-stage cp.async
+//     ring (16 bytes, .cg; x rows past m and k past the end zero-filled); x
+//     rows are skewed (unit u of a row at u + u / 8, rows 18 units apart) so
+//     that the B loads of a quarter warp hit 8 distinct 4-bank groups; a
+//     misaligned x or k % 8 != 0 takes scalar loads. Where the tiles fill the
+//     card a block runs its tile's splits in turn; otherwise each split has a
+//     block, which writes f32 partials to the caller's scratch and takes a
+//     ticket from a per-tile counter, and the last one adds them in split
+//     order and sets the counter back to 0.
 namespace post_mma {
 
-enum Codes { kLut4 = 0, kMagic4 = 1, kInt8 = 2 };
+enum Codes { kLut4 = 0, kMagic4 = 1, kInt8 = 2, kFusedLut = 3, kSelectLut = 4 };
 
 constexpr int kWarpsA = 4;
 constexpr int kThreadsA = kWarpsA * 32;
@@ -404,6 +388,9 @@ constexpr int kDecStages = 4;             // stages of each decode warp's ring
 constexpr int kBlockStages = 3;           // stages of the block body's ring
 constexpr int kMaxSmem = 232448;          // dynamic shared memory a block may use
 
+// B and E: the affine is in each weight
+template <int C>
+__host__ __device__ constexpr bool fused() { return C == kFusedLut || C == kSelectLut; }
 // 16-byte units of a row's codes per chunk, and their staged row stride in
 // shared memory: int8 rows take one unit of padding, so that the two 16-byte
 // loads of a lane (units 2t, 2t + 1 of rows g and g + 8) of a quarter warp
@@ -415,6 +402,20 @@ __host__ __device__ constexpr int code_stride() { return C == kInt8 ? 9 : 4; }
 // k per 32-bit code word
 template <int C>
 __host__ __device__ constexpr int k_per_word() { return C == kInt8 ? 4 : 8; }
+// floats a staged row of scales (or zeros) of a tile of `rows` rows takes; a
+// stage holds [groups][scales, zeros][stride]: B and E pad each row by 4, so
+// that lanes on groups j = 0..3 (8 j banks apart) read different banks
+template <int C>
+__host__ __device__ constexpr int sz_stride(int rows) { return fused<C>() ? rows + 4 : rows; }
+// bytes of a tile's staged LUT rows: bf16 for A, f32 for B, none for the others
+template <int C>
+__host__ __device__ constexpr int lut_bytes(int rows) {
+  return C == kLut4 ? rows * 16 * 2 : C == kFusedLut ? rows * 16 * 4 : 0;
+}
+// 128-k chunks of the groups' G g values of k
+__host__ __device__ __forceinline__ int chunks_of(int num_groups, int group_size) {
+  return (num_groups * group_size + kChunkA - 1) / kChunkA;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -471,6 +472,61 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t w, int i) {
   return d;
 }
 
+// two f32 as one bf16 pair, each rounded to nearest even (the lower k, lo, in
+// the low half)
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// kFusedLut: the f32 LUT rows g (lo) and g + 8 (hi), staged in shared memory;
+// pick() reads LUT[c] of code j of word wl (row g) and of wh (row g + 8)
+struct SmemLut {
+  const float* lo;
+  const float* hi;
+  template <bool kLo>
+  __device__ __forceinline__ void pick(uint32_t wl, uint32_t wh, int j, float& vl,
+                                       float& vh) const {
+    vl = lo[(wl >> (4 * j)) & 0xF];
+    vh = hi[(wh >> (4 * j)) & 0xF];
+  }
+};
+// 16-bit halves of a == b, as f16 pairs: 0xFFFF where equal, else 0
+__device__ __forceinline__ uint32_t heq2_mask(uint32_t a, uint32_t b) {
+  return __heq2_mask(*reinterpret_cast<const __half2*>(&a), *reinterpret_cast<const __half2*>(&b));
+}
+// kSelectLut: the f32 LUT rows g and g + 8 in 32 registers, by 16-bit halves:
+// hi[v] holds the high halves of entry v of row g (low half) and of row g + 8
+// (high half), lo[v] their low halves. pick() finds LUT[c] of code j of word
+// wl (row g) and of wh (row g + 8) by 16 compare-selects that take both codes
+// at once: the codes as the f16 pair 1024 + c (exact), compared with 1024 + v
+// (set.eq.f16x2: a mask per half), and each half of entry v or'ed in under
+// its mask, the TPU kernel's sum of where(c == v, LUT[v], 0) done on bits.
+// The halves put back together are the f32 entries, bit for bit. Where every
+// entry of the warp's rows has a low half of 0 (lo_zero: the int4 ramp, small
+// integers), the high halves are the whole values and pick<false> skips the
+// low ones.
+struct PairLut {
+  uint32_t hi[16], lo[16];
+  bool lo_zero;
+  template <bool kLo>
+  __device__ __forceinline__ void pick(uint32_t wl, uint32_t wh, int j, float& vl,
+                                       float& vh) const {
+    const int b = j / 2;  // the codes' byte: of wl to bytes 0, 1; of wh to bytes 2, 3
+    const uint32_t w = __byte_perm(wl, wh, b * 0x0011 + (4 + b) * 0x1100);
+    const uint32_t c = ((j & 1 ? w >> 4 : w) & 0x000F000Fu) | 0x64006400u;
+    uint32_t h = 0u, l = 0u;
+#pragma unroll
+    for (int v = 0; v < 16; ++v) {
+      const uint32_t m = heq2_mask(c, 0x64006400u + 0x00010001u * v);
+      h |= hi[v] & m;
+      if (kLo) l |= lo[v] & m;
+    }
+    vl = __uint_as_float(__byte_perm(l, h, 0x5410));
+    vh = __uint_as_float(__byte_perm(l, h, 0x7632));
+  }
+};
+
 // the 8 bf16 of v summed pairwise in f32: ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7))
 __device__ __forceinline__ float sum_bf16x8(uint4 v) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -500,11 +556,39 @@ __device__ __forceinline__ void stage_x(uint4* dst, const __nv_bfloat16* __restr
   *dst = tmp.v;
 }
 
-// LUT entry c of weight row r as bf16 bits (0 past n)
-__device__ __forceinline__ unsigned short lut_bf16(const float* __restrict__ lut, int r, int c,
-                                                   int n, int lut_stride) {
-  const float v = r < n ? lut[(size_t)r * lut_stride + c] : 0.f;
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+// LUT entry c of weight row r (0 past n)
+__device__ __forceinline__ float lut_at(const float* __restrict__ lut, int r, int c, int n,
+                                        int lut_stride) {
+  return r < n ? lut[(size_t)r * lut_stride + c] : 0.f;
+}
+
+// a tile's LUT rows r0 .. r0 + rows - 1 into shared memory by threads tid of
+// nthreads: bf16 (kLut4) or f32 (kFusedLut)
+template <int C>
+__device__ __forceinline__ void stage_lut(void* dst, const float* __restrict__ lut, int r0,
+                                          int rows, int n, int lut_stride, int tid, int nthreads) {
+  for (int i = tid; i < rows * 16; i += nthreads) {
+    const float v = lut_at(lut, r0 + i / 16, i % 16, n, lut_stride);
+    if (C == kLut4)
+      static_cast<unsigned short*>(dst)[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    else
+      static_cast<float*>(dst)[i] = v;
+  }
+}
+
+// kSelectLut: the LUT rows r and r + 8 into registers (every lane of the warp)
+__device__ __forceinline__ void load_pair_lut(PairLut& t, const float* __restrict__ lut, int r,
+                                              int n, int lut_stride) {
+  uint32_t any_lo = 0u;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    const uint32_t a = __float_as_uint(lut_at(lut, r, v, n, lut_stride));
+    const uint32_t b = __float_as_uint(lut_at(lut, r + 8, v, n, lut_stride));
+    t.hi[v] = __byte_perm(a, b, 0x7632);
+    t.lo[v] = __byte_perm(a, b, 0x5410);
+    any_lo |= t.lo[v];
+  }
+  t.lo_zero = __all_sync(0xffffffffu, any_lo == 0u);  // one path for the warp's mma.sync
 }
 
 // sum(x) of one staged chunk row: lane quarter q sums units 4q .. 4q + 3 in order
@@ -557,21 +641,53 @@ __device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], const uint32_t (&wl
     }
 }
 
+// kFusedLut, kSelectLut: the A fragments of one sub-step from word wl of row
+// g and wh of row g + 8, with their group's scales and zeros sz = {s_lo, s_hi,
+// z_lo, z_hi}: each weight bf16(fma(LUT[c], s, z))
+template <bool kLo, typename Lut>
+__device__ __forceinline__ void fused_frags(uint32_t (&a)[2][4], uint32_t wl, uint32_t wh,
+                                            const Lut& lut, const float (&sz)[4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 4 * q + 2 * h;
+      float l0, h0, l1, h1;
+      lut.template pick<kLo>(wl, wh, j, l0, h0);
+      lut.template pick<kLo>(wl, wh, j + 1, l1, h1);
+      a[q][2 * h] = bf16x2_rn(fmaf(l0, sz[0], sz[2]), fmaf(l1, sz[0], sz[2]));
+      a[q][2 * h + 1] = bf16x2_rn(fmaf(h0, sz[1], sz[3]), fmaf(h1, sz[1], sz[3]));
+    }
+}
+
+// kFusedLut, kSelectLut: this lane's group of each sub-step, counted from its
+// chunk's first group: (kc % g + 8(4t + s)) / g. Where g divides 128 or is a
+// multiple of it, kc % g is 0 in every chunk and the groups are fixed.
+__device__ __forceinline__ void lane_groups(int (&js)[4], int kc, int group_size, int tq) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) js[s] = (kc % group_size + 8 * (4 * tq + s)) / group_size;
+}
+
+// kFusedLut, kSelectLut: {s_lo, s_hi, z_lo, z_hi} of the sub-step whose
+// group is j, from a stage's [szn][2][stride] scales and zeros at this
+// lane's row g (sz)
+__device__ __forceinline__ void lane_scales(float (&v)[4], const float* sz, int j, int stride) {
+  const float* p = sz + 2 * j * stride;
+  v[0] = p[0];
+  v[1] = p[8];
+  v[2] = p[stride];
+  v[3] = p[stride + 8];
+}
+
 // P[i] += the chunk's dot for token tile i: 4 sub-steps x 2 mmas x TN tiles,
-// A from the staged code rows g (cl) and g + 8 (ch), B from the staged x rows
-// xr[8 i + g]
-template <int C, int TN>
-__device__ __forceinline__ void chunk_dot(float (&P)[TN][4], const uint4* cl, const uint4* ch,
-                                          const unsigned short* lut_lo,
-                                          const unsigned short* lut_hi,
+// A from frags(a, s), B from the staged x rows xr[8 i + g]
+template <int TN, typename Frags>
+__device__ __forceinline__ void chunk_dot(float (&P)[TN][4], const Frags& frags,
                                           const uint4 (*xr)[kXRow], int gq, int tq) {
-  uint32_t wl[8], wh[8];
-  lane_words<C>(wl, cl, tq);
-  lane_words<C>(wh, ch, tq);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     uint32_t a[2][4];
-    a_frags<C>(a, wl, wh, s, lut_lo, lut_hi);
+    frags(a, s);
     const int u = 4 * tq + s;
     uint4 b[TN];
 #pragma unroll
@@ -613,75 +729,93 @@ __device__ __forceinline__ float zero_term(float s, float z) {
   return C == kMagic4 ? fmaf(-136.f, s, z) : z;
 }
 
-// chunks of one fold: a group's (kLut4) or one (a 128-k slice)
+// chunks of one fold: a group's (kLut4) or one (a 128-k slice; B and E fold
+// nothing, and count each chunk as a fold of the plan)
 template <int C>
 __device__ __forceinline__ int fold_chunks(int group_size) {
   return C == kLut4 ? group_size / kChunkA : 1;
 }
 
-// the block body's dynamic shared memory
+// the block body's dynamic shared memory (szn: the groups a chunk spans)
 template <int C>
-__host__ __device__ constexpr size_t block_smem_bytes(int tn) {
-  return (size_t)kBlockStages *
-             (8 * tn * kXRow * 16 + kRowsA * code_stride<C>() * 16 + 2 * kRowsA * 4) +
-         (C == kLut4 ? kRowsA * 16 * 2 : 0) + 2 * 8 * tn * 4;
+__host__ __device__ constexpr size_t block_smem_bytes(int tn, int szn) {
+  return (size_t)kBlockStages * (8 * tn * kXRow * 16 + kRowsA * code_stride<C>() * 16 +
+                                 2 * szn * sz_stride<C>(kRowsA) * 4) +
+         lut_bytes<C>(kRowsA) + (fused<C>() ? 0 : 2 * 8 * tn * 4);
 }
 
 // let kernel f take `bytes` of dynamic shared memory (its static shared memory
-// comes on top), once per device: above 48 KB a launch fails without it
+// comes on top), per device, growing with the largest request: above 48 KB a
+// launch fails without it
 template <auto f>
 void opt_in_smem(int bytes) {
-  static bool done[64] = {};
+  static int granted[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev < 64 && done[dev]) return;
+  if (dev < 64 && granted[dev] >= bytes) return;
   cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (dev < 64) done[dev] = true;
+  if (dev < 64) granted[dev] = bytes;
 }
 
 // The block body (TN = 2, 4, 8): 4 warps on 4 row tiles of 16 and the same
 // 8 * TN tokens, one ring of stages for the block. (TN = 1 serves m <= 8
-// only where the decode body's shared memory would not fit.)
+// only where the decode body's shared memory would not fit.) The kernels
+// q4_post_mma and q4_post_mma_select below run it.
+#define BLOCK_PARAMS                                                                           \
+  const __nv_bfloat16 *__restrict__ x, const int32_t *__restrict__ codes,                      \
+      const float *__restrict__ scales, const float *__restrict__ zeros,                       \
+      const float *__restrict__ lut, OutT *__restrict__ y, float *__restrict__ scratch,        \
+      int *__restrict__ counters, int m, int n, int k, int kw, int group_size, int num_groups, \
+      int lut_stride, int folds_per_split, int splits, int szn, bool vec_ok
+#define BLOCK_ARGS                                                                              \
+  x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw, group_size, num_groups,     \
+      lut_stride, folds_per_split, splits, szn, vec_ok
 template <int C, int TN, typename OutT>
-__global__ void __launch_bounds__(kThreadsA)
-q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
-            const float* __restrict__ scales, const float* __restrict__ zeros,
-            const float* __restrict__ lut, OutT* __restrict__ y, float* __restrict__ scratch,
-            int* __restrict__ counters, int m, int n, int k, int kw, int group_size,
-            int num_groups, int lut_stride, int folds_per_split, int splits, bool vec_ok) {
+__device__ __forceinline__ void block_body(BLOCK_PARAMS) {
+  constexpr bool kFused = fused<C>();
   constexpr int T = 8 * TN;                       // tokens per block
   constexpr int NST = kBlockStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
+  constexpr int SZR = sz_stride<C>(kRowsA);
   constexpr int kSxTok = (4 * T + kThreadsA - 1) / kThreadsA;  // tokens per summing thread
   constexpr int kTileRow = kRowsA + 4;            // floats per token row of the output tile
   static_assert(T * kTileRow * 4 <= NST * T * kXRow * 16, "output tile fits the x stages");
-  // dynamic shared memory (block_smem_bytes): x stages, codes, the chunk's
-  // group's scales and zeros, the LUT rows (kLut4), two rows of sum(x_f)
+  // dynamic shared memory (block_smem_bytes): x stages, codes, the scales and
+  // zeros of the chunk's groups ([szn][2][SZR] a stage), the LUT rows (A:
+  // bf16, B: f32), two rows of sum(x_f) (A, C, int8_post)
   extern __shared__ __align__(16) uint4 dyn[];
   auto xs = reinterpret_cast<uint4(*)[T][kXRow]>(dyn);                    // [NST]
   auto cs = reinterpret_cast<uint4(*)[kRowsA][CS]>(xs + NST);             // [NST]
-  auto sz_s = reinterpret_cast<float(*)[2][kRowsA]>(cs + NST);            // [NST]
-  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(sz_s + NST);       // [kRowsA] or none
-  auto sx_s = reinterpret_cast<float(*)[T]>(lut_s + (C == kLut4 ? kRowsA : 0));  // [2]
+  float* sz_s = reinterpret_cast<float*>(cs + NST);                       // [NST][szn][2][SZR]
+  const int sz_stage = 2 * szn * SZR;
+  char* lut_s = reinterpret_cast<char*>(sz_s + NST * sz_stage);           // [kRowsA][16]
+  auto sx_s = reinterpret_cast<float(*)[T]>(lut_s + lut_bytes<C>(kRowsA));  // [2]
   __shared__ int last_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int row0 = blockIdx.x * kRowsA, tok0 = blockIdx.y * T;
-  const int Jg = group_size / kChunkA;            // chunks per group (scale row)
   const int J = fold_chunks<C>(group_size);       // chunks per fold
-  const int nfolds = num_groups * Jg / J;
+  const int nfolds = chunks_of(num_groups, group_size) / J;
   // one split per block along grid.z, or (grid.z == 1) every split in turn
   const bool own_split = gridDim.z > 1;
   const int f0 = own_split ? blockIdx.z * folds_per_split : 0;
   const int f1 = own_split ? min(nfolds, f0 + folds_per_split) : nfolds;
   const int nchunks = (f1 - f0) * J;
 
-  const unsigned short* lut_lo = lut_s[lut_stride ? warp * 16 + gq : 0];
-  const unsigned short* lut_hi = lut_s[lut_stride ? warp * 16 + gq + 8 : 0];
+  const int lut_row = lut_stride ? warp * 16 + gq : 0;
+  const unsigned short* lut_lo = reinterpret_cast<const unsigned short*>(lut_s) + lut_row * 16;
+  const unsigned short* lut_hi = lut_lo + (lut_stride ? 8 * 16 : 0);
+  const float* lut_f = reinterpret_cast<const float*>(lut_s) + lut_row * 16;
+  const SmemLut flut{lut_f, lut_f + (lut_stride ? 8 * 16 : 0)};
+  PairLut plut;
+  if (C == kSelectLut) load_pair_lut(plut, lut, row0 + warp * 16 + gq, n, lut_stride);
+  const bool fixed_groups = group_size % kChunkA == 0 || kChunkA % group_size == 0;
+  int js[4];
+  if (kFused) lane_groups(js, 0, group_size, tq);
 
-  // chunk c of the block's folds into stage st: codes, the chunk's group's
-  // scales and zeros, then x
+  // chunk c of the block's folds into stage st: codes, the scales and zeros of
+  // the groups it spans (from the group of its first k), then x
   auto stage = [&](int c, int st) {
     const int kc = (f0 * J + c) * kChunkA, grp = kc / group_size;
     for (int i = tid; i < kRowsA * CU; i += kThreadsA) {
@@ -689,10 +823,11 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
       cp_async16(&cs[st][i / CU][i % CU],
                  codes + (size_t)r * kw + kc / k_per_word<C>() + (i % CU) * 4);
     }
-    for (int i = tid; i < 2 * kRowsA; i += kThreadsA) {
-      const int r = row0 + i % kRowsA;
-      const float* src = (i < kRowsA ? scales : zeros) + (size_t)grp * n;
-      cp_async4(&sz_s[st][i / kRowsA][i % kRowsA], r < n ? src + r : src, r < n ? 4 : 0);
+    for (int i = tid; i < 2 * szn * kRowsA; i += kThreadsA) {
+      const int r = row0 + i % kRowsA, p = i / kRowsA, j = p / 2;  // p: 2 j, or 2 j + 1 (zeros)
+      const bool in = r < n && grp + j < num_groups;
+      const float* src = (p & 1 ? zeros : scales) + (size_t)(grp + j) * n + r;
+      cp_async4(&sz_s[st * sz_stage + p * SZR + i % kRowsA], in ? src : scales, in ? 4 : 0);
     }
     for (int i = tid; i < T * kUnits; i += kThreadsA) {
       const int r = i / kUnits, u = i % kUnits;
@@ -700,7 +835,8 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     }
   };
 
-  // P: the fold's dot; acc: the split's sum; out: the splits summed in order
+  // P: the fold's dot (B, E: the split's); acc: the split's sum; out: the
+  // splits summed in order
   float P[TN][4], acc[TN][4], out[TN][4];
 #pragma unroll
   for (int i = 0; i < TN; ++i)
@@ -711,24 +847,27 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
   float z_lo = 0.f, z_hi = 0.f;                   // zero terms of the fold whose z term waits
   int pending = -1;                               // that fold, or -1
 
+  // out += s (out = s for the first split); s = 0
+  auto add_split = [&](float (&s)[TN][4]) {
+#pragma unroll
+    for (int i = 0; i < TN; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        out[i][e] = have_out ? out[i][e] + s[i][e] : s[i][e];
+        s[i][e] = 0.f;
+      }
+    have_out = true;
+  };
+  auto split_end = [&](int fold) { return (fold + 1) % folds_per_split == 0 || fold + 1 == f1; };
   // acc += z' * sum(x_f) for the pending fold, whose sums were written before
-  // the barrier; at the end of its split, out += acc (out = acc for the first)
+  // the barrier; at the end of its split, out += acc
   auto finish_fold = [&]() {
 #pragma unroll
     for (int i = 0; i < TN; ++i) {
       const float2 sx = *reinterpret_cast<const float2*>(&sx_s[pending & 1][8 * i + 2 * tq]);
       add_z(acc[i], z_lo, z_hi, sx.x, sx.y);
     }
-    if ((pending + 1) % folds_per_split == 0 || pending + 1 == f1) {
-#pragma unroll
-      for (int i = 0; i < TN; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          out[i][e] = have_out ? out[i][e] + acc[i][e] : acc[i][e];
-          acc[i][e] = 0.f;
-        }
-      have_out = true;
-    }
+    if (split_end(pending)) add_split(acc);
     pending = -1;
   };
 
@@ -737,10 +876,9 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     if (c < nchunks) stage(c, c);
     cp_async_commit();
   }
-  // while the first chunks are in flight: the block's LUT rows as bf16
-  if (C == kLut4)
-    for (int i = tid; i < kRowsA * 16; i += kThreadsA)
-      lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
+  // while the first chunks are in flight: the block's LUT rows
+  if (C == kLut4 || C == kFusedLut)
+    stage_lut<C>(lut_s, lut, row0, kRowsA, n, lut_stride, tid, kThreadsA);
 
   for (int c = 0; c < nchunks; ++c) {
     cp_async_wait<NST - 2>();
@@ -749,6 +887,31 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
     cp_async_commit();
     const int st = c % NST;
     const int fold = f0 + c / J;
+    uint32_t wl[8], wh[8];
+    lane_words<C>(wl, cs[st][warp * 16 + gq], tq);
+    lane_words<C>(wh, cs[st][warp * 16 + gq + 8], tq);
+    if constexpr (kFused) {
+      if (!fixed_groups) lane_groups(js, (f0 + c) * kChunkA, group_size, tq);
+      float sz[4][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        lane_scales(sz[s], sz_s + st * sz_stage + warp * 16 + gq, js[s], SZR);
+      auto frags = [&](const auto& lut, auto lo) {
+        return [&, lo](uint32_t (&a)[2][4], int s) {
+          fused_frags<decltype(lo)::value>(a, wl[s], wh[s], lut, sz[s]);
+        };
+      };
+      if constexpr (C == kSelectLut) {
+        if (plut.lo_zero)
+          chunk_dot<TN>(P, frags(plut, std::false_type{}), xs[st], gq, tq);
+        else
+          chunk_dot<TN>(P, frags(plut, std::true_type{}), xs[st], gq, tq);
+      } else {
+        chunk_dot<TN>(P, frags(flut, std::true_type{}), xs[st], gq, tq);
+      }
+      if (split_end(fold)) add_split(P);
+      continue;
+    }
     const bool first = c % J == 0, last = c % J == J - 1;
     if (pending >= 0) finish_fold();
 
@@ -763,13 +926,13 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
       if (last && q == 0 && r < T) sx_s[fold & 1][r] = run[i];
     }
 
-    chunk_dot<C, TN>(P, cs[st][warp * 16 + gq], cs[st][warp * 16 + gq + 8], lut_lo, lut_hi,
-                     xs[st], gq, tq);
+    chunk_dot<TN>(P, [&](uint32_t (&a)[2][4], int s) { a_frags<C>(a, wl, wh, s, lut_lo, lut_hi); },
+                  xs[st], gq, tq);
     if (last) {  // fold: acc += s * P; z' * sum(x_f) after the next barrier
-      const float s_lo = sz_s[st][0][warp * 16 + gq], s_hi = sz_s[st][0][warp * 16 + gq + 8];
-      fold_s<TN>(acc, P, s_lo, s_hi);
-      z_lo = zero_term<C>(s_lo, sz_s[st][1][warp * 16 + gq]);
-      z_hi = zero_term<C>(s_hi, sz_s[st][1][warp * 16 + gq + 8]);
+      const float* sz = sz_s + st * sz_stage + warp * 16 + gq;
+      fold_s<TN>(acc, P, sz[0], sz[8]);
+      z_lo = zero_term<C>(sz[0], sz[SZR]);
+      z_hi = zero_term<C>(sz[8], sz[SZR + 8]);
       pending = fold;
     }
   }
@@ -837,12 +1000,40 @@ q4_post_mma(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ cod
   if (tid == 0) counters[tile_id] = 0;  // ready for the next launch
 }
 
+// the block body of A, B, C and int8_post, registers left to ptxas
+template <int C, int TN, typename OutT>
+__global__ void __launch_bounds__(kThreadsA) q4_post_mma(BLOCK_PARAMS) {
+  block_body<C, TN, OutT>(BLOCK_ARGS);
+}
+
+// kernel E's block body, with a register budget given: left to its own
+// heuristics ptxas fits the 2-tile body (about 131 registers live) into 128
+// with a spill, for 4 blocks an SM; with 3 blocks asked for (170 registers;
+// 255 at 8 tiles, 1 block) it spills nothing. A, B, C and int8_post keep the
+// heuristics: asked for blocks they take more registers and lose occupancy
+// (on an H100 kernel A at 4 tiles ran 21% slower)
+template <int TN, typename OutT>
+__global__ void __launch_bounds__(kThreadsA, TN == 8 ? 1 : 3) q4_post_mma_select(BLOCK_PARAMS) {
+  block_body<kSelectLut, TN, OutT>(BLOCK_ARGS);
+}
+
+template <int C, int TN, typename OutT>
+constexpr auto block_kernel() {
+  if constexpr (C == kSelectLut)
+    return q4_post_mma_select<TN, OutT>;
+  else
+    return q4_post_mma<C, TN, OutT>;
+}
+#undef BLOCK_PARAMS
+#undef BLOCK_ARGS
+
 // the decode body's dynamic shared memory: the warps' rings, the split sums,
-// the LUT rows (kLut4), the chunk sums of x
+// the LUT rows (A, B), the chunk sums of x (A, C, int8_post)
 template <int C>
-__host__ __device__ constexpr size_t dec_smem_bytes(int warps, int m, int nch, int splits) {
-  return (size_t)warps * kDecStages * (16 * code_stride<C>() * 16 + 2 * 16 * 4) +
-         (size_t)splits * 8 * 16 * 4 + (C == kLut4 ? 16 * 16 * 2 : 0) + (size_t)m * nch * 4;
+__host__ __device__ constexpr size_t dec_smem_bytes(int warps, int m, int nch, int splits,
+                                                    int szn) {
+  return (size_t)warps * kDecStages * (16 * code_stride<C>() * 16 + 2 * szn * sz_stride<C>(16) * 4) +
+         (size_t)splits * 8 * 16 * 4 + lut_bytes<C>(16) + (fused<C>() ? 0 : (size_t)m * nch * 4);
 }
 
 // x[tok][gk .. gk + 8) (bf16) from global memory: one 16-byte load where vec_ok,
@@ -869,7 +1060,8 @@ __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x, in
 // codes, scales and zeros through a ring of kDecStages stages of its own, and
 // reads its B fragments (x of token g) from global memory, where the block's
 // warps share them in L1. Before the loop the block stages the tile's LUT
-// rows as bf16 (kLut4) and computes each chunk's sum(x) per token from global
+// rows (A as bf16, B as f32; E loads its two rows into registers) and, for
+// A, C and int8_post, computes each chunk's sum(x) per token from global
 // memory. Each split's sum goes to shared memory, and at the end the block
 // adds them in split order. The splits, their sums and their order are the
 // block body's, so a token's bits are the same.
@@ -879,25 +1071,28 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
                 const float* __restrict__ scales, const float* __restrict__ zeros,
                 const float* __restrict__ lut, OutT* __restrict__ y, int m, int n, int k, int kw,
                 int group_size, int num_groups, int lut_stride, int folds_per_split,
-                int splits, bool vec_ok) {
+                int splits, int szn, bool vec_ok) {
+  constexpr bool kFused = fused<C>();
   constexpr int NST = kDecStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
+  constexpr int SZR = sz_stride<C>(16);
   const int W = blockDim.x / 32, nthreads = blockDim.x;
   extern __shared__ __align__(16) uint4 dyn[];
-  const int Jg = group_size / kChunkA;            // chunks per group (scale row)
   const int J = fold_chunks<C>(group_size);       // chunks per fold
-  const int nch = num_groups * Jg;                // chunks of k
+  const int nch = chunks_of(num_groups, group_size);
+  const int sz_stage = 2 * szn * SZR;
   auto cs = reinterpret_cast<uint4(*)[NST][16][CS]>(dyn);                 // [W]
-  auto sz_s = reinterpret_cast<float(*)[NST][2][16]>(cs + W);             // [W]
-  auto res = reinterpret_cast<float(*)[8][16]>(sz_s + W);                 // [splits][tok][row]
-  auto lut_s = reinterpret_cast<unsigned short(*)[16]>(res + splits);     // [16] or none
-  float* csum = reinterpret_cast<float*>(lut_s + (C == kLut4 ? 16 : 0));  // [m][nch]
+  float* sz_s = reinterpret_cast<float*>(cs + W);                         // [W][NST][szn][2][SZR]
+  auto res = reinterpret_cast<float(*)[8][16]>(sz_s + W * NST * sz_stage);  // [splits][tok][row]
+  char* lut_s = reinterpret_cast<char*>(res + splits);                    // [16][16]
+  float* csum = reinterpret_cast<float*>(lut_s + lut_bytes<C>(16));       // [m][nch]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int row0 = blockIdx.x * 16;
   const int per = folds_per_split * J;            // chunks of a whole split
   const int total = (splits + W - 1) / W * per;   // this warp's iterations
+  float* sz_w = sz_s + warp * NST * sz_stage;     // this warp's ring of scales and zeros
 
   // iteration j of this warp: split W (j / per) + warp, its chunk j % per (or
   // none past the split's or the last split's end)
@@ -911,9 +1106,13 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
       cp_async16(&cs[warp][st][i / CU][i % CU],
                  codes + (size_t)r * kw + c * (kChunkA / k_per_word<C>()) + (i % CU) * 4);
     }
-    const int r = row0 + lane % 16;
-    const float* src = (lane < 16 ? scales : zeros) + (size_t)(c / Jg) * n;
-    cp_async4(&sz_s[warp][st][lane / 16][lane % 16], r < n ? src + r : src, r < n ? 4 : 0);
+    const int grp = c * kChunkA / group_size;
+    for (int i = lane; i < 2 * szn * 16; i += 32) {
+      const int r = row0 + i % 16, p = i / 16, j = p / 2;  // p: 2 j, or 2 j + 1 (zeros)
+      const bool in = r < n && grp + j < num_groups;
+      const float* src = (p & 1 ? zeros : scales) + (size_t)(grp + j) * n + r;
+      cp_async4(&sz_w[st * sz_stage + p * SZR + i % 16], in ? src : scales, in ? 4 : 0);
+    }
   };
 #pragma unroll
   for (int j = 0; j < NST - 1; ++j) {
@@ -921,23 +1120,26 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
     cp_async_commit();
   }
 
-  // meanwhile: the LUT rows as bf16, and each chunk's sum(x) per token (four
-  // lanes sum 32 values each, then two xor shuffles), as the block body
-  if (C == kLut4)
-    for (int i = tid; i < 16 * 16; i += nthreads)
-      lut_s[i / 16][i % 16] = lut_bf16(lut, row0 + i / 16, i % 16, n, lut_stride);
-  for (int i0 = 0; i0 < m * nch * 4; i0 += nthreads) {
-    const int i = i0 + tid, t = i / 4 / nch, c = i / 4 % nch, q = i % 4;
-    float p = 0.f;
-    if (i < m * nch * 4) {
+  // meanwhile: the LUT rows, and (A, C, int8_post) each chunk's sum(x) per
+  // token (four lanes sum 32 values each, then two xor shuffles), as the
+  // block body
+  if (C == kLut4 || C == kFusedLut) stage_lut<C>(lut_s, lut, row0, 16, n, lut_stride, tid, nthreads);
+  if (!kFused) {
+    for (int i0 = 0; i0 < m * nch * 4; i0 += nthreads) {
+      const int i = i0 + tid, t = i / 4 / nch, c = i / 4 % nch, q = i % 4;
+      float p = 0.f;
+      if (i < m * nch * 4) {
 #pragma unroll
-      for (int u = 4 * q; u < 4 * q + 4; ++u)
-        p += sum_bf16x8(load_x8(x, t, m, k, c * kChunkA + u * 8, vec_ok));
+        for (int u = 4 * q; u < 4 * q + 4; ++u)
+          p += sum_bf16x8(load_x8(x, t, m, k, c * kChunkA + u * 8, vec_ok));
+      }
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      if (i < m * nch * 4 && q == 0) csum[t * nch + c] = p;
     }
-    p += __shfl_xor_sync(0xffffffffu, p, 1);
-    p += __shfl_xor_sync(0xffffffffu, p, 2);
-    if (i < m * nch * 4 && q == 0) csum[t * nch + c] = p;
   }
+  PairLut plut;
+  if (C == kSelectLut) load_pair_lut(plut, lut, row0 + gq, n, lut_stride);
   __syncthreads();
 
   // sum(x_f) of token t, fold f: its chunks' sums added in order
@@ -948,8 +1150,15 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
     for (int j = 1; j < J; ++j) run += c0[j];
     return run;
   };
-  const unsigned short* lut_lo = lut_s[lut_stride ? gq : 0];
-  const unsigned short* lut_hi = lut_s[lut_stride ? gq + 8 : 0];
+  const int lut_row = lut_stride ? gq : 0;
+  const unsigned short* lut_lo = reinterpret_cast<const unsigned short*>(lut_s) + lut_row * 16;
+  const unsigned short* lut_hi = lut_lo + (lut_stride ? 8 * 16 : 0);
+  const float* lut_f = reinterpret_cast<const float*>(lut_s) + lut_row * 16;
+  const SmemLut flut{lut_f, lut_f + (lut_stride ? 8 * 16 : 0)};
+  const bool fixed_groups = group_size % kChunkA == 0 || kChunkA % group_size == 0;
+  int js[4];
+  if (kFused) lane_groups(js, 0, group_size, tq);
+  // P: the fold's dot (B, E: the split's); acc: the split's sum (A, C, int8_post)
   float P[1][4] = {{0.f, 0.f, 0.f, 0.f}}, acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
   for (int j = 0; j < total; ++j) {
     const int c = chunk_of(j), st = j % NST;
@@ -969,27 +1178,50 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
       uint32_t wl[8], wh[8];
       lane_words<C>(wl, cs[warp][st][gq], tq);
       lane_words<C>(wh, cs[warp][st][gq + 8], tq);
+      const float* sz = sz_w + st * sz_stage + gq;
+      if (kFused && !fixed_groups) lane_groups(js, c * kChunkA, group_size, tq);
+      // the chunk's 4 sub-steps x 2 mmas, A from frags(a, s)
+      auto dot = [&](const auto& frags) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        uint32_t a[2][4];
-        a_frags<C>(a, wl, wh, s, lut_lo, lut_hi);
-        mma_bf16(P[0], a[0], b[s].x, b[s].y);
-        mma_bf16(P[0], a[1], b[s].z, b[s].w);
+        for (int s = 0; s < 4; ++s) {
+          uint32_t a[2][4];
+          frags(a, s);
+          mma_bf16(P[0], a[0], b[s].x, b[s].y);
+          mma_bf16(P[0], a[1], b[s].z, b[s].w);
+        }
+      };
+      // (each sub-step reads its scales and zeros just before its weights:
+      // the body runs at 128 registers a thread)
+      auto frags = [&](const auto& lut, auto lo) {
+        return [&, lo](uint32_t (&a)[2][4], int s) {
+          float v[4];
+          lane_scales(v, sz, js[s], SZR);
+          fused_frags<decltype(lo)::value>(a, wl[s], wh[s], lut, v);
+        };
+      };
+      if constexpr (C == kSelectLut) {
+        if (plut.lo_zero)
+          dot(frags(plut, std::false_type{}));
+        else
+          dot(frags(plut, std::true_type{}));
+      } else if constexpr (C == kFusedLut) {
+        dot(frags(flut, std::true_type{}));
+      } else {
+        dot([&](uint32_t (&a)[2][4], int s) { a_frags<C>(a, wl, wh, s, lut_lo, lut_hi); });
       }
-      if (c % J == J - 1) {
-        const float s_lo = sz_s[warp][st][0][gq], s_hi = sz_s[warp][st][0][gq + 8];
-        fold_s<1>(acc, P, s_lo, s_hi);
-        add_z(acc[0], zero_term<C>(s_lo, sz_s[warp][st][1][gq]),
-              zero_term<C>(s_hi, sz_s[warp][st][1][gq + 8]), sx(2 * tq, c / J),
-              sx(2 * tq + 1, c / J));
+      if (!kFused && c % J == J - 1) {
+        fold_s<1>(acc, P, sz[0], sz[8]);
+        add_z(acc[0], zero_term<C>(sz[0], sz[SZR]), zero_term<C>(sz[8], sz[SZR + 8]),
+              sx(2 * tq, c / J), sx(2 * tq + 1, c / J));
       }
     }
     if (j % per == per - 1) {  // the split's end: its sum to shared memory
       const int sp = j / per * W + warp;
+      float (&sum)[1][4] = kFused ? P : acc;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (sp < splits) res[sp][2 * tq + (e & 1)][gq + 8 * (e >> 1)] = acc[0][e];
-        acc[0][e] = 0.f;
+        if (sp < splits) res[sp][2 * tq + (e & 1)][gq + 8 * (e >> 1)] = sum[0][e];
+        sum[0][e] = 0.f;
       }
     }
   }
@@ -1015,7 +1247,7 @@ template <int C, int TN, typename OutT>
 void launch_tn(const void* x, const void* codes, const void* scales, const void* zeros,
                const void* lut, void* y, void* scratch, void* counters, int m, int n, int k,
                int kw, int group_size, int num_groups, int lut_stride, int folds_per_split,
-               int splits, int split_blocks, cudaStream_t stream) {
+               int splits, int split_blocks, int szn, cudaStream_t stream) {
   const bool vec_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && k % 8 == 0;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* cb = static_cast<const int32_t*>(codes);
@@ -1024,34 +1256,35 @@ void launch_tn(const void* x, const void* codes, const void* scales, const void*
   const auto* lb = static_cast<const float*>(lut);
   const int dec_warps = min(splits, kDecWarps);
   const size_t dec_smem =
-      dec_smem_bytes<C>(dec_warps, m, num_groups * group_size / kChunkA, splits);
+      dec_smem_bytes<C>(dec_warps, m, chunks_of(num_groups, group_size), splits, szn);
   if (TN == 1 && dec_smem <= kMaxSmem) {
     opt_in_smem<q4_post_mma_dec<C, OutT>>(kMaxSmem);  // it has no static shared memory
     q4_post_mma_dec<C, OutT><<<(n + 15) / 16, dec_warps * 32, dec_smem, stream>>>(
         xb, cb, sb, zb, lb, static_cast<OutT*>(y), m, n, k, kw, group_size, num_groups,
-        lut_stride, folds_per_split, splits, vec_ok);
+        lut_stride, folds_per_split, splits, szn, vec_ok);
     return;
   }
   // (TN == 1 past the decode body's shared memory: the block body, one block
   // summing each tile's splits, which gives the same bits)
   const dim3 grid((n + kRowsA - 1) / kRowsA, (m + 8 * TN - 1) / (8 * TN), split_blocks);
-  constexpr size_t smem = block_smem_bytes<C>(TN);
-  opt_in_smem<q4_post_mma<C, TN, OutT>>(static_cast<int>(smem));
-  q4_post_mma<C, TN, OutT><<<grid, kThreadsA, smem, stream>>>(
+  const size_t smem = block_smem_bytes<C>(TN, szn);
+  constexpr auto kernel = block_kernel<C, TN, OutT>();
+  opt_in_smem<kernel>(static_cast<int>(smem));
+  kernel<<<grid, kThreadsA, smem, stream>>>(
       xb, cb, sb, zb, lb, static_cast<OutT*>(y), static_cast<float*>(scratch),
       static_cast<int*>(counters), m, n, k, kw, group_size, num_groups, lut_stride,
-      folds_per_split, splits, vec_ok);
+      folds_per_split, splits, szn, vec_ok);
 }
 
 template <int C, typename OutT>
 void launch_out(int tn, const void* x, const void* codes, const void* scales, const void* zeros,
                 const void* lut, void* y, void* scratch, void* counters, int m, int n, int k,
                 int kw, int group_size, int num_groups, int lut_stride, int folds_per_split,
-                int splits, int split_blocks, cudaStream_t s) {
+                int splits, int split_blocks, int szn, cudaStream_t s) {
 #define POST_TN(TN)                                                                        \
   launch_tn<C, TN, OutT>(x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw,  \
                          group_size, num_groups, lut_stride, folds_per_split, splits,      \
-                         split_blocks, s)
+                         split_blocks, szn, s)
   switch (tn) {
     case 1: POST_TN(1); break;
     case 2: POST_TN(2); break;
@@ -1067,20 +1300,25 @@ int launch_post(const void* x, const void* codes, const void* scales, const void
                 const void* lut, void* y, int m, int n, int k, int kw, int group_size,
                 int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,
                 int split_blocks, void* scratch, void* counters, void* stream) {
-  if (group_size <= 0 || group_size % kChunkA || num_groups < 1 || folds_per_split < 1 ||
-      m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) ||
-      (C == kLut4 && lut == nullptr))
+  constexpr bool kFused = fused<C>();
+  if (group_size <= 0 || group_size % (C == kFusedLut ? 8 : kChunkA) || num_groups < 1 ||
+      folds_per_split < 1 || m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) ||
+      ((C == kLut4 || kFused) && lut == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nfolds = C == kLut4 ? num_groups : num_groups * (group_size / kChunkA);
+  const int nfolds = C == kLut4 ? num_groups : chunks_of(num_groups, group_size);
   const int splits = (nfolds + folds_per_split - 1) / folds_per_split;
   if ((split_blocks != 1 && (split_blocks != splits || tn == 1)) || splits > 65535 ||
       (split_blocks > 1 && (scratch == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the groups a 128-k chunk spans (B, E; the others stage one)
+  const int szn = !kFused || group_size % kChunkA == 0 ? 1
+                  : kChunkA % group_size == 0          ? kChunkA / group_size
+                                                       : (kChunkA - 1) / group_size + 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define POST_OUT(T)                                                                          \
   launch_out<C, T>(tn, x, codes, scales, zeros, lut, y, scratch, counters, m, n, k, kw,     \
                    group_size, num_groups, lut_stride, folds_per_split, splits, split_blocks, \
-                   s)
+                   szn, s)
   switch (out_dtype) {
     case 0: POST_OUT(float); break;
     case 1: POST_OUT(__nv_bfloat16); break;
@@ -1099,15 +1337,16 @@ extern "C" {
 // kw: 32-bit words of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8).
 // out_dtype: 0 float32, 1 bfloat16, 2 float16.
 
-// Kernels A, C and int8_post (lut: kernel A's; C and int8_post read none).
-// tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the block body);
-// folds_per_split: the folds of k each split sums (kernel A: groups; C and
-// int8_post: 128-k slices); split_blocks: 1 (a block sums every split of its
-// tile: in turn, or with tn 1 by warps) or the number of splits (the block
-// body, one block each). With more than one split block, scratch holds splits
-// * ceil(n / 64) * ceil(m / (8 tn)) * 8 tn * 64 floats and counters ceil(n /
-// 64) * ceil(m / (8 tn)) ints that are 0, which the launch leaves at 0;
-// launches that share them must not overlap.
+// Kernels A, B, C, E and int8_post (lut: A's, B's and E's; C and int8_post
+// read none). tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the
+// block body); folds_per_split: the folds of k each split sums (kernel A:
+// groups; the others: 128-k slices, ceil(num_groups * group_size / 128) of
+// them); split_blocks: 1 (a block sums every split of its tile: in turn, or
+// with tn 1 by warps) or the number of splits (the block body, one block
+// each). With more than one split block, scratch holds splits * ceil(n / 64)
+// * ceil(m / (8 tn)) * 8 tn * 64 floats and counters ceil(n / 64) * ceil(m /
+// (8 tn)) ints that are 0, which the launch leaves at 0; launches that share
+// them must not overlap.
 #define POST_ENTRY(NAME, CODES)                                                                \
   int NAME(const void* x, const void* codes, const void* scales, const void* zeros,            \
            const void* lut, void* y, int m, int n, int k, int kw, int group_size,              \
@@ -1120,19 +1359,17 @@ extern "C" {
   }
 
 POST_ENTRY(q4_lut_post, kLut4)
+POST_ENTRY(q4_lut_fused, kFusedLut)
 POST_ENTRY(q4_int4_magic, kMagic4)
+POST_ENTRY(q4_lut_select, kSelectLut)
 POST_ENTRY(int8_post, kInt8)
 
-#define Q4_ENTRY(NAME, MODE)                                                                    \
-  int NAME(const void* x, const void* codes, const void* scales, const void* zeros,           \
-           const void* lut, void* y, int m, int n, int k, int kw, int group_size,             \
-           int num_groups, int lut_stride, int out_dtype, void* stream) {                     \
-    return launch<MODE>(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups, \
-                        lut_stride, out_dtype, stream);                                       \
-  }
-
-Q4_ENTRY(q4_lut_fused, kFused)
-Q4_ENTRY(q4_lut_select, kSelect)
-Q4_ENTRY(int8_fused, kFused8)
+// int8_fused on the CUDA-core kernel.
+int int8_fused(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
+               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
+               void* stream) {
+  return launch_int8_fused(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
+                           out_dtype, stream);
+}
 
 }  // extern "C"

@@ -2,16 +2,16 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. Seven on the tensor cores, at every m, in a decode body (m
-<= 8) and a block body that give the same bits, with k split by
+Ten kernels. Nine on the tensor cores, at every m, in a decode body (m <=
+8) and a block body that give the same bits, with k split by
 :func:`kernel_a_plan` (:data:`POST_KERNELS`): in ``csrc/q4_lut_gemv.cu``
-A, C and ``int8_post`` (``mma.sync`` m16n8k16, bf16 in, f32 sums; the
-bodies are templated on how a code becomes a bf16 value), in
+A, B, C, E and ``int8_post`` (``mma.sync`` m16n8k16, bf16 in, f32 sums;
+the bodies are templated on how a code becomes a bf16 value), in
 ``csrc/w4a8_gemv.cu`` the four W4A8/W8A8 entry points (``mma.sync``
 m16n8k32, int8 in, exact int32 sums per 128-wide slice; the bodies are
 templated on the code width, and the fused entry points quantize float x
-first). Three modes of one CUDA-core body in ``csrc/q4_lut_gemv.cu`` (B, E
-and ``int8_fused``):
+first). ``int8_fused`` runs on a CUDA-core kernel in
+``csrc/q4_lut_gemv.cu``:
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
@@ -30,8 +30,8 @@ and ``int8_fused``):
   are multiples of 128.
 - :func:`q4_lut_select` (kernel E) replaces ``_q4select_kernel``: kernel B's
   function with the LUT value picked by 16 compare-selects instead of a
-  table read; equal to kernel B bit for bit. Group sizes that are multiples
-  of 128 (``linear(..., use_gather=False)``).
+  table read; B's plan and bodies, so equal to kernel B bit for bit. Group
+  sizes that are multiples of 128 (``linear(..., use_gather=False)``).
 - :func:`int8_post` replaces ``_int8q_kernel`` and ``_int8t_kernel``: bf16
   x times the int8 codes as bf16 (exact), f32 sums per 128-wide slice, then
   ``y += P * s + sum(x) * z``. Group sizes that are multiples of 128
@@ -101,11 +101,14 @@ _RAMPS = {}  # device -> int4 ramp LUT
 _SMS = {}    # device -> streaming multiprocessors
 _SPLIT_BUFS = {}  # (device, stream) -> the tensor-core kernels' buffers
 # the kernels on the tensor cores, which take kernel_a_plan's launch plan
-# and the split buffers: A, C and int8_post (csrc/q4_lut_gemv.cu, post_mma;
-# bf16 x), D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x) and their fused
-# twins (a8_mma; float x)
-POST_KERNELS = ("q4_lut_post", "q4_int4_magic", "int8_post", "w4a8", "w8a8",
-                "w4a8_fused", "w8a8_fused")
+# and the split buffers: A, B, C, E and int8_post (csrc/q4_lut_gemv.cu,
+# post_mma; bf16 x), D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x) and
+# their fused twins (a8_mma; float x)
+POST_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_int4_magic",
+                "q4_lut_select", "int8_post", "w4a8", "w8a8", "w4a8_fused",
+                "w8a8_fused")
+# the kernels that read a LUT ([n, 16] per row or [1, 16] global)
+LUT_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_lut_select")
 INT8_X_KERNELS = ("w4a8", "w8a8")
 FLOAT_X_KERNELS = ("w4a8_fused", "w8a8_fused")
 # Their blocks: 64 weight rows each (16 in the decode body); k is split
@@ -160,7 +163,8 @@ def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
 
     Kernel A folds its affine once per group; C and ``int8_post`` fold once
     per 128-wide slice, so their ``num_groups`` is the slice count ``kp /
-    128`` (at g=128 the same number)."""
+    128`` (at g=128 the same number), and B and E, which fold nothing, cut
+    their ``ceil(G g / 128)`` slices alike."""
     tn = next((t for t in (1, 2, 4) if m <= 8 * t), 8)
     row_blocks = -(-n // A_ROWS)
     want = min(num_groups, -(-A_DEC_WARPS_PER_SM * sms // -(-n // 16)))
@@ -175,12 +179,14 @@ def post_launch_plan(name: str, m: int, n: int, k: int, num_groups: int,
     """The launch of one tensor-core kernel: ``(tn, folds_per_split,
     split_blocks, scratch_floats, counter_ints)``. :func:`kernel_a_plan`
     over the kernel's folds (kernel A's groups, the others' 128-wide
-    slices), the split-k scratch and tickets that it needs, and for the
-    fused W4A8/W8A8 kernels room after the partials for the pre-pass's
+    slices: ``ceil(G g / 128)``, which B's group sizes need where g does
+    not divide 128), the split-k scratch and tickets that it needs, and for
+    the fused W4A8/W8A8 kernels room after the partials for the pre-pass's
     ``sx`` (``ceil(m / 4) * 4`` floats) and ``xq`` (``m * ceil(k / 16) *
-    16`` bytes). A fused kernel and its external twin get the same plan."""
+    16`` bytes). A fused kernel and its external twin get the same plan, and
+    so do B and E."""
     folds = num_groups if name == "q4_lut_post" \
-        else num_groups * group_size // SLICE
+        else -(-num_groups * group_size // SLICE)
     tn, splits, per, split_blocks = kernel_a_plan(m, n, folds, sms)
     tiles = -(-n // A_ROWS) * -(-m // (8 * tn))
     floats = splits * tiles * 8 * tn * A_ROWS if split_blocks > 1 else 0
@@ -374,19 +380,19 @@ def _check_operands(name, x, packed, scales, zeros, lut, out_dtype):
     return n, kp // (4 if name in BYTE_KERNELS else 8), G
 
 
-def _launch_q4(name, x, packed, scales, zeros, lut, group_size, out_dtype):
-    n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
+def _launch_int8_fused(name, x, packed, scales, zeros, group_size,
+                       out_dtype):
+    """``int8_fused`` on its CUDA-core kernel."""
+    n, kw, G = _check_operands(name, x, packed, scales, zeros, None,
                                out_dtype)
     m, k = x.shape
     xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return y
-    per_row = lut is not None and lut.shape[0] == n and n > 1
     err = _fn(name)(
         xb.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), 0 if lut is None else lut.data_ptr(), y.data_ptr(),
-        m, n, k, kw, group_size, G, 16 if per_row else 0,
+        zeros.data_ptr(), y.data_ptr(), m, n, k, kw, group_size, G,
         _OUT_DTYPES[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -421,11 +427,11 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
     """The tensor-core kernels (:data:`POST_KERNELS`) with
     :func:`post_launch_plan`'s launch. D and ``w8a8`` take int8 x, their
     fused twins float x (bf16 or f32, f16 widened to f32 exactly), the
-    others x rounded to bf16."""
+    others x rounded to bf16; A, B and E take a LUT."""
     n, kw, G = _check_operands(name, x, packed, scales, zeros, lut,
                                out_dtype)
     kp = kw * (4 if name in BYTE_KERNELS else 8)
-    want_lut = name == "q4_lut_post"
+    want_lut = name in LUT_KERNELS
     if (lut is not None) != want_lut or G * group_size > kp:
         raise ValueError(f"{name}: needs {'a' if want_lut else 'no'} lut and "
                          f"num_groups * group_size <= kp, got {G} x "
@@ -471,10 +477,12 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
 def _launch_no_lut(name, x, packed, scales, zeros, group_size, out_dtype):
     """The kernels that read no LUT: the W4A8/W8A8 kernels and
     ``int8_post`` on the tensor cores, ``int8_fused`` on the CUDA-core
-    body."""
-    launch = _launch_post if name in POST_KERNELS else _launch_q4
-    return launch(name, x, packed, scales, zeros, None, group_size,
-                  out_dtype)
+    kernel."""
+    if name in POST_KERNELS:
+        return _launch_post(name, x, packed, scales, zeros, None, group_size,
+                            out_dtype)
+    return _launch_int8_fused(name, x, packed, scales, zeros, group_size,
+                              out_dtype)
 
 
 def _dispatch(name, plain, launch, x, *args):
@@ -501,14 +509,14 @@ def q4_lut_post(x, packed, scales, zeros, lut, group_size, out_dtype):
 def q4_lut_fused(x, packed, scales, zeros, lut, group_size, out_dtype):
     """Kernel B on ``x [m, k]``; returns ``[m, n]`` of ``out_dtype``."""
     _need_group("q4_lut_fused", group_size, 8)
-    return _dispatch("q4_lut_fused", q4_lut_fused_plain, _launch_q4, x,
+    return _dispatch("q4_lut_fused", q4_lut_fused_plain, _launch_post, x,
                      packed, scales, zeros, lut, group_size, out_dtype)
 
 
 def q4_lut_select(x, packed, scales, zeros, lut, group_size, out_dtype):
     """Kernel E on ``x [m, k]``; returns ``[m, n]`` of ``out_dtype``."""
     _need_group("q4_lut_select", group_size, SLICE)
-    return _dispatch("q4_lut_select", q4_lut_select_plain, _launch_q4, x,
+    return _dispatch("q4_lut_select", q4_lut_select_plain, _launch_post, x,
                      packed, scales, zeros, lut, group_size, out_dtype)
 
 

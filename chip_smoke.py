@@ -9,14 +9,15 @@ Phases, each printing JSON lines:
    versions, and the time to build the CUDA kernels from
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
    parallel); then two ``ptxas`` lines: the registers and spill bytes of each
-   instantiation of the tensor-core bodies (kernels A, C and ``int8_post``;
-   the four W4A8/W8A8 kernels, with the fused ones' pre-pass) from nvcc's
-   ``-Xptxas -v`` report.
-2. kernels: kernel A (``q4_lut_post``, g=128) at m in {1, 8, 16, 128,
-   512} and kernel B (``q4_lut_fused``, g=64) at m in {1, 16, 128}, at
-   Llama-3.2-1B's linear shapes, each held against its plain PyTorch
-   version on the card (bf16 output within 1e-2 * max|plain|; kernel A's
-   float32 output at m=128 within 1e-4 * max), with its time (CUDA events,
+   instantiation of the tensor-core bodies (kernels A, B, C, E and
+   ``int8_post``; the four W4A8/W8A8 kernels, with the fused ones'
+   pre-pass) from nvcc's ``-Xptxas -v`` report.
+2. kernels: kernel A (``q4_lut_post``, g=128) and kernel B
+   (``q4_lut_fused``, g=64) at m in {1, 8, 16, 128, 512} (512: the
+   ``FUSED_M_MAX`` prefill chunk), at Llama-3.2-1B's linear shapes, each
+   held against its plain PyTorch version on the card (bf16 output within
+   1e-2 * max|plain|; float32 output within 1e-4 * max, kernel A's at
+   m=128, kernel B's at every m), with its time (CUDA events,
    median, the L2 emptied by reading a 128 MB buffer before each launch;
    kernel A also with the buffer written, ``ms_dirty_l2``), the plain
    version's time, one ``torch.matmul`` on the dequantized bf16 weight as a
@@ -33,7 +34,13 @@ Phases, each printing JSON lines:
    which run on kernel A's bodies, for D and ``w8a8`` on int8 x, which
    run on their own pair of tensor-core bodies, and for D-fused and
    ``w8a8_fused`` on bf16 and float32 x (m = 8, 16, 33 and 64) on the same
-   bodies (``post_bit_equal``); then ``fused_equals_external``: at the 1B
+   bodies, and for B (g=64 with per-row LUTs, g=128 with the int4 ramp) and
+   E (g=128, per-row LUTs), which run on kernel A's bodies
+   (``post_bit_equal``); B's edge cases at g in {16, 32, 64, 128, 256} and
+   E's at g in {128, 256}, as C's below with n = 130, k = 1408 as well and
+   per-row and global LUTs; the identity weight quantized to any4 at g=64
+   through B on the card gives x back bit for bit at m in {1, 4, 130}
+   (``fused_identity``); then ``fused_equals_external``: at the 1B
    shapes, m in {1, 8, 16, 64}, bf16 and float32 x, float32 and bf16
    outputs, ``w4a8_fused(x)`` gives the bits of ``(w4a8(xq) * sx).to(out)``
    with ``xq, sx = quantize_activations(x)``, and ``w8a8_fused`` those of
@@ -64,8 +71,8 @@ Phases, each printing JSON lines:
    and 4. Kernel A must launch exactly 112 times (16 layers x 7 linears) per
    forward; the dense bf16 model's decode figures are printed beside.
    Then one forward over a 1024-token prompt with ``linear``'s prefill
-   chunks at 256, 512 (``FUSED_M_MAX``) and 1024 rows (host ms), and the
-   same entry points at g=64, which runs kernel B (2 layers).
+   chunks at 256, 512 (``FUSED_M_MAX``) and 1024 rows (host ms). The same
+   entry points at g=64, which run kernel B, come in phase 8.
 5. serving: the same any4 model behind ``serving.engine.Engine`` (8 slots,
    max_ctx 2048, page size 16) serves 12 seeded prompts of 16-1000 tokens
    for 32 new tokens each, in each of paged/contig x bf16/int8 pools, once
@@ -84,7 +91,8 @@ Phases, each printing JSON lines:
    int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
    int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
    C at m in {1, 8, 16, 128, 512}, D at {1, 8, 16, 128, 512, 1024} (the
-   W4A8 prefill's chunk), D-fused at {1, 8, 16, 32, 64}, E at {1, 16},
+   W4A8 prefill's chunk), D-fused at {1, 8, 16, 32, 64}, E at {1, 8, 16,
+   128},
    timed and held against their plain versions as in 2: bf16 outputs
    within 1e-2 * max, float32 within 1e-4 * max (C, E) and 1e-5 * max (D,
    D-fused: exact integer dots); E equal to kernel B bit for bit. Then edge
@@ -107,11 +115,13 @@ Phases, each printing JSON lines:
    half-way ties, ``int8_fused`` at g = 16, 64 and 256, three output types),
    the identity weight through ``int8_fused`` (x back bit for bit), and
    any4q8's LUT snap on the card against the CPU's (equal).
-8. int4 and w4a8 main paths: the 1B model at full width and depth
-   (``--layers`` cuts it) quantized by ``quantize_model(fmt=..., group_size
-   =128)``; every one of the 112 linears must be ``int4p`` or ``w4a8``.
-   The int4 model's prefill logits with float32 activations are held within
-   2e-2 * max of the dequantized weights' dense float32 forward. In the
+8. any4 at g=64, int4 and w4a8 main paths: the 1B model at full width and
+   depth (``--layers`` cuts it) quantized by ``quantize_model(fmt="any4",
+   group_size=64, kmeans_iters=10)`` or ``quantize_model(fmt=...,
+   group_size=128)``; every one of the 112 linears must be ``any4`` (g=64,
+   kernel B), ``int4p`` or ``w4a8``. The any4 and int4 models' prefill
+   logits with float32 activations are held within 2e-2 * max of the
+   dequantized weights' dense float32 forward. In the
    w4a8 model's prefill (float32 activations; m=16 runs D-fused, m=128
    runs D) every linear is held within 1e-5 * max of the same linear on the
    CPU through the plain versions, which quantize the activations the same
@@ -120,14 +130,16 @@ Phases, each printing JSON lines:
    difference elsewhere moves an activation by 1/127 of its row's absmax,
    so that difference measures flips). ``generate`` at batch 1 and 4 as in
    4, with
-   exact launch counts: C once per linear per forward (per 512-row chunk);
+   exact launch counts: B (any4 g=64; kernel A never) and C once per linear
+   per forward (per 512-row chunk);
    D-fused once per linear per forward of at most 64 rows, D once per
    linear per larger forward (per ``_int8_m_tile(k)`` chunk above 1024
    rows); then one forward over a 1024-token prompt as in 4 (host ms, best
    of 3). Then each model behind the engine (paged bf16 pools, the prompts
    of 5) at ``run(burst=1)`` and ``run(burst=8, pipeline=True)``: tokens in
    the vocabulary, both runs equal, exact launch counts, and the figures of
-   5.
+   5; for any4 at g=64 also the teacher-forced decode step of 5 (within
+   2e-2 * max).
 9. int8, w8a8 and any4q8 main paths (slice 4), as in 8: the 96 k = 2048
    linears are ``int8q``/``w8a8q``/``any4q8`` and the 16 down_projs
    ``int8g``/``w8a8g``/``any4q8g`` (any4q8 with kmeans_iters=10). int8's
@@ -137,10 +149,11 @@ Phases, each printing JSON lines:
    ``w8a8``; above, 96 per chunk (``FUSED_M_MAX`` rows for int8,
    ``_int8_m_tile(k)`` for w8a8) and down_proj dequantized. int8 and w8a8
    then behind the engine as in 8.
-10. select path: row-layout int4 at g=128 (2 layers): ``llama.forward(...,
-    use_gather=False)`` runs kernel E on every linear, the default runs
-    kernel B with the ramp LUT (not kernel A), and the logits of the two are
-    equal bit for bit.
+10. select path: row-layout int4 at g=128, full width and depth
+    (``--layers`` cuts it): ``llama.forward(..., use_gather=False)`` runs
+    kernel E on every linear, the default runs kernel B with the ramp LUT
+    (not kernel A), and the logits of the two (a 16-token prefill and a
+    1-token forward) are equal bit for bit.
 11. int8 layouts (2 layers, one prefill of 128 rows): ``w8a8`` with
     ``layout="row"``, ``w8a8q``, ``w8a8t`` and ``w8a8g`` run ``w8a8`` on
     the same codes and give bit-equal logits; ``int8q``, ``int8t`` and
@@ -148,10 +161,10 @@ Phases, each printing JSON lines:
     ``layout="row"`` (g=128) and at g=64 runs ``int8_fused`` on every
     linear, within 2e-2 * max of the dense float32 forward with float32
     activations; exact launch counts.
-12. the ``nvidia-smi`` name and power line again, then the line
-    ``{"kernels": [...]}``, one entry per kernel (fourteen; the tensor-core
-    kernels A, C, ``int8_post`` and the four W4A8/W8A8 kernels also
-    ``by_m``).
+12. the script's wall time, the ``nvidia-smi`` name and power line again,
+    then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
+    the tensor-core kernels A, B, C, E, ``int8_post`` and the four
+    W4A8/W8A8 kernels also ``by_m``).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -184,7 +197,7 @@ KERNELS = {
     "q4_lut_post": dict(group_size=128, ms=(1, 8, 16, 128, 512), replaces=(
         "any4_tpu/ops/pallas/gemv.py:230 _q4t_kernel; "
         "any4_tpu/ops/pallas/gemv.py:172 _q4post_kernel")),
-    "q4_lut_fused": dict(group_size=64, ms=(1, 16, 128), replaces=(
+    "q4_lut_fused": dict(group_size=64, ms=(1, 8, 16, 128, 512), replaces=(
         "any4_tpu/ops/pallas/gemv.py:106 _q4_kernel")),
 }
 SOURCE = "any4_tpu_torch/ops/csrc/q4_lut_gemv.cu"
@@ -198,7 +211,7 @@ INT_KERNELS = {
     "w4a8_fused": (W4A8_SOURCE, "any4_tpu/ops/pallas/gemv.py:550 "
                    "_w4a8f_kernel", (1, 8, 16, 32, 64)),
     "q4_lut_select": (SOURCE, "any4_tpu/ops/pallas/gemv.py:63 "
-                      "_q4select_kernel", (1, 16)),
+                      "_q4select_kernel", (1, 8, 16, 128)),
 }
 # slice 4: name -> (source, the TPU kernels it replaces, m of the kernel
 # phase, group size)
@@ -236,8 +249,9 @@ ATTN_HEADS, ATTN_REP, ATTN_HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16   # 1B serving
 ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
 ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
-# profiler kernel names of the linear kernels (SOURCE's two families,
-# W4A8_SOURCE's one, its pre-pass included)
+# profiler kernel names of the linear kernels (SOURCE's tensor-core bodies
+# and its CUDA-core kernel, which is int8_fused alone; W4A8_SOURCE's
+# bodies, their pre-pass included)
 LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_mma")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
@@ -290,8 +304,8 @@ class Timer:
 def kernel_phase(gemv, packing, linear, timer, dirty, bw, peak):
     """Kernels A and B at the 1B linear shapes; kernel A and its
     ``library_ms`` are timed a second time with the L2 emptied by writing
-    (``dirty``), and kernel A also gives float32 outputs at m=128, held
-    within 1e-4 * max."""
+    (``dirty``); float32 outputs are held within 1e-4 * max, kernel A's at
+    m=128, kernel B's at every m."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, spec in KERNELS.items():
@@ -345,12 +359,12 @@ def kernel_phase(gemv, packing, linear, timer, dirty, bw, peak):
                         lambda: wrapper(x, *args, torch.bfloat16))
                     row["library_ms_dirty_l2"] = dirty(
                         lambda: torch.matmul(x, w_bf16.t()))
-                    if m == 128:
-                        f32 = rel_err(wrapper(x, *args, torch.float32),
-                                      plain(x, *args, torch.float32))
-                        check(f32 <= 1e-4, f"{name} n={n} k={k} m={m} "
-                              f"float32: {f32} > 1e-4")
-                        row["f32_rel_err"] = f32
+                if name != "q4_lut_post" or m == 128:
+                    f32 = rel_err(wrapper(x, *args, torch.float32),
+                                  plain(x, *args, torch.float32))
+                    check(f32 <= 1e-4, f"{name} n={n} k={k} m={m} "
+                          f"float32: {f32} > 1e-4")
+                    row["f32_rel_err"] = f32
                 row["gb_per_s"] = nbytes / row["ms"] / 1e6
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 emit(row)
@@ -407,10 +421,11 @@ def kernel_a_edge_cases(gemv, packing):
     return cases
 
 
-def post_operands(gemv, packing, name, n, k, g, gen):
+def post_operands(gemv, packing, name, n, k, g, gen, lut_kind="row"):
     """Random codes of one tensor-core kernel in the port's layout (int8
     codes for ``int8_post`` and ``w8a8``, -128 included), g-wide f32 scales
-    and zeros ``[kp/g, n]`` and, for kernel A, a per-row LUT (else None)."""
+    and zeros ``[kp/g, n]`` and, for kernels A, B and E, a per-row LUT
+    (``lut_kind`` "row") or the int4 ramp ("ramp"); else None."""
     G = packing.padded_k(k) // g
     if name in gemv.BYTE_KERNELS:
         packed = packing.pack_codes8(torch.randint(
@@ -420,8 +435,10 @@ def post_operands(gemv, packing, name, n, k, g, gen):
             0, 16, (n, k), generator=gen, device="cuda", dtype=torch.uint8))
     scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01
     zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
-    lut = (torch.randn((n, 16), generator=gen, device="cuda")
-           if name == "q4_lut_post" else None)
+    lut = None
+    if name in gemv.LUT_KERNELS:
+        lut = (gemv.int4_ramp("cuda") if lut_kind == "ramp" else
+               torch.randn((n, 16), generator=gen, device="cuda"))
     return packed, scales, zeros, lut
 
 
@@ -430,7 +447,7 @@ def post_call(gemv, name, plain=False):
     kernel's wrapper (or plain version); C ignores the lut, ``int8_post``,
     D and ``w8a8`` take none."""
     fn = getattr(gemv, name + ("_plain" if plain else ""))
-    if name == "q4_lut_post" or (plain and name == "q4_int4_magic"):
+    if name in gemv.LUT_KERNELS or (plain and name == "q4_int4_magic"):
         return fn
     return lambda x, packed, scales, zeros, lut, g, out: fn(
         x, packed, scales, zeros, g, out)
@@ -452,7 +469,8 @@ def same_bits(a, b) -> bool:
         a.view(view), b.view(view))
 
 
-def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
+def kernel_a_bit_equal(gemv, packing, name="q4_lut_post", g=128,
+                       lut_kind="row"):
     """The tensor-core kernels' sums run in an order that depends on (n, k)
     alone: at the 1B shapes whose k is split (2048 x 2048, 512 x 2048 and
     8192 x 2048: one row runs the decode body, m = 16 a block per split,
@@ -460,9 +478,11 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
     of a batch of m = 8, 16 and 130 gives the same float32 bits as that row
     alone, and two calls on the same inputs give the same bits. Kernel A by
     default; C, ``int8_post``, D and ``w8a8`` (g=128: their 128-k slices
-    are the groups; int8 x for D and ``w8a8``) by name, and the fused
-    W4A8/W8A8 kernels on bf16 and float32 x at m = 8, 16, 33 and 64 (they
-    stop at ``FUSED_ACT_M_MAX``; m = 33 leaves 31 rows of a 64-token tile
+    are the groups; int8 x for D and ``w8a8``) by name, B and E at group
+    size ``g`` with a per-row LUT or the int4 ramp (``lut_kind``; B's k is
+    split into the same 128-k slices at g=64), and the fused W4A8/W8A8
+    kernels on bf16 and float32 x at m = 8, 16, 33 and 64 (they stop at
+    ``FUSED_ACT_M_MAX``; m = 33 leaves 31 rows of a 64-token tile
     empty)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     fn = post_call(gemv, name)
@@ -478,7 +498,7 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
             1, n, G, torch.cuda.get_device_properties(0)
             .multi_processor_count)[1]
         check(splits[f"{n}x{k}"] > 1, f"{n}x{k} splits k")
-        args = (*post_operands(gemv, packing, name, n, k, 128, gen), 128,
+        args = (*post_operands(gemv, packing, name, n, k, g, gen, lut_kind), g,
                 torch.float32)
         for m, dt in cases:
             x = post_x(gemv, name, m, k, gen, dt)
@@ -493,7 +513,8 @@ def kernel_a_bit_equal(gemv, packing, name="q4_lut_post"):
                       f"{name} n={n} k={k}: row {i} of m={m} differs "
                       f"from the row alone")
                 rows += 1
-    return {"rows": rows, "splits": splits}
+    return {"rows": rows, "splits": splits, "group_size": g,
+            "lut": lut_kind if name in gemv.LUT_KERNELS else None}
 
 
 def fused_equals_external(gemv, packing, quant):
@@ -525,19 +546,24 @@ def fused_equals_external(gemv, packing, quant):
     return cases
 
 
-def post_edge_cases(gemv, packing, name):
-    """Kernel C, ``int8_post``, D or ``w8a8`` on shapes the 1B path does
-    not give them, as kernel A's edge cases: m in {3, 9, 17, 130}, n in
-    {24, 1000}, k = 2048 and 1004, g = 128 and 256 (the slice fold reads
-    each group's scale twice), int8 codes of -128 (a quarter of the rows
-    all -128), float32 (1e-4 * max; 1e-5 for D and ``w8a8``, whose integer
-    dots are exact), bf16 and float16 (1e-2 * max) outputs, x (int8 for D
-    and ``w8a8``) misaligned by one element as well as aligned."""
+def post_edge_cases(gemv, packing, name, gs=(128, 256)):
+    """Kernel C, ``int8_post``, D, ``w8a8``, B or E on shapes the 1B path
+    does not give them, as kernel A's edge cases: m in {3, 9, 17, 130}, n in
+    {24, 1000} (B and E also n = 130 with k = 1408), k = 2048 and 1004, the
+    group sizes ``gs`` (g = 256: the slice fold reads each group's scale
+    twice; B at g < 128: several groups a 128-k slice), per-row and global
+    LUTs (B and E), int8 codes of -128 (a quarter of the rows all -128),
+    float32 (1e-4 * max; 1e-5 for D and ``w8a8``, whose integer dots are
+    exact), bf16 and float16 (1e-2 * max) outputs, x (int8 for D and
+    ``w8a8``) misaligned by one element as well as aligned."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     fn, plain = post_call(gemv, name), post_call(gemv, name, plain=True)
     cases = 0
-    for n, k in ((24, 2048), (1000, 1004)):
-        for g in (128, 256):
+    lut_kernel = name in gemv.LUT_KERNELS
+    shapes = ((24, 2048), (1000, 1004)) + (((130, 1408),) if lut_kernel
+                                           else ())
+    for n, k in shapes:
+        for g in gs:
             packed, _, _, _ = post_operands(gemv, packing, name, n, k, g,
                                             gen)
             if name in gemv.BYTE_KERNELS:
@@ -550,27 +576,60 @@ def post_edge_cases(gemv, packing, name):
                 (n, -(-k // g)), generator=gen, device="cuda") + 0.5, k, g)
             zeros = packing.pad_groups(torch.randn(
                 (n, -(-k // g)), generator=gen, device="cuda"), k, g)
-            args = (packed, (scales * mag).t().contiguous(),
-                    (zeros * mag).t().contiguous(), None, g)
-            for m in (3, 9, 17, 130):
-                flat = post_x(gemv, name, 1, m * k + 1, gen)[0]
-                for misaligned in (False, True):
-                    x = flat[int(misaligned):][:m * k].view(m, k)
-                    check((x.data_ptr() % 16 != 0) == misaligned,
-                          "x alignment")
-                    for out, tol in ((torch.float32, 1e-5 if int8_x else 1e-4),
-                                     (torch.bfloat16, 1e-2),
-                                     (torch.float16, 1e-2)):
-                        y = fn(x, *args, out)
-                        ref = plain(x, *args, out)
-                        torch.cuda.synchronize()
-                        err = rel_err(y, ref)
-                        check(y.shape == (m, n) and y.dtype == out
-                              and bool(torch.isfinite(y).all())
-                              and err <= tol,
-                              f"{name} edge n={n} k={k} m={m} g={g} "
-                              f"misaligned={misaligned} {out}: {err} > {tol}")
-                        cases += 1
+            luts = ([torch.randn((rows, 16), generator=gen, device="cuda") * 4
+                     for rows in (n, 1)] if lut_kernel else [None])
+            for lut in luts:
+                args = (packed, (scales * mag).t().contiguous(),
+                        (zeros * mag).t().contiguous(), lut, g)
+                for m in (3, 9, 17, 130):
+                    flat = post_x(gemv, name, 1, m * k + 1, gen)[0]
+                    for misaligned in (False, True):
+                        x = flat[int(misaligned):][:m * k].view(m, k)
+                        check((x.data_ptr() % 16 != 0) == misaligned,
+                              "x alignment")
+                        for out, tol in ((torch.float32,
+                                          1e-5 if int8_x else 1e-4),
+                                         (torch.bfloat16, 1e-2),
+                                         (torch.float16, 1e-2)):
+                            y = fn(x, *args, out)
+                            ref = plain(x, *args, out)
+                            torch.cuda.synchronize()
+                            err = rel_err(y, ref)
+                            check(y.shape == (m, n) and y.dtype == out
+                                  and bool(torch.isfinite(y).all())
+                                  and err <= tol,
+                                  f"{name} edge n={n} k={k} m={m} g={g} "
+                                  f"lut_rows="
+                                  f"{None if lut is None else lut.shape[0]} "
+                                  f"misaligned={misaligned} {out}: {err} > "
+                                  f"{tol}")
+                            cases += 1
+    return cases
+
+
+def fused_identity(gemv, linear):
+    """The identity weight quantized to any4 at g=64 (as
+    ``tests/test_torch_gemv.py::test_fused_identity_bit_exact``: every
+    weight ``bf16(lut[c] * s + z)`` is exactly 0 or 1) through kernel B on
+    the card gives x back bit for bit, at m = 1, 4 and 130 (the decode body
+    and the block body)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = 0
+    for k in (1024, 2048):
+        qt = linear.quantize_tensor(torch.eye(k, device="cuda"), "any4", 64,
+                                    init="int", kmeans_iters=5)
+        check(qt.fmt == "any4" and torch.equal(
+            linear.dequantize_tensor(qt, torch.float32),
+            torch.eye(k, device="cuda")), f"any4 g=64 identity (k={k}) "
+              f"dequantizes to the identity")
+        for m in (1, 4, 130):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            check(torch.equal(gemv.q4_lut_fused(
+                x, qt.packed, qt.scales, qt.zeros, qt.lut, 64,
+                torch.bfloat16), x),
+                f"kernel B on the identity weight (k={k}, m={m}) != x")
+            cases += 1
     return cases
 
 
@@ -1408,24 +1467,7 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
     emit({"phase": "prefill_fused_m_max", "tokens": 1024,
           "layers": cfg.num_hidden_layers,
           "forward_ms": prefill_chunks(llama, qparams, cfg, gen)})
-
-    # the same entry points at g=64 run kernel B (depth cut to 2 layers)
-    cfg_b = dataclasses.replace(cfg, num_hidden_layers=2)
-    qb = api.quantize_model(llama.init_params(cfg_b, seed=0, device="cuda"),
-                            fmt="any4", group_size=64, kmeans_iters=10)
-    gemv.reset_launches()
-    tok_b = gen_mod.generate(qb, cfg_b, prompt[:1], max_new_tokens=16)
-    torch.cuda.synchronize()
-    launches_b = dict(gemv.LAUNCHES)
-    check(launches_b["q4_lut_fused"] == 2 * 7 * 16 and
-          launches_b["q4_lut_post"] == 0,
-          f"g=64 path launches {launches_b}")
-    check(bool(((tok_b >= 0) & (tok_b < cfg.vocab_size)).all()),
-          "g=64 tokens in vocab")
-    emit({"phase": "main_path_g64", "layers": 2, "new_tokens": 16,
-          "launches": launches_b})
-    del qb
-    return launches, launches_b, qparams, cfg
+    return launches, qparams, cfg
 
 
 def to_device(tree, device, linear):
@@ -1465,21 +1507,25 @@ def held_linears(linear):
         linear.linear = orig
 
 
-# fmt -> (format of the six k = 2048 linears, of down_proj (k = 8192), the
-# check of the prefill logits, quantize_model's extra arguments)
+# path -> (format of the six k = 2048 linears, of down_proj (k = 8192), the
+# check of the prefill logits, quantize_model's arguments besides
+# fmt=path and group_size=128)
 MAIN_FORMATS = {
     "int4": ("int4p", "int4p", "dense", {}),
     "w4a8": ("w4a8", "w4a8", "held", {}),
     "int8": ("int8q", "int8g", "dense", {}),
     "w8a8": ("w8a8q", "w8a8g", "held", {}),
     "any4q8": ("any4q8", "any4q8g", "held", {"kmeans_iters": 10}),
+    "any4_g64": ("any4", "any4", "dense",
+                 {"fmt": "any4", "group_size": 64, "kmeans_iters": 10}),
 }
 
 
 def int_layer_launches(gemv, linear, fmt, ms):
     """Expected launches per decoder layer (its 7 linears) over forwards of
     ``ms`` rows each: int4p one kernel C call per ``FUSED_M_MAX`` rows, int8
-    one ``int8_post`` call per ``FUSED_M_MAX`` rows; w4a8, w8a8 and any4q8
+    one ``int8_post`` call per ``FUSED_M_MAX`` rows, any4 at g=64 one kernel
+    B call per ``FUSED_M_MAX`` rows; w4a8, w8a8 and any4q8
     one fused call at m <= ``FUSED_ACT_M_MAX``, else one call on quantized
     activations, or one per ``_int8_m_tile(k)`` rows once m exceeds
     ``max(FUSED_M_MAX, tile)`` (the tile is 512 for down_proj's k = 8192,
@@ -1494,8 +1540,9 @@ def int_layer_launches(gemv, linear, fmt, ms):
         for m in ms:
             if grouped and m > linear._XLA_GROUPED_M_MAX:
                 continue                                  # dequantized
-            if fmt in ("int4", "int8"):
-                name = "q4_int4_magic" if fmt == "int4" else "int8_post"
+            if fmt in ("int4", "int8", "any4_g64"):
+                name = {"int4": "q4_int4_magic", "int8": "int8_post",
+                        "any4_g64": "q4_lut_fused"}[fmt]
                 calls = 1 if grouped else -(-m // linear.FUSED_M_MAX)
             else:
                 ext = "w4a8" if fmt == "w4a8" else "w8a8"
@@ -1521,10 +1568,12 @@ def check_launches(gemv, want, layers, what):
 
 def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     """Llama-3.2-1B at full width (``--layers`` cuts the depth), bf16
-    weights from ``init_params(seed=0)``, quantized to ``fmt`` (int4, w4a8,
-    int8, w8a8 or any4q8) at g=128; see the module docstring (phases 7 and
-    11)."""
+    weights from ``init_params(seed=0)``, quantized as path ``fmt`` says
+    (int4, w4a8, int8, w8a8 or any4q8 at g=128, any4 at g=64); see the
+    module docstring (phases 8 and 9)."""
     kind, down_kind, how, qkw = MAIN_FORMATS[fmt]
+    qkw = {"fmt": fmt, "group_size": 128, **qkw}
+    g = qkw["group_size"]
     cfg = llama.LlamaConfig.llama_3_2_1b()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
@@ -1532,16 +1581,17 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    qparams = api.quantize_model(params, fmt=fmt, group_size=128, **qkw)
+    qparams = api.quantize_model(params, **qkw)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     del params
-    fmts = [(key, l.fmt) for layer in qparams["layers"]
+    fmts = [(key, l.fmt, l.group_size) for layer in qparams["layers"]
             for key, l in layer.items()
-            if isinstance(l, linear.QuantizedTensor) and l.lut is None]
+            if isinstance(l, linear.QuantizedTensor)]
     check(len(fmts) == per_forward and all(
-        f == (down_kind if key == "down_proj" else kind) for key, f in fmts),
-        f"every linear is {kind} (down_proj {down_kind}) at g=128")
+        f == (down_kind if key == "down_proj" else kind) and gs == g
+        for key, f, gs in fmts),
+        f"every linear is {kind} (down_proj {down_kind}) at g={g}")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
@@ -1613,8 +1663,8 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
                              / figs[1]["decode_ms_per_token"])
     prefill = prefill_chunks(llama, qparams, cfg, gen)
     emit({"phase": f"main_path_{fmt}", "model": "llama_3_2_1b",
-          "layers": cfg.num_hidden_layers, "fmt": kind,
-          "fmt_down_proj": down_kind, "group_size": 128, **qkw,
+          "layers": cfg.num_hidden_layers, **qkw, "fmt": kind,
+          "fmt_down_proj": down_kind,
           "quantize_s": quantize_s, "launches": launches,
           "launches_per_forward": per_forward, "generate_ms": gen_ms,
           "max_memory_allocated": peak_mem,
@@ -1625,15 +1675,17 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
 
 
 def select_path(args, gemv, llama, api, linear):
-    """Row-layout int4 at g=128 (2 layers of the 1B model): ``forward`` with
-    ``use_gather=False`` runs kernel E on every linear, the default runs
-    kernel B with the ramp LUT (not kernel A), and the two give the same
-    logits bit for bit."""
-    cfg = dataclasses.replace(llama.LlamaConfig.llama_3_2_1b(),
-                              num_hidden_layers=2)
+    """Row-layout int4 at g=128, the 1B model at full width and depth
+    (``--layers`` cuts it): ``forward`` with ``use_gather=False`` runs
+    kernel E on every linear, the default runs kernel B with the ramp LUT
+    (not kernel A), and the two give the same logits bit for bit."""
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
     q = api.quantize_model(llama.init_params(cfg, seed=0, device="cuda"),
                            fmt="int4", group_size=128, layout="row")
-    check(all(l.fmt == "int4" for l in q["layers"][0].values()
+    check(all(l.fmt == "int4" for layer in q["layers"]
+              for l in layer.values()
               if isinstance(l, linear.QuantizedTensor)), "row-layout int4")
     gen = torch.Generator(device="cuda").manual_seed(9)
     ids = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
@@ -1648,11 +1700,14 @@ def select_path(args, gemv, llama, api, linear):
         torch.cuda.synchronize()
         launches[use_gather] = dict(gemv.LAUNCHES)
         check_launches(gemv, {"q4_lut_fused" if use_gather
-                              else "q4_lut_select": 2 * 7}, 2,
+                              else "q4_lut_select": 2 * 7},
+                       cfg.num_hidden_layers,
                        f"row int4 use_gather={use_gather}")
+    check(bool(torch.isfinite(logits[False]).all()), "select logits finite")
     check(torch.equal(logits[False], logits[True]),
           "use_gather=False logits != use_gather=True logits")
-    emit({"phase": "main_path_select", "layers": 2, "fmt": "int4",
+    emit({"phase": "main_path_select", "layers": cfg.num_hidden_layers,
+          "fmt": "int4",
           "layout": "row", "group_size": 128, "forwards": [16, 1],
           "launches_use_gather_false": launches[False],
           "launches_use_gather_true": launches[True],
@@ -1723,10 +1778,14 @@ def int8_layouts(gemv, llama, api, linear):
     return fused_launches
 
 
-def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts):
-    """The engine over an int4 or w4a8 model, paged bf16 pools, once with
-    ``run(burst=1)`` and once with ``run(burst=8, pipeline=True)``: tokens
-    in the vocabulary, both runs equal, exact launch counts."""
+def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts,
+                forced=None):
+    """The engine over a main path's model (int4, w4a8, int8, w8a8 or any4
+    at g=64), paged bf16 pools, once with ``run(burst=1)`` and once with
+    ``run(burst=8, pipeline=True)``: tokens in the vocabulary, both runs
+    equal, exact launch counts. ``forced``: ``(gen_mod, llama)`` to hold a
+    teacher-forced decode step with float32 activations within 2e-2 * max
+    of ``decode_step`` over a dense float32 cache, as in phase 5."""
     out, runs = {}, {}
     torch.cuda.reset_peak_memory_stats()
     for mode, run_kw in (("burst1", dict(burst=1)),
@@ -1757,11 +1816,21 @@ def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts):
     check(out["burst1"] == out["burst8_pipeline"],
           f"{fmt}: run(burst=8, pipeline=True) tokens differ from "
           f"run(burst=1)")
+    info = {}
+    if forced is not None:
+        gen_mod, llama = forced
+        err = teacher_forced(
+            teng, kvc, gen_mod, llama, to_float32(qparams, linear),
+            dataclasses.replace(cfg, dtype=torch.float32), "paged", False,
+            torch.Generator(device="cuda").manual_seed(6))
+        check(err <= 2e-2, f"{fmt}: teacher-forced decode logits {err} > "
+              f"2e-2 of max from decode_step over a dense f32 cache")
+        info = {"teacher_forced_rel_err": err, "teacher_forced_bar": 2e-2}
     emit({"phase": f"serving_{fmt}", "kv_layout": "paged", "kv_int8": False,
           "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
           "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
           "new_tokens": SERVE_NEW_TOKENS, "runs": runs,
-          "burst8_pipeline_equals_burst1": True,
+          "burst8_pipeline_equals_burst1": True, **info,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           **serving_figures(teng, qparams, cfg, prompts, "paged", False)})
     return runs["burst1"]["launches"]
@@ -1970,6 +2039,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wall0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2004,6 +2074,16 @@ def main():
     for name in gemv.FLOAT_X_KERNELS:
         emit({"phase": "post_bit_equal", "name": name,
               **kernel_a_bit_equal(gemv, packing, name)})
+    for name, g, lut_kind in (("q4_lut_fused", 64, "row"),
+                              ("q4_lut_fused", 128, "ramp"),
+                              ("q4_lut_select", 128, "row")):
+        emit({"phase": "post_bit_equal", "name": name,
+              **kernel_a_bit_equal(gemv, packing, name, g, lut_kind)})
+    for name, gs in (("q4_lut_fused", (16, 32, 64, 128, 256)),
+                     ("q4_lut_select", (128, 256))):
+        emit({"phase": "post_edge_cases", "name": name, "group_sizes": gs,
+              "passed": post_edge_cases(gemv, packing, name, gs)})
+    emit({"phase": "fused_identity", "passed": fused_identity(gemv, linear)})
     emit({"phase": "fused_equals_external",
           "passed": fused_equals_external(gemv, packing, quant)})
     int_rows = int_kernel_phase(gemv, packing, linear, timer, bw, peak)
@@ -2018,14 +2098,15 @@ def main():
     emit({"phase": "attention_buckets_bit_equal",
           "passed": attention_buckets(kvc)})
     del timer
-    launches, launches_b, qparams, cfg = main_path(args, gemv, llama,
-                                                   gen_mod, api, linear)
+    launches, qparams, cfg = main_path(args, gemv, llama, gen_mod, api,
+                                       linear)
     attn_launches = serving_phase(qparams, cfg, gemv, kvc, teng, llama,
                                   gen_mod, linear)
     del qparams
     torch.cuda.empty_cache()
     # each kernel's launches in the main path that carries it
-    for fmt, names in (("int4", ("q4_int4_magic",)),
+    for fmt, names in (("any4_g64", ("q4_lut_fused",)),
+                       ("int4", ("q4_int4_magic",)),
                        ("w4a8", ("w4a8", "w4a8_fused")),
                        ("int8", ("int8_post",)),
                        ("w8a8", ("w8a8", "w8a8_fused")), ("any4q8", ())):
@@ -2034,7 +2115,8 @@ def main():
         launches.update({k: got[k] for k in names})
         if fmt != "any4q8":
             int_serving(teng, gemv, kvc, linear, qf, cfg, fmt,
-                        serve_prompts(cfg))
+                        serve_prompts(cfg),
+                        (gen_mod, llama) if fmt == "any4_g64" else None)
         del qf
         torch.cuda.empty_cache()
     launches.update({k: v for k, v in select_path(
@@ -2045,15 +2127,16 @@ def main():
     kernels = []
     for name, spec in KERNELS.items():
         summary = layer_summary(rows, name)
-        count = launches[name] if name == "q4_lut_post" else launches_b[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": spec["replaces"], "launches": count,
+            "replaces": spec["replaces"], "launches": launches[name],
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"],
             "library_ms": summary["library_ms"],
             "timed_as": "sum over one 1B decoder layer's 7 linears at m=1",
+            "launches_from": (f"generate at b=1 and 4 over the any4 g="
+                              f"{spec['group_size']} model"),
             "group_size": spec["group_size"]})
         if name == "q4_lut_post":
             kernels[-1]["by_m"] = {m: layer_summary(
@@ -2061,6 +2144,8 @@ def main():
                                        "bound_ms", "library_ms",
                                        "library_ms_dirty_l2"))
                 for m in spec["ms"]}
+        else:
+            kernels[-1]["by_m"] = by_m(rows, name, spec["ms"])
     for name, (layout, q8, replaces) in ATTN_KERNELS.items():
         r = next(r for r in attn_rows if r["name"] == name
                  and (r["b"], r["ctx"]) == ATTN_TIMED)
@@ -2113,6 +2198,8 @@ def main():
                               f" model")})
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int8_rows, name, INT8_KERNELS[name][2])
+    emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,
+          "layers": cfg.num_hidden_layers})
     print(smi, flush=True)      # the card's name and power limit
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

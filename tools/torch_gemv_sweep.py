@@ -4,14 +4,18 @@ linear shapes across m, each held against its plain version.
 
     python3 tools/torch_gemv_sweep.py [--root DIR] [--kernels q4_lut_post]
         [--ms 1,8,16,128,512] [--shapes 2048x2048,512x2048,8192x2048,2048x8192]
-        [--reps 20] [--out FILE]
+        [--group-size G] [--reps 20] [--out FILE]
 
 ``--kernels`` takes a comma-separated list of ``q4_lut_post`` (kernel A,
-any4 with per-row LUTs; the default), ``q4_int4_magic`` (kernel C, int4),
-``int8_post`` (int8 codes), ``w4a8`` (kernel D: int8 activations, 4-bit
-codes), ``w8a8`` (int8 activations and codes), ``w4a8_fused`` and
-``w8a8_fused`` (D-fused and ``w8a8_fused``: bf16 activations, which they
-quantize themselves), all at g=128. For each kernel, (n, k) shape and m it
+any4 with per-row LUTs; the default), ``q4_lut_fused`` (kernel B, any4
+with per-row LUTs at g=64), ``q4_int4_magic`` (kernel C, int4),
+``q4_lut_select`` (kernel E, int4 with the ramp LUT), ``int8_post`` (int8
+codes), ``w4a8`` (kernel D: int8 activations, 4-bit codes), ``w8a8`` (int8
+activations and codes), ``w4a8_fused`` and ``w8a8_fused`` (D-fused and
+``w8a8_fused``: bf16 activations, which they quantize themselves), all at
+g=128 but B; ``--group-size`` sets one group size for all of them (for
+example 128, to time B beside A on the same kind of operands). For each
+kernel, (n, k) shape and m it
 checks the kernel's output against the plain version (bf16 within 1e-2 *
 max, ``chip_smoke.py``'s bar; D and ``w8a8`` give f32, within 1e-5 * max:
 their integer dots are exact) and prints one
@@ -25,12 +29,11 @@ memory rate, or 2mnk over the tensor cores' bf16 rate (int8 for the four
 W4A8/W8A8 kernels), the larger). A last ``layer`` row per kernel and m sums
 one Llama-3.2-1B decoder layer's 7 linears.
 
-To time the fused kernels against D and ``w8a8`` on pre-quantized x and
-against a parent checkout, in one call (parent, this tree, this tree,
-parent)::
+To time kernels B and E against a parent checkout, in one call (parent,
+this tree, this tree, parent)::
 
-    python3 tools/torch_gemv_sweep.py --kernels w4a8_fused,w8a8_fused,w4a8,w8a8 \
-        --ms 1,8,16,32,64 --root chip_check/parent
+    python3 tools/torch_gemv_sweep.py --kernels q4_lut_fused,q4_lut_select \
+        --ms 1,8,16,128,512 --root chip_check/parent
 
 ``--root DIR`` imports ``any4_tpu_torch`` and ``chip_smoke.py`` from another
 checkout (for example the parent commit unpacked with ``git archive``) and
@@ -50,14 +53,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 SHAPES = "2048x2048,512x2048,8192x2048,2048x8192"
 # kernel -> (format of its QuantizedTensor, int8 codes, activations: bf16,
-# int8, or bf16 that the kernel quantizes to int8)
-KERNELS = {"q4_lut_post": ("any4", False, "bf16"),
-           "q4_int4_magic": ("int4", False, "bf16"),
-           "int8_post": ("int8", True, "bf16"),
-           "w4a8": ("int4", False, "int8"),
-           "w8a8": ("int8", True, "int8"),
-           "w4a8_fused": ("int4", False, "quantized"),
-           "w8a8_fused": ("int8", True, "quantized")}
+# int8, or bf16 that the kernel quantizes to int8; group size)
+KERNELS = {"q4_lut_post": ("any4", False, "bf16", 128),
+           "q4_lut_fused": ("any4", False, "bf16", 64),
+           "q4_int4_magic": ("int4", False, "bf16", 128),
+           "q4_lut_select": ("int4", False, "bf16", 128),
+           "int8_post": ("int8", True, "bf16", 128),
+           "w4a8": ("int4", False, "int8", 128),
+           "w8a8": ("int8", True, "int8", 128),
+           "w4a8_fused": ("int4", False, "quantized", 128),
+           "w8a8_fused": ("int8", True, "quantized", 128)}
+# the kernels that take a LUT (the int4 format's is the ramp), here and in
+# an older checkout
+LUT_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_lut_select")
 
 
 def operands(torch, linear, packing, fmt, int8_codes, n, k, g, gen):
@@ -87,6 +95,7 @@ def main():
     ap.add_argument("--kernels", default="q4_lut_post")
     ap.add_argument("--ms", default="1,8,16,128,512")
     ap.add_argument("--shapes", default=SHAPES)
+    ap.add_argument("--group-size", type=int, default=None)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -126,9 +135,9 @@ def main():
     dirty, clean = timers(cs)
     ms_list = [int(m) for m in args.ms.split(",")]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    g = 128
     for name in names:
-        fmt, int8_codes, x_kind = KERNELS[name]
+        fmt, int8_codes, x_kind, g = KERNELS[name]
+        g = args.group_size or g
         int8_x = x_kind == "int8"
         wrapper, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
         out_dtype, bar = ((torch.float32, 1e-5) if int8_x
@@ -140,8 +149,9 @@ def main():
             qt = operands(torch, linear, packing, fmt, int8_codes, n, k, g,
                           gen)
             w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+            lut = qt.lut if fmt == "any4" else gemv.int4_ramp("cuda")
             wargs = (qt.packed, qt.scales, qt.zeros) \
-                + ((qt.lut,) if name == "q4_lut_post" else ()) \
+                + ((lut,) if name in LUT_KERNELS else ()) \
                 + (g, out_dtype)
             pargs = wargs[:3] + ((None,) if name == "q4_int4_magic"
                                  else ()) + wargs[3:]
@@ -159,12 +169,12 @@ def main():
                 ok = bool(torch.isfinite(y).all()) and err <= bar * scale
                 nbytes = (qt.packed.numel() * qt.packed.element_size()
                           + 2 * qt.scales.numel() * 4
-                          + (0 if qt.lut is None else qt.lut.numel() * 4)
+                          + (lut.numel() * 4 if name in LUT_KERNELS else 0)
                           + x.numel() * x.element_size()
                           + y.numel() * y.element_size())
                 t_bytes, t_ops = nbytes / bw * 1e3, 2 * m * n * k / rate * 1e3
                 row = {
-                    "name": name, "n": n, "k": k, "m": m,
+                    "name": name, "n": n, "k": k, "m": m, "group_size": g,
                     "ms": clean(lambda: wrapper(x, *wargs), reps=args.reps),
                     "ms_dirty_l2": dirty(lambda: wrapper(x, *wargs),
                                          reps=args.reps),
