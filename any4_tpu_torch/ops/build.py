@@ -28,13 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# int8_fused: int fn(x, codes, scales, zeros, y, m, n, k, kw, group_size,
-#     num_groups, out_dtype, stream)
-_INT8_FUSED_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
-# the tensor-core kernels (A, B, C, E, int8_post, D and w8a8): int fn(x,
-#     codes, scales, zeros, lut, y, m, n, k, kw, group_size, num_groups,
-#     lut_stride, out_dtype, tn, folds_per_split, split_blocks, scratch,
-#     counters, stream)
+# the tensor-core kernels (A, B, C, E, int8_post, int8_fused, D and w8a8):
+#     int fn(x, codes, scales, zeros, lut, y, m, n, k, kw, group_size,
+#     num_groups, lut_stride, out_dtype, tn, folds_per_split, split_blocks,
+#     scratch, counters, stream)
 _POST_ARGTYPES = [_P] * 6 + [_I] * 11 + [_P] * 3
 # the fused W4A8/W8A8 kernels, on the same bodies: the same, then x_dtype
 _A8_FUSED_ARGTYPES = _POST_ARGTYPES + [_I]
@@ -44,10 +41,9 @@ _A8_FUSED_ARGTYPES = _POST_ARGTYPES + [_I]
 _FLASH_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _I, _P, _P, _P]
 KERNELS = {
     "q4_lut_gemv.cu": {
-        **{name: _POST_ARGTYPES for name in (
+        name: _POST_ARGTYPES for name in (
             "q4_lut_post", "q4_lut_fused", "q4_int4_magic", "q4_lut_select",
-            "int8_post")},
-        "int8_fused": _INT8_FUSED_ARGTYPES},
+            "int8_post", "int8_fused")},
     "w4a8_gemv.cu": {"w4a8": _POST_ARGTYPES, "w8a8": _POST_ARGTYPES,
                      "w4a8_fused": _A8_FUSED_ARGTYPES,
                      "w8a8_fused": _A8_FUSED_ARGTYPES},

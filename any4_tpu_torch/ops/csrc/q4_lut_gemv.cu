@@ -1,9 +1,9 @@
 // Weight-only matrix-vector kernels for Hopper (sm_90a): y[m, n] = x[m, k] . W[n, k]^T
 // with bf16 x and W stored as 4-bit codes (with a 16-entry lookup table per
 // row or global, or uniform) or as int8 codes, and per-group affine scales and
-// zeros. Five kernels on the tensor cores (A, B, C, E, int8_post: one pair of
-// mma.sync bodies, templated on how a code becomes a bf16 value), and one
-// CUDA-core kernel (int8_fused).
+// zeros. Six kernels (A, B, C, E, int8_post, int8_fused), all on the tensor
+// cores: one pair of mma.sync bodies, templated on how a code becomes a bf16
+// value.
 //
 // Kernel A, q4_lut_post, replaces the TPU kernels any4_tpu/ops/pallas/gemv.py
 // _q4t_kernel (gemv.py:230, transposed layout) and _q4post_kernel (gemv.py:172,
@@ -38,14 +38,14 @@
 // slice, then y += P * s + sum(x) * z with the slice's group's s and z.
 // Group sizes that are multiples of 128.
 //
-// A bf16 x bf16 product is exact in f32, so mma.sync.m16n8k16.f32.bf16.bf16.f32
-// computes the plain versions' products; only the order of the f32 sums
-// differs. Their design is set out at post_mma below.
-//
 // int8_fused replaces gemv.py:913 _int8_kernel (row layout): kernel B's
 // function with q in place of LUT[c], each weight bf16(q * s + z) (one f32
 // fma, then one rounding to bf16), then the dot with f32 accumulation. Group
 // sizes of 16 or more that divide 128 or are multiples of it.
+//
+// A bf16 x bf16 product is exact in f32, so mma.sync.m16n8k16.f32.bf16.bf16.f32
+// computes the plain versions' products; only the order of the f32 sums
+// differs. Their design is set out at post_mma below.
 //
 // Code layouts (any4_tpu_torch/ops/packing.py): 4-bit codes are int32 words
 // [n, kp/8], row major, 8 consecutive k per word (nibble j holds k = 8*word +
@@ -58,20 +58,7 @@
 // weight plus 8 B of scale and zero per group and 64 B of LUT per row (none
 // for kernel C and the int8 kernels) -- so the least time is those bytes over
 // the memory rate (3.35 TB/s on an H100 SXM). At prefill (m in the hundreds)
-// the tensor-core kernels' arithmetic, 2mnk, reaches the tensor cores' rate.
-//
-// The CUDA-core kernel (int8_fused):
-//   - one warp per output row; each lane loads its 32 consecutive codes per
-//     step (32 bytes), so a warp reads 1024 contiguous bytes of its row per
-//     step, and the next step's codes are loaded before the current ones are
-//     used;
-//   - a block of 8 warps (8 consecutive rows) shares one staged copy of x in
-//     shared memory, and one 32-byte sector of each scale/zero row serves all
-//     8 warps; each lane's 32 k sit in a padded 80-byte slot so the 16-byte
-//     shared loads of a quarter warp hit distinct banks;
-//   - m is tiled by MT (1, 2, 4, 8 or 16 rows of x, a template parameter) along
-//     grid.y; each m tile reads the weight again, which is the cost of prefill
-//     chunks in this simple design.
+// the arithmetic, 2mnk, reaches the tensor cores' rate.
 //
 // Each C entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -84,12 +71,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kWarps = 8;                 // output rows per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 1024;              // k per step: 32 lanes x 32 codes
-constexpr int kLaneK = 32;                // consecutive k per lane and step
-constexpr int kLaneSlot = 40;             // bf16 per lane slot in shared (32 + 8 pad)
 
 template <typename T>
 __device__ __forceinline__ void store_out(T* p, float v);
@@ -104,185 +85,12 @@ __device__ __forceinline__ void store_out<__half>(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Stage x[m0 : m0+MT, k0 : k0+kChunk] (bf16) into shared memory, zero outside
-// [0, m) x [0, k). Shared layout: xs[row][lane][kLaneSlot], lane = kk / 32.
-template <int MT>
-__device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const __nv_bfloat16* __restrict__ x,
-                                        int m0, int m, int k, int k0, bool vec_ok) {
-  constexpr int kVecsPerRow = kChunk / 8;
-  for (int v = threadIdx.x; v < MT * kVecsPerRow; v += kThreads) {
-    const int r = v / kVecsPerRow;
-    const int kk = (v % kVecsPerRow) * 8;
-    const int gm = m0 + r, gk = k0 + kk;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gm < m) {
-      const __nv_bfloat16* src = x + (size_t)gm * k + gk;
-      if (vec_ok && gk + 8 <= k) {
-        val = *reinterpret_cast<const uint4*>(src);
-      } else {
-        const unsigned short* bits = reinterpret_cast<const unsigned short*>(src);
-        union {
-          uint4 u;
-          unsigned short h[8];
-        } tmp;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) tmp.h[j] = gk + j < k ? bits[j] : 0;  // bf16 +0.0 is 0x0000
-        val = tmp.u;
-      }
-    }
-    const int lane = kk / kLaneK, off = kk % kLaneK;
-    *reinterpret_cast<uint4*>(xs + (r * 32 + lane) * kLaneSlot + off) = val;
-  }
-}
-
-// A lane's 32 consecutive int8 codes from k index k0: two 16-byte loads;
-// zero past kp.
-__device__ __forceinline__ void load_codes(const int32_t* __restrict__ row_codes, int k0,
-                                           int lane, int kp, uint4 (&w)[2]) {
-  w[0] = w[1] = make_uint4(0u, 0u, 0u, 0u);
-  if (k0 >= kp) return;
-  const uint4* p = reinterpret_cast<const uint4*>(row_codes + k0 / 4 + lane * 8);
-  w[0] = p[0];
-  w[1] = p[1];
-}
-
-// The int8 code in byte j of w, as float (exact).
-__device__ __forceinline__ float byte_code(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xFFu));
-}
-
-// int8_fused: per weight bf16(q*s + z), then the dot in f32.
-template <int MT, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-q4_lut_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ codes,
-              const float* __restrict__ scales, const float* __restrict__ zeros,
-              OutT* __restrict__ y, int m, int n, int k, int kw, int group_size,
-              int num_groups) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MT * 32 * kLaneSlot];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  const int m0 = blockIdx.y * MT;
-  const bool active = row < n;  // uniform across the warp
-  const int kp = kw * 4;
-  const bool vec_ok = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) && (k % 8 == 0);
-
-  const int32_t* row_codes = codes + (size_t)(active ? row : 0) * kw;
-  float acc[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) acc[i] = 0.f;
-
-  uint4 wv[2];
-  load_codes(row_codes, active ? 0 : kp, lane, kp, wv);
-  for (int k0 = 0; k0 < kp; k0 += kChunk) {
-    __syncthreads();  // the previous step's readers are done with xs
-    stage_x<MT>(xs, x, m0, m, k, k0, vec_ok);
-    __syncthreads();
-    if (!active) continue;
-    uint4 wnext[2];
-    load_codes(row_codes, k0 + kChunk, lane, kp, wnext);
-    // words 2w and 2w+1 hold k = kl + 8w .. +7
-    const uint32_t words[8] = {wv[0].x, wv[0].y, wv[0].z, wv[0].w,
-                               wv[1].x, wv[1].y, wv[1].z, wv[1].w};
-    const int kl = k0 + lane * kLaneK;  // this lane's first k
-    const __nv_bfloat16* xl = xs + lane * kLaneSlot;
-
-    float p[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) p[i] = 0.f;
-
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int g = (kl + w * 8) / group_size;
-      const bool real = g < num_groups;
-      const float s = real ? scales[(size_t)g * n + row] : 0.f;
-      const float z = real ? zeros[(size_t)g * n + row] : 0.f;
-      float lv[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) lv[j] = round_bf16(fmaf(byte_code(words[2 * w + j / 4], j % 4), s, z));
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const uint4 xv = *reinterpret_cast<const uint4*>(xl + i * 32 * kLaneSlot + w * 8);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&xv);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float2 f = __bfloat1622float2(h[t]);
-          p[i] = fmaf(f.x, lv[2 * t], p[i]);
-          p[i] = fmaf(f.y, lv[2 * t + 1], p[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) acc[i] += p[i];
-    wv[0] = wnext[0];
-    wv[1] = wnext[1];
-  }
-  if (!active) return;
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && m0 + i < m) store_out(y + (size_t)(m0 + i) * n + row, v);
-  }
-}
-
-template <int MT>
-void launch_mt(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
-               cudaStream_t stream) {
-  const dim3 grid((n + kWarps - 1) / kWarps, (m + MT - 1) / MT);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* cb = static_cast<const int32_t*>(codes);
-  const auto* sb = static_cast<const float*>(scales);
-  const auto* zb = static_cast<const float*>(zeros);
-  switch (out_dtype) {
-    case 0:
-      q4_lut_kernel<MT, float><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, static_cast<float*>(y), m, n, k, kw, group_size, num_groups);
-      break;
-    case 1:
-      q4_lut_kernel<MT, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, static_cast<__nv_bfloat16*>(y), m, n, k, kw, group_size, num_groups);
-      break;
-    default:
-      q4_lut_kernel<MT, __half><<<grid, kThreads, 0, stream>>>(
-          xb, cb, sb, zb, static_cast<__half*>(y), m, n, k, kw, group_size, num_groups);
-      break;
-  }
-}
-
-int launch_int8_fused(const void* x, const void* codes, const void* scales, const void* zeros,
-                      void* y, int m, int n, int k, int kw, int group_size, int num_groups,
-                      int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define INT8_MT(MT) \
-  launch_mt<MT>(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups, out_dtype, s)
-  if (m <= 1)
-    INT8_MT(1);
-  else if (m <= 2)
-    INT8_MT(2);
-  else if (m <= 4)
-    INT8_MT(4);
-  else if (m <= 8)
-    INT8_MT(8);
-  else
-    INT8_MT(16);
-#undef INT8_MT
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// Kernels A, B, C, E and int8_post on the tensor cores: mma.sync.m16n8k16 with
-// the weight as the A operand (16 output rows per warp tile) and the tokens as
-// the B operand (8 per n8 tile), so decode at m = 1..8 already fills one mma.
-// One pair of bodies serves the five; a template parameter, the code policy,
-// sets what differs:
+// The six kernels on the tensor cores: mma.sync.m16n8k16 with the weight as
+// the A operand (16 output rows per warp tile) and the tokens as the B operand
+// (8 per n8 tile), so decode at m = 1..8 already fills one mma. One pair of
+// bodies serves the six; a template parameter, the code policy, sets what
+// differs:
 //
 //   policy       | code bytes per row | A value of a code       | LUT staged   | affine folds
 //                | and 128-k chunk    |                         |              | per
@@ -293,6 +101,8 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //   kFusedLut B  | 64 (16 words)      | bf16(fma(LUT[c], s, z)) | f32 rows     | none: in the weight
 //   kSelectLut E | 64 (16 words)      | the same, LUT[c] by 16  | no: 32 regs  | none: in the weight
 //                |                    | compare-selects         |  (by halves) |
+//   kFusedInt8   | 128 (as kInt8)     | bf16(fma(q, s, z))      | no           | none: in the weight
+//   (int8_fused) |                    |                         |              |
 //
 //   - The code layouts are fed as they are: a permutation of k applied to both
 //     operands leaves the dot unchanged. k goes in chunks of 128. In sub-step
@@ -308,7 +118,7 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //     sub-step s, mma q, slot 2t + 8h + e of lane t holds k = 8(4t + s) + 4q
 //     + 2h + e; over t, q, h, e (4 x 2 x 2 x 2) that is each of the 32 k of
 //     words 4t + s exactly once, and over s each of the chunk's 128 k once: a
-//     bijection, the same for A and B, and the same for the five policies.
+//     bijection, the same for A and B, and the same for the six policies.
 //   - A values (a_frags, fused_frags). kLut4: the tile's rows' tables sit in
 //     shared memory as bf16, 16 entries a row; with a global LUT (nf4, fp4)
 //     every lane reads one 16-entry table, which never bank-conflicts.
@@ -327,14 +137,20 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //     compare-selects, the codes of rows g and g + 8 at one k compared as
 //     one f16 pair and each f32 entry moved as two 16-bit halves under the
 //     pair's masks (PairLut): a chain of f32 selects, two instructions a
-//     code and entry, ran 20% slower than the CUDA-core kernel at m = 1.
-//     Since the group size is a multiple of 8, a lane's 8 k
+//     code and entry, ran 20% slower than a CUDA-core kernel at m = 1.
+//     kFusedInt8: kInt8's codes and B's affine. Each code byte, its sign bit
+//     flipped (q + 128, 0..255), is permuted into the low byte of the f32
+//     2^23 (0x4B000000), and one f32 subtraction of 2^23 + 128 leaves q
+//     exactly (int8_f32: one PRMT and one FADD a code, no I2F, which runs at
+//     a fraction of the FMA rate); then one f32 fma with s and z and one
+//     rounding, as B. Since the group size is a multiple of 8, a lane's 8 k
 //     of a sub-step lie in one group, so a lane reads one (s, z) per row and
 //     sub-step: group (k0 + 8(4t + s)) / g. A stage holds the s and z of the
 //     groups its chunk spans (max(1, 128 / g), or ceil(128 / g) + 1 where g
 //     does not divide 128), a row of scales and a row of zeros per group,
-//     padded by 4 floats so that the lanes of one sub-step read distinct
-//     banks at g >= 32; groups at or past num_groups
+//     padded (sz_stride) so that the 32 lanes of a sub-step, 8 rows by 4
+//     groups, read distinct banks or one word (at g >= 32; int8_fused also
+//     at g = 16); groups at or past num_groups
 //     read as s = z = 0, so their weights are 0, as the plain version cuts x
 //     at G g.
 //   - The affine (A, C, int8_post). The dot of one fold (a group of 128 j k
@@ -343,15 +159,16 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //     fragment's row and of the fold's group, then acc = fma(z', sum(x_f),
 //     acc), z' = z or z - 136 s. sum(x_f) is computed once per token: per
 //     chunk four lanes sum 32 consecutive bf16 values each, two xor shuffles
-//     add them, and a fold's chunks add in order. B and E fold nothing: their
-//     mmas sum a whole split into P, and compute no sum(x).
-//   - Split-k. The folds (B and E: the ceil(G g / 128) chunks) are cut into
+//     add them, and a fold's chunks add in order. B, E and int8_fused fold
+//     nothing: their mmas sum a whole split into P, and compute no sum(x).
+//   - Split-k. The folds (B, E and int8_fused: the ceil(G g / 128) chunks)
+//     are cut into
 //     `splits` runs of `folds_per_split`, a function of (n, the number of
 //     folds) and the SM count only (gemv.py, kernel_a_plan). Each split's sum
 //     is its own, and the splits add in split order (s0 + s1, then + s2,
 //     ...). So a token's output bits depend neither on m nor on its place in
 //     the batch: both bodies below do the same f32 operations in the same
-//     order. B and E get the same plan, so E = B bit for bit.
+//     order. B, E and int8_fused get the same plan, so E = B bit for bit.
 //   - The decode body (m <= 8, q4_post_mma_dec): the weight bytes bound it.
 //     W = min(splits, 16) warps share one 16-row tile, warp w running splits
 //     w, w + W, ...; each streams its code words, scales and zeros through a
@@ -362,8 +179,9 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //     512) get 32 blocks of 16 warps.
 //   - The block body (m > 8, q4_post_mma<TN>): 4 warps on 64 rows and 8 * TN
 //     tokens (TN = 2, 4 or 8). Each A fragment feeds all TN mmas of its warp,
-//     so a prefill chunk reads the weight once per 8 * TN tokens, and B's and
-//     E's per-weight fma and selects are paid once per 8 * TN tokens. The
+//     so a prefill chunk reads the weight once per 8 * TN tokens, and the
+//     per-weight fma (and E's selects) of B, E and int8_fused are paid once
+//     per 8 * TN tokens. The
 //     block's codes, scales, zeros and x tile go through a 3-stage cp.async
 //     ring (16 bytes, .cg; x rows past m and k past the end zero-filled); x
 //     rows are skewed (unit u of a row at u + u / 8, rows 18 units apart) so
@@ -375,7 +193,7 @@ int launch_int8_fused(const void* x, const void* codes, const void* scales, cons
 //     order and sets the counter back to 0.
 namespace post_mma {
 
-enum Codes { kLut4 = 0, kMagic4 = 1, kInt8 = 2, kFusedLut = 3, kSelectLut = 4 };
+enum Codes { kLut4 = 0, kMagic4 = 1, kInt8 = 2, kFusedLut = 3, kSelectLut = 4, kFusedInt8 = 5 };
 
 constexpr int kWarpsA = 4;
 constexpr int kThreadsA = kWarpsA * 32;
@@ -388,25 +206,36 @@ constexpr int kDecStages = 4;             // stages of each decode warp's ring
 constexpr int kBlockStages = 3;           // stages of the block body's ring
 constexpr int kMaxSmem = 232448;          // dynamic shared memory a block may use
 
-// B and E: the affine is in each weight
+// B, E and int8_fused: the affine is in each weight
 template <int C>
-__host__ __device__ constexpr bool fused() { return C == kFusedLut || C == kSelectLut; }
+__host__ __device__ constexpr bool fused() {
+  return C == kFusedLut || C == kSelectLut || C == kFusedInt8;
+}
+// int8_post and int8_fused: int8 codes
+template <int C>
+__host__ __device__ constexpr bool int8_codes() { return C == kInt8 || C == kFusedInt8; }
 // 16-byte units of a row's codes per chunk, and their staged row stride in
 // shared memory: int8 rows take one unit of padding, so that the two 16-byte
 // loads of a lane (units 2t, 2t + 1 of rows g and g + 8) of a quarter warp
 // hit distinct banks
 template <int C>
-__host__ __device__ constexpr int code_units() { return C == kInt8 ? 8 : 4; }
+__host__ __device__ constexpr int code_units() { return int8_codes<C>() ? 8 : 4; }
 template <int C>
-__host__ __device__ constexpr int code_stride() { return C == kInt8 ? 9 : 4; }
+__host__ __device__ constexpr int code_stride() { return int8_codes<C>() ? 9 : 4; }
 // k per 32-bit code word
 template <int C>
-__host__ __device__ constexpr int k_per_word() { return C == kInt8 ? 4 : 8; }
-// floats a staged row of scales (or zeros) of a tile of `rows` rows takes; a
-// stage holds [groups][scales, zeros][stride]: B and E pad each row by 4, so
-// that lanes on groups j = 0..3 (8 j banks apart) read different banks
+__host__ __device__ constexpr int k_per_word() { return int8_codes<C>() ? 4 : 8; }
+// floats a staged row of scales (or zeros) of a tile of `rows` rows (64 or
+// 16) takes; a stage holds [szn groups][scales, zeros][stride]. In a
+// sub-step lane (g, t) reads row g of group j(t): the same group for t = 0..3
+// at g >= 128, j = t / 2 at g = 64, t at 32, 2 t + s / 2 at 16. The fused
+// policies pad each row so that the words of neighbouring t lie 8 banks
+// apart (2 stride dj = 8 mod 32): by 4 floats (dj 1: g = 32, and g = 64);
+// int8_fused by 2 at g = 16 (szn 8, dj 2), where B keeps 4 (2-way conflicts)
 template <int C>
-__host__ __device__ constexpr int sz_stride(int rows) { return fused<C>() ? rows + 4 : rows; }
+__host__ __device__ constexpr int sz_stride(int rows, int szn) {
+  return !fused<C>() ? rows : rows + (C == kFusedInt8 && szn == 8 ? 2 : 4);
+}
 // bytes of a tile's staged LUT rows: bf16 for A, f32 for B, none for the others
 template <int C>
 __host__ __device__ constexpr int lut_bytes(int rows) {
@@ -603,12 +432,12 @@ __device__ __forceinline__ float chunk_sx(const uint4* xrow, int q) {
 // (w[0..3]), or int8 bytes 32t .. 32t + 31 (w[0..7])
 template <int C>
 __device__ __forceinline__ void lane_words(uint32_t (&w)[8], const uint4* row, int tq) {
-  const uint4 a = row[C == kInt8 ? 2 * tq : tq];
+  const uint4 a = row[int8_codes<C>() ? 2 * tq : tq];
   w[0] = a.x;
   w[1] = a.y;
   w[2] = a.z;
   w[3] = a.w;
-  if (C == kInt8) {
+  if (int8_codes<C>()) {
     const uint4 b = row[2 * tq + 1];
     w[4] = b.x;
     w[5] = b.y;
@@ -660,7 +489,33 @@ __device__ __forceinline__ void fused_frags(uint32_t (&a)[2][4], uint32_t wl, ui
     }
 }
 
-// kFusedLut, kSelectLut: this lane's group of each sub-step, counted from its
+// kFusedInt8: code q of byte b of wx = w ^ 0x80808080 (the sign bits flipped:
+// q + 128) as an exact f32: 2^23 + q + 128 by one byte permute, minus 2^23 + 128
+__device__ __forceinline__ float int8_f32(uint32_t wx, int b) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + b)) - 8388736.f;
+}
+
+// kFusedInt8: the A fragments of sub-step s from the lane's code words of row
+// g (wl) and row g + 8 (wh), bytes 8s .. 8s + 7 (words 2s, 2s + 1) as in
+// a_frags, with their group's scales and zeros sz = {s_lo, s_hi, z_lo, z_hi}:
+// each weight bf16(fma(q, s, z))
+__device__ __forceinline__ void fused_int8_frags(uint32_t (&a)[2][4], const uint32_t (&wl)[8],
+                                                 const uint32_t (&wh)[8], int s,
+                                                 const float (&sz)[4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint32_t l = wl[2 * s + q] ^ 0x80808080u, h = wh[2 * s + q] ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // bytes 2i, 2i + 1
+      a[q][2 * i] = bf16x2_rn(fmaf(int8_f32(l, 2 * i), sz[0], sz[2]),
+                              fmaf(int8_f32(l, 2 * i + 1), sz[0], sz[2]));
+      a[q][2 * i + 1] = bf16x2_rn(fmaf(int8_f32(h, 2 * i), sz[1], sz[3]),
+                                  fmaf(int8_f32(h, 2 * i + 1), sz[1], sz[3]));
+    }
+  }
+}
+
+// kFusedLut, kSelectLut, kFusedInt8: this lane's group of each sub-step, counted from its
 // chunk's first group: (kc % g + 8(4t + s)) / g. Where g divides 128 or is a
 // multiple of it, kc % g is 0 in every chunk and the groups are fixed.
 __device__ __forceinline__ void lane_groups(int (&js)[4], int kc, int group_size, int tq) {
@@ -668,7 +523,7 @@ __device__ __forceinline__ void lane_groups(int (&js)[4], int kc, int group_size
   for (int s = 0; s < 4; ++s) js[s] = (kc % group_size + 8 * (4 * tq + s)) / group_size;
 }
 
-// kFusedLut, kSelectLut: {s_lo, s_hi, z_lo, z_hi} of the sub-step whose
+// kFusedLut, kSelectLut, kFusedInt8: {s_lo, s_hi, z_lo, z_hi} of the sub-step whose
 // group is j, from a stage's [szn][2][stride] scales and zeros at this
 // lane's row g (sz)
 __device__ __forceinline__ void lane_scales(float (&v)[4], const float* sz, int j, int stride) {
@@ -729,8 +584,8 @@ __device__ __forceinline__ float zero_term(float s, float z) {
   return C == kMagic4 ? fmaf(-136.f, s, z) : z;
 }
 
-// chunks of one fold: a group's (kLut4) or one (a 128-k slice; B and E fold
-// nothing, and count each chunk as a fold of the plan)
+// chunks of one fold: a group's (kLut4) or one (a 128-k slice; B, E and
+// int8_fused fold nothing, and count each chunk as a fold of the plan)
 template <int C>
 __device__ __forceinline__ int fold_chunks(int group_size) {
   return C == kLut4 ? group_size / kChunkA : 1;
@@ -740,7 +595,7 @@ __device__ __forceinline__ int fold_chunks(int group_size) {
 template <int C>
 __host__ __device__ constexpr size_t block_smem_bytes(int tn, int szn) {
   return (size_t)kBlockStages * (8 * tn * kXRow * 16 + kRowsA * code_stride<C>() * 16 +
-                                 2 * szn * sz_stride<C>(kRowsA) * 4) +
+                                 2 * szn * sz_stride<C>(kRowsA, szn) * 4) +
          lut_bytes<C>(kRowsA) + (fused<C>() ? 0 : 2 * 8 * tn * 4);
 }
 
@@ -776,7 +631,7 @@ __device__ __forceinline__ void block_body(BLOCK_PARAMS) {
   constexpr int T = 8 * TN;                       // tokens per block
   constexpr int NST = kBlockStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
-  constexpr int SZR = sz_stride<C>(kRowsA);
+  const int SZR = sz_stride<C>(kRowsA, szn);
   constexpr int kSxTok = (4 * T + kThreadsA - 1) / kThreadsA;  // tokens per summing thread
   constexpr int kTileRow = kRowsA + 4;            // floats per token row of the output tile
   static_assert(T * kTileRow * 4 <= NST * T * kXRow * 16, "output tile fits the x stages");
@@ -835,8 +690,8 @@ __device__ __forceinline__ void block_body(BLOCK_PARAMS) {
     }
   };
 
-  // P: the fold's dot (B, E: the split's); acc: the split's sum; out: the
-  // splits summed in order
+  // P: the fold's dot (B, E, int8_fused: the split's); acc: the split's
+  // sum; out: the splits summed in order
   float P[TN][4], acc[TN][4], out[TN][4];
 #pragma unroll
   for (int i = 0; i < TN; ++i)
@@ -906,6 +761,10 @@ __device__ __forceinline__ void block_body(BLOCK_PARAMS) {
           chunk_dot<TN>(P, frags(plut, std::false_type{}), xs[st], gq, tq);
         else
           chunk_dot<TN>(P, frags(plut, std::true_type{}), xs[st], gq, tq);
+      } else if constexpr (C == kFusedInt8) {
+        chunk_dot<TN>(
+            P, [&](uint32_t (&a)[2][4], int s) { fused_int8_frags(a, wl, wh, s, sz[s]); },
+            xs[st], gq, tq);
       } else {
         chunk_dot<TN>(P, frags(flut, std::true_type{}), xs[st], gq, tq);
       }
@@ -1000,7 +859,7 @@ __device__ __forceinline__ void block_body(BLOCK_PARAMS) {
   if (tid == 0) counters[tile_id] = 0;  // ready for the next launch
 }
 
-// the block body of A, B, C and int8_post, registers left to ptxas
+// the block body of every policy but E's, registers left to ptxas
 template <int C, int TN, typename OutT>
 __global__ void __launch_bounds__(kThreadsA) q4_post_mma(BLOCK_PARAMS) {
   block_body<C, TN, OutT>(BLOCK_ARGS);
@@ -1009,7 +868,7 @@ __global__ void __launch_bounds__(kThreadsA) q4_post_mma(BLOCK_PARAMS) {
 // kernel E's block body, with a register budget given: left to its own
 // heuristics ptxas fits the 2-tile body (about 131 registers live) into 128
 // with a spill, for 4 blocks an SM; with 3 blocks asked for (170 registers;
-// 255 at 8 tiles, 1 block) it spills nothing. A, B, C and int8_post keep the
+// 255 at 8 tiles, 1 block) it spills nothing. The other policies keep the
 // heuristics: asked for blocks they take more registers and lose occupancy
 // (on an H100 kernel A at 4 tiles ran 21% slower)
 template <int TN, typename OutT>
@@ -1032,7 +891,8 @@ constexpr auto block_kernel() {
 template <int C>
 __host__ __device__ constexpr size_t dec_smem_bytes(int warps, int m, int nch, int splits,
                                                     int szn) {
-  return (size_t)warps * kDecStages * (16 * code_stride<C>() * 16 + 2 * szn * sz_stride<C>(16) * 4) +
+  return (size_t)warps * kDecStages *
+             (16 * code_stride<C>() * 16 + 2 * szn * sz_stride<C>(16, szn) * 4) +
          (size_t)splits * 8 * 16 * 4 + lut_bytes<C>(16) + (fused<C>() ? 0 : (size_t)m * nch * 4);
 }
 
@@ -1075,7 +935,7 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
   constexpr bool kFused = fused<C>();
   constexpr int NST = kDecStages;
   constexpr int CU = code_units<C>(), CS = code_stride<C>();
-  constexpr int SZR = sz_stride<C>(16);
+  const int SZR = sz_stride<C>(16, szn);
   const int W = blockDim.x / 32, nthreads = blockDim.x;
   extern __shared__ __align__(16) uint4 dyn[];
   const int J = fold_chunks<C>(group_size);       // chunks per fold
@@ -1158,7 +1018,8 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
   const bool fixed_groups = group_size % kChunkA == 0 || kChunkA % group_size == 0;
   int js[4];
   if (kFused) lane_groups(js, 0, group_size, tq);
-  // P: the fold's dot (B, E: the split's); acc: the split's sum (A, C, int8_post)
+  // P: the fold's dot (B, E, int8_fused: the split's); acc: the split's sum
+  // (A, C, int8_post)
   float P[1][4] = {{0.f, 0.f, 0.f, 0.f}}, acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
   for (int j = 0; j < total; ++j) {
     const int c = chunk_of(j), st = j % NST;
@@ -1206,6 +1067,12 @@ q4_post_mma_dec(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__
           dot(frags(plut, std::true_type{}));
       } else if constexpr (C == kFusedLut) {
         dot(frags(flut, std::true_type{}));
+      } else if constexpr (C == kFusedInt8) {
+        dot([&](uint32_t (&a)[2][4], int s) {
+          float v[4];
+          lane_scales(v, sz, js[s], SZR);
+          fused_int8_frags(a, wl, wh, s, v);
+        });
       } else {
         dot([&](uint32_t (&a)[2][4], int s) { a_frags<C>(a, wl, wh, s, lut_lo, lut_hi); });
       }
@@ -1301,16 +1168,23 @@ int launch_post(const void* x, const void* codes, const void* scales, const void
                 int num_groups, int lut_stride, int out_dtype, int tn, int folds_per_split,
                 int split_blocks, void* scratch, void* counters, void* stream) {
   constexpr bool kFused = fused<C>();
-  if (group_size <= 0 || group_size % (C == kFusedLut ? 8 : kChunkA) || num_groups < 1 ||
-      folds_per_split < 1 || m < 1 || n < 1 || (tn != 1 && tn != 2 && tn != 4 && tn != 8) ||
-      ((C == kLut4 || kFused) && lut == nullptr))
+  // group sizes: B multiples of 8; int8_fused 16 or more that divide 128 or
+  // are multiples of it; the others multiples of 128
+  const bool group_ok =
+      group_size > 0 && (C == kFusedLut    ? group_size % 8 == 0
+                         : C == kFusedInt8 ? group_size >= 16 && (kChunkA % group_size == 0 ||
+                                                                  group_size % kChunkA == 0)
+                                           : group_size % kChunkA == 0);
+  const bool reads_lut = C == kLut4 || C == kFusedLut || C == kSelectLut;
+  if (!group_ok || num_groups < 1 || folds_per_split < 1 || m < 1 || n < 1 ||
+      (tn != 1 && tn != 2 && tn != 4 && tn != 8) || (reads_lut && lut == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nfolds = C == kLut4 ? num_groups : chunks_of(num_groups, group_size);
   const int splits = (nfolds + folds_per_split - 1) / folds_per_split;
   if ((split_blocks != 1 && (split_blocks != splits || tn == 1)) || splits > 65535 ||
       (split_blocks > 1 && (scratch == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the groups a 128-k chunk spans (B, E; the others stage one)
+  // the groups a 128-k chunk spans (B, E, int8_fused; the others stage one)
   const int szn = !kFused || group_size % kChunkA == 0 ? 1
                   : kChunkA % group_size == 0          ? kChunkA / group_size
                                                        : (kChunkA - 1) / group_size + 2;
@@ -1337,11 +1211,11 @@ extern "C" {
 // kw: 32-bit words of a packed row (kp / 8 for 4-bit codes, kp / 4 for int8).
 // out_dtype: 0 float32, 1 bfloat16, 2 float16.
 
-// Kernels A, B, C, E and int8_post (lut: A's, B's and E's; C and int8_post
-// read none). tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the
-// block body); folds_per_split: the folds of k each split sums (kernel A:
-// groups; the others: 128-k slices, ceil(num_groups * group_size / 128) of
-// them); split_blocks: 1 (a block sums every split of its tile: in turn, or
+// The six kernels (lut: A's, B's and E's; C and the int8 kernels read none).
+// tn: n8 token tiles per warp (1: the decode body; 2, 4 or 8: the block
+// body); folds_per_split: the folds of k each split sums (kernel A: groups;
+// the others: 128-k slices, ceil(num_groups * group_size / 128) of them);
+// split_blocks: 1 (a block sums every split of its tile: in turn, or
 // with tn 1 by warps) or the number of splits (the block body, one block
 // each). With more than one split block, scratch holds splits * ceil(n / 64)
 // * ceil(m / (8 tn)) * 8 tn * 64 floats and counters ceil(n / 64) * ceil(m /
@@ -1363,13 +1237,6 @@ POST_ENTRY(q4_lut_fused, kFusedLut)
 POST_ENTRY(q4_int4_magic, kMagic4)
 POST_ENTRY(q4_lut_select, kSelectLut)
 POST_ENTRY(int8_post, kInt8)
-
-// int8_fused on the CUDA-core kernel.
-int int8_fused(const void* x, const void* codes, const void* scales, const void* zeros, void* y,
-               int m, int n, int k, int kw, int group_size, int num_groups, int out_dtype,
-               void* stream) {
-  return launch_int8_fused(x, codes, scales, zeros, y, m, n, k, kw, group_size, num_groups,
-                           out_dtype, stream);
-}
+POST_ENTRY(int8_fused, kFusedInt8)
 
 }  // extern "C"

@@ -2,16 +2,15 @@
 plain PyTorch versions and launch counts (counterpart of
 ``any4_tpu/ops/pallas/gemv.py``).
 
-Ten kernels. Nine on the tensor cores, at every m, in a decode body (m <=
+Ten kernels, all on the tensor cores, at every m, in a decode body (m <=
 8) and a block body that give the same bits, with k split by
 :func:`kernel_a_plan` (:data:`POST_KERNELS`): in ``csrc/q4_lut_gemv.cu``
-A, B, C, E and ``int8_post`` (``mma.sync`` m16n8k16, bf16 in, f32 sums;
-the bodies are templated on how a code becomes a bf16 value), in
-``csrc/w4a8_gemv.cu`` the four W4A8/W8A8 entry points (``mma.sync``
-m16n8k32, int8 in, exact int32 sums per 128-wide slice; the bodies are
-templated on the code width, and the fused entry points quantize float x
-first). ``int8_fused`` runs on a CUDA-core kernel in
-``csrc/q4_lut_gemv.cu``:
+A, B, C, E, ``int8_post`` and ``int8_fused`` (``mma.sync`` m16n8k16, bf16
+in, f32 sums; the bodies are templated on how a code becomes a bf16
+value), in ``csrc/w4a8_gemv.cu`` the four W4A8/W8A8 entry points
+(``mma.sync`` m16n8k32, int8 in, exact int32 sums per 128-wide slice; the
+bodies are templated on the code width, and the fused entry points
+quantize float x first):
 
 - :func:`q4_lut_post` (kernel A) replaces ``_q4t_kernel`` and
   ``_q4post_kernel``: the LUT is rounded to bf16 before the dot, bf16 x
@@ -38,8 +37,8 @@ first). ``int8_fused`` runs on a CUDA-core kernel in
   (``int8q``/``int8t``/``int8g``).
 - :func:`int8_fused` replaces ``_int8_kernel``: kernel B's function with the
   int8 code ``q`` in place of ``lut[c]``, each weight ``bf16(q * s + z)``
-  (one fused multiply-add), then the dot in f32. Group sizes of 16 or more
-  that divide 128 or are multiples of it (row-layout ``int8``).
+  (one fused multiply-add), then the dot in f32; B's plan. Group sizes of
+  16 or more that divide 128 or are multiples of it (row-layout ``int8``).
 
 The W4A8 and W8A8 kernels multiply int8 activations with 4-bit or int8
 codes, exact int32 dots per 128-wide slice, then ``y += P * s + sum(xq) *
@@ -100,13 +99,13 @@ _FNS = {}   # name -> ctypes function, filled at first launch
 _RAMPS = {}  # device -> int4 ramp LUT
 _SMS = {}    # device -> streaming multiprocessors
 _SPLIT_BUFS = {}  # (device, stream) -> the tensor-core kernels' buffers
-# the kernels on the tensor cores, which take kernel_a_plan's launch plan
-# and the split buffers: A, B, C, E and int8_post (csrc/q4_lut_gemv.cu,
-# post_mma; bf16 x), D and w8a8 (csrc/w4a8_gemv.cu, a8_mma; int8 x) and
-# their fused twins (a8_mma; float x)
+# the kernels, all on the tensor cores, which take kernel_a_plan's launch
+# plan and the split buffers: A, B, C, E, int8_post and int8_fused
+# (csrc/q4_lut_gemv.cu, post_mma; bf16 x), D and w8a8 (csrc/w4a8_gemv.cu,
+# a8_mma; int8 x) and their fused twins (a8_mma; float x)
 POST_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_int4_magic",
-                "q4_lut_select", "int8_post", "w4a8", "w8a8", "w4a8_fused",
-                "w8a8_fused")
+                "q4_lut_select", "int8_post", "int8_fused", "w4a8", "w8a8",
+                "w4a8_fused", "w8a8_fused")
 # the kernels that read a LUT ([n, 16] per row or [1, 16] global)
 LUT_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_lut_select")
 INT8_X_KERNELS = ("w4a8", "w8a8")
@@ -163,8 +162,8 @@ def kernel_a_plan(m: int, n: int, num_groups: int, sms: int):
 
     Kernel A folds its affine once per group; C and ``int8_post`` fold once
     per 128-wide slice, so their ``num_groups`` is the slice count ``kp /
-    128`` (at g=128 the same number), and B and E, which fold nothing, cut
-    their ``ceil(G g / 128)`` slices alike."""
+    128`` (at g=128 the same number), and B, E and ``int8_fused``, which
+    fold nothing, cut their ``ceil(G g / 128)`` slices alike."""
     tn = next((t for t in (1, 2, 4) if m <= 8 * t), 8)
     row_blocks = -(-n // A_ROWS)
     want = min(num_groups, -(-A_DEC_WARPS_PER_SM * sms // -(-n // 16)))
@@ -184,7 +183,7 @@ def post_launch_plan(name: str, m: int, n: int, k: int, num_groups: int,
     the fused W4A8/W8A8 kernels room after the partials for the pre-pass's
     ``sx`` (``ceil(m / 4) * 4`` floats) and ``xq`` (``m * ceil(k / 16) *
     16`` bytes). A fused kernel and its external twin get the same plan, and
-    so do B and E."""
+    so do B, E and ``int8_fused``."""
     folds = num_groups if name == "q4_lut_post" \
         else -(-num_groups * group_size // SLICE)
     tn, splits, per, split_blocks = kernel_a_plan(m, n, folds, sms)
@@ -380,26 +379,6 @@ def _check_operands(name, x, packed, scales, zeros, lut, out_dtype):
     return n, kp // (4 if name in BYTE_KERNELS else 8), G
 
 
-def _launch_int8_fused(name, x, packed, scales, zeros, group_size,
-                       out_dtype):
-    """``int8_fused`` on its CUDA-core kernel."""
-    n, kw, G = _check_operands(name, x, packed, scales, zeros, None,
-                               out_dtype)
-    m, k = x.shape
-    xb = x.to(torch.bfloat16).contiguous()
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return y
-    err = _fn(name)(
-        xb.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), y.data_ptr(), m, n, k, kw, group_size, G,
-        _OUT_DTYPES[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return y
-
-
 def _sm_count(dev) -> int:
     sms = _SMS.get(dev)
     if sms is None:
@@ -475,14 +454,10 @@ def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):
 
 
 def _launch_no_lut(name, x, packed, scales, zeros, group_size, out_dtype):
-    """The kernels that read no LUT: the W4A8/W8A8 kernels and
-    ``int8_post`` on the tensor cores, ``int8_fused`` on the CUDA-core
-    kernel."""
-    if name in POST_KERNELS:
-        return _launch_post(name, x, packed, scales, zeros, None, group_size,
-                            out_dtype)
-    return _launch_int8_fused(name, x, packed, scales, zeros, group_size,
-                              out_dtype)
+    """The kernels that read no LUT: the W4A8/W8A8 kernels, ``int8_post``
+    and ``int8_fused``."""
+    return _launch_post(name, x, packed, scales, zeros, None, group_size,
+                        out_dtype)
 
 
 def _dispatch(name, plain, launch, x, *args):

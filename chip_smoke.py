@@ -9,9 +9,9 @@ Phases, each printing JSON lines:
    versions, and the time to build the CUDA kernels from
    ``any4_tpu_torch/ops/csrc`` with nvcc (one process per source, in
    parallel); then two ``ptxas`` lines: the registers and spill bytes of each
-   instantiation of the tensor-core bodies (kernels A, B, C, E and
-   ``int8_post``; the four W4A8/W8A8 kernels, with the fused ones'
-   pre-pass) from nvcc's ``-Xptxas -v`` report.
+   instantiation of the tensor-core bodies (kernels A, B, C, E,
+   ``int8_post`` and ``int8_fused``; the four W4A8/W8A8 kernels, with the
+   fused ones' pre-pass) from nvcc's ``-Xptxas -v`` report.
 2. kernels: kernel A (``q4_lut_post``, g=128) and kernel B
    (``q4_lut_fused``, g=64) at m in {1, 8, 16, 128, 512} (512: the
    ``FUSED_M_MAX`` prefill chunk), at Llama-3.2-1B's linear shapes, each
@@ -34,11 +34,12 @@ Phases, each printing JSON lines:
    which run on kernel A's bodies, for D and ``w8a8`` on int8 x, which
    run on their own pair of tensor-core bodies, and for D-fused and
    ``w8a8_fused`` on bf16 and float32 x (m = 8, 16, 33 and 64) on the same
-   bodies, and for B (g=64 with per-row LUTs, g=128 with the int4 ramp) and
-   E (g=128, per-row LUTs), which run on kernel A's bodies
-   (``post_bit_equal``); B's edge cases at g in {16, 32, 64, 128, 256} and
-   E's at g in {128, 256}, as C's below with n = 130, k = 1408 as well and
-   per-row and global LUTs; the identity weight quantized to any4 at g=64
+   bodies, and for B (g=64 with per-row LUTs, g=128 with the int4 ramp), E
+   (g=128, per-row LUTs) and ``int8_fused`` (g=64 and g=128), which run on
+   kernel A's bodies (``post_bit_equal``); B's and ``int8_fused``'s edge
+   cases at g in {16, 32, 64, 128, 256} and E's at g in {128, 256}, as C's
+   below with n = 130, k = 1408 as well and, for B and E, per-row and
+   global LUTs; the identity weight quantized to any4 at g=64
    through B on the card gives x back bit for bit at m in {1, 4, 130}
    (``fused_identity``); then ``fused_equals_external``: at the 1B
    shapes, m in {1, 8, 16, 64}, bf16 and float32 x, float32 and bf16
@@ -102,26 +103,27 @@ Phases, each printing JSON lines:
    ``quantize_activations``, which rounds half to even, then D), and
    float32, bf16 and float16 outputs.
 7. int8 kernels (slice 4): ``w8a8`` (int8 x) at m in {1, 8, 16, 128, 512,
-   1024},
-   ``int8_post`` at {1, 8, 16, 128, 512}, ``w8a8_fused`` at {1, 8, 16,
-   32, 64}
-   (g=128) and ``int8_fused``
-   (g=64) at {1, 16}, at the 1B linear shapes with random int8 codes (-128
-   included), timed and held against their plain versions as in 2: bf16
-   outputs within 1e-2 * max, float32 within 1e-5 * max (``w8a8``,
-   ``w8a8_fused``: exact integer dots) and 1e-4 * max (``int8_post``,
-   ``int8_fused``). Then edge cases as in 6 (rows of codes at -128, n not a
-   multiple of 8 with k = 1408 and 1407, a misaligned x, the 1e-8 floor,
-   half-way ties, ``int8_fused`` at g = 16, 64 and 256, three output types),
-   the identity weight through ``int8_fused`` (x back bit for bit), and
+   1024}, ``int8_post`` (g=128) and ``int8_fused`` (g=64) at {1, 8, 16,
+   128, 512}, ``w8a8_fused`` at {1, 8, 16, 32, 64} (g=128), at the 1B
+   linear shapes with random int8 codes (-128 included), timed and held
+   against their plain versions as in 2: bf16 outputs within 1e-2 * max,
+   float32 within 1e-5 * max (``w8a8``, ``w8a8_fused``: exact integer
+   dots) and 1e-4 * max (``int8_post``, ``int8_fused``, at every m). Then
+   edge cases as in 6 (rows of codes at -128, n not a multiple of 8 with k =
+   1408 and 1407, a misaligned x, the 1e-8 floor, half-way ties,
+   ``int8_fused`` at g = 16, 64 and 256, three output types), the identity
+   weight through ``int8_fused`` at g = 128 (row layout) and 64 (x back bit
+   for bit at m = 1, 4 and 130: the decode body and the block body), and
    any4q8's LUT snap on the card against the CPU's (equal).
-8. any4 at g=64, int4 and w4a8 main paths: the 1B model at full width and
-   depth (``--layers`` cuts it) quantized by ``quantize_model(fmt="any4",
-   group_size=64, kmeans_iters=10)`` or ``quantize_model(fmt=...,
-   group_size=128)``; every one of the 112 linears must be ``any4`` (g=64,
-   kernel B), ``int4p`` or ``w4a8``. The any4 and int4 models' prefill
-   logits with float32 activations are held within 2e-2 * max of the
-   dequantized weights' dense float32 forward. In the
+8. any4 at g=64, int4, w4a8 and int8 at g=64 main paths: the 1B model at
+   full width and depth (``--layers`` cuts it) quantized by
+   ``quantize_model(fmt="any4", group_size=64, kmeans_iters=10)``,
+   ``quantize_model(fmt="int8", group_size=64)`` or
+   ``quantize_model(fmt=..., group_size=128)``; every one of the 112
+   linears must be ``any4`` (g=64, kernel B), ``int8`` (g=64,
+   ``int8_fused``), ``int4p`` or ``w4a8``. The any4, int8 g=64 and int4
+   models' prefill logits with float32 activations are held within 2e-2 *
+   max of the dequantized weights' dense float32 forward. In the
    w4a8 model's prefill (float32 activations; m=16 runs D-fused, m=128
    runs D) every linear is held within 1e-5 * max of the same linear on the
    CPU through the plain versions, which quantize the activations the same
@@ -130,16 +132,17 @@ Phases, each printing JSON lines:
    difference elsewhere moves an activation by 1/127 of its row's absmax,
    so that difference measures flips). ``generate`` at batch 1 and 4 as in
    4, with
-   exact launch counts: B (any4 g=64; kernel A never) and C once per linear
-   per forward (per 512-row chunk);
+   exact launch counts: B (any4 g=64; kernel A never), ``int8_fused`` (int8
+   g=64; ``int8_post`` never) and C once per linear per forward (per
+   512-row chunk);
    D-fused once per linear per forward of at most 64 rows, D once per
    linear per larger forward (per ``_int8_m_tile(k)`` chunk above 1024
    rows); then one forward over a 1024-token prompt as in 4 (host ms, best
    of 3). Then each model behind the engine (paged bf16 pools, the prompts
    of 5) at ``run(burst=1)`` and ``run(burst=8, pipeline=True)``: tokens in
    the vocabulary, both runs equal, exact launch counts, and the figures of
-   5; for any4 at g=64 also the teacher-forced decode step of 5 (within
-   2e-2 * max).
+   5; for any4 and int8 at g=64 also the teacher-forced decode step of 5
+   (within 2e-2 * max).
 9. int8, w8a8 and any4q8 main paths (slice 4), as in 8: the 96 k = 2048
    linears are ``int8q``/``w8a8q``/``any4q8`` and the 16 down_projs
    ``int8g``/``w8a8g``/``any4q8g`` (any4q8 with kmeans_iters=10). int8's
@@ -158,13 +161,13 @@ Phases, each printing JSON lines:
     ``layout="row"``, ``w8a8q``, ``w8a8t`` and ``w8a8g`` run ``w8a8`` on
     the same codes and give bit-equal logits; ``int8q``, ``int8t`` and
     ``int8g`` run ``int8_post`` and give bit-equal logits; ``int8`` with
-    ``layout="row"`` (g=128) and at g=64 runs ``int8_fused`` on every
-    linear, within 2e-2 * max of the dense float32 forward with float32
-    activations; exact launch counts.
+    ``layout="row"`` (g=128) runs ``int8_fused`` on every linear, within
+    2e-2 * max of the dense float32 forward with float32 activations (int8
+    at g=64 runs at full depth in 8); exact launch counts.
 12. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
-    the tensor-core kernels A, B, C, E, ``int8_post`` and the four
-    W4A8/W8A8 kernels also ``by_m``).
+    the ten linear kernels, all on the tensor cores, also ``by_m``;
+    ``int8_fused``'s launches from the int8 g=64 ``generate`` of 8).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -228,7 +231,7 @@ INT8_KERNELS = {
                   "any4_tpu/ops/pallas/gemv.py:878 _int8t_kernel",
                   (1, 8, 16, 128, 512), 128),
     "int8_fused": (SOURCE, "any4_tpu/ops/pallas/gemv.py:913 _int8_kernel",
-                   (1, 16), 64),
+                   (1, 8, 16, 128, 512), 64),
 }
 INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core rate
 PROMPT_LEN = 64
@@ -249,10 +252,9 @@ ATTN_HEADS, ATTN_REP, ATTN_HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16   # 1B serving
 ATTN_CASES = ((1, 2048), (8, 2048), (8, 8192))   # (slots, context)
 ATTN_TIMED = (8, 2048)           # the shape the kernels line reports
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
-# profiler kernel names of the linear kernels (SOURCE's tensor-core bodies
-# and its CUDA-core kernel, which is int8_fused alone; W4A8_SOURCE's
-# bodies, their pre-pass included)
-LINEAR_KERNEL_NAMES = ("q4_post_mma", "q4_lut_kernel", "a8_mma")
+# profiler kernel names of the linear kernels (SOURCE's tensor-core bodies,
+# int8_fused's included; W4A8_SOURCE's bodies, their pre-pass included)
+LINEAR_KERNEL_NAMES = ("q4_post_mma", "a8_mma")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
 
@@ -547,11 +549,12 @@ def fused_equals_external(gemv, packing, quant):
 
 
 def post_edge_cases(gemv, packing, name, gs=(128, 256)):
-    """Kernel C, ``int8_post``, D, ``w8a8``, B or E on shapes the 1B path
-    does not give them, as kernel A's edge cases: m in {3, 9, 17, 130}, n in
-    {24, 1000} (B and E also n = 130 with k = 1408), k = 2048 and 1004, the
-    group sizes ``gs`` (g = 256: the slice fold reads each group's scale
-    twice; B at g < 128: several groups a 128-k slice), per-row and global
+    """Kernel C, ``int8_post``, D, ``w8a8``, B, E or ``int8_fused`` on
+    shapes the 1B path does not give them, as kernel A's edge cases: m in
+    {3, 9, 17, 130}, n in {24, 1000} (B, E and ``int8_fused`` also n = 130
+    with k = 1408), k = 2048 and 1004, the group sizes ``gs`` (g = 256: the
+    slice fold reads each group's scale twice; B and ``int8_fused`` at g <
+    128: several groups a 128-k slice), per-row and global
     LUTs (B and E), int8 codes of -128 (a quarter of the rows all -128),
     float32 (1e-4 * max; 1e-5 for D and ``w8a8``, whose integer dots are
     exact), bf16 and float16 (1e-2 * max) outputs, x (int8 for D and
@@ -560,8 +563,8 @@ def post_edge_cases(gemv, packing, name, gs=(128, 256)):
     fn, plain = post_call(gemv, name), post_call(gemv, name, plain=True)
     cases = 0
     lut_kernel = name in gemv.LUT_KERNELS
-    shapes = ((24, 2048), (1000, 1004)) + (((130, 1408),) if lut_kernel
-                                           else ())
+    shapes = ((24, 2048), (1000, 1004)) + (
+        ((130, 1408),) if lut_kernel or name == "int8_fused" else ())
     for n, k in shapes:
         for g in gs:
             packed, _, _, _ = post_operands(gemv, packing, name, n, k, g,
@@ -1033,12 +1036,15 @@ def int8_edge_cases(gemv, packing, quant, linear):
     for k, g in ((1024, 128), (2048, 64)):
         qt = linear.quantize_tensor(torch.eye(k, device="cuda"), "int8", g,
                                     layout="row")
-        x = torch.randn((4, k), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        check(qt.fmt == "int8" and torch.equal(gemv.int8_fused(
-            x, qt.packed, qt.scales, qt.zeros, g, torch.bfloat16), x),
-            f"int8_fused on the identity weight (k={k}, g={g}) != x")
-        cases += 1
+        check(qt.fmt == "int8", f"int8 identity (k={k}, g={g}) format")
+        for m in (1, 4, 130):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            check(torch.equal(gemv.int8_fused(
+                x, qt.packed, qt.scales, qt.zeros, g, torch.bfloat16), x),
+                f"int8_fused on the identity weight (k={k}, g={g}, m={m}) "
+                f"!= x")
+            cases += 1
     lut = torch.rand((2048, 16), generator=gen, device="cuda") * 15.0 - 8.0
     for l in (lut, lut[:1]):
         lut8, sr = linear.snap_lut8(l)
@@ -1518,6 +1524,7 @@ MAIN_FORMATS = {
     "any4q8": ("any4q8", "any4q8g", "held", {"kmeans_iters": 10}),
     "any4_g64": ("any4", "any4", "dense",
                  {"fmt": "any4", "group_size": 64, "kmeans_iters": 10}),
+    "int8_g64": ("int8", "int8", "dense", {"fmt": "int8", "group_size": 64}),
 }
 
 
@@ -1525,7 +1532,8 @@ def int_layer_launches(gemv, linear, fmt, ms):
     """Expected launches per decoder layer (its 7 linears) over forwards of
     ``ms`` rows each: int4p one kernel C call per ``FUSED_M_MAX`` rows, int8
     one ``int8_post`` call per ``FUSED_M_MAX`` rows, any4 at g=64 one kernel
-    B call per ``FUSED_M_MAX`` rows; w4a8, w8a8 and any4q8
+    B call and int8 at g=64 one ``int8_fused`` call per ``FUSED_M_MAX``
+    rows; w4a8, w8a8 and any4q8
     one fused call at m <= ``FUSED_ACT_M_MAX``, else one call on quantized
     activations, or one per ``_int8_m_tile(k)`` rows once m exceeds
     ``max(FUSED_M_MAX, tile)`` (the tile is 512 for down_proj's k = 8192,
@@ -1540,9 +1548,10 @@ def int_layer_launches(gemv, linear, fmt, ms):
         for m in ms:
             if grouped and m > linear._XLA_GROUPED_M_MAX:
                 continue                                  # dequantized
-            if fmt in ("int4", "int8", "any4_g64"):
+            if fmt in ("int4", "int8", "any4_g64", "int8_g64"):
                 name = {"int4": "q4_int4_magic", "int8": "int8_post",
-                        "any4_g64": "q4_lut_fused"}[fmt]
+                        "any4_g64": "q4_lut_fused",
+                        "int8_g64": "int8_fused"}[fmt]
                 calls = 1 if grouped else -(-m // linear.FUSED_M_MAX)
             else:
                 ext = "w4a8" if fmt == "w4a8" else "w8a8"
@@ -1569,8 +1578,8 @@ def check_launches(gemv, want, layers, what):
 def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     """Llama-3.2-1B at full width (``--layers`` cuts the depth), bf16
     weights from ``init_params(seed=0)``, quantized as path ``fmt`` says
-    (int4, w4a8, int8, w8a8 or any4q8 at g=128, any4 at g=64); see the
-    module docstring (phases 8 and 9)."""
+    (int4, w4a8, int8, w8a8 or any4q8 at g=128, any4 or int8 at g=64); see
+    the module docstring (phases 8 and 9)."""
     kind, down_kind, how, qkw = MAIN_FORMATS[fmt]
     qkw = {"fmt": fmt, "group_size": 128, **qkw}
     g = qkw["group_size"]
@@ -1721,10 +1730,10 @@ def int8_layouts(gemv, llama, api, linear):
     ``w8a8g`` all quantize the activations and run ``w8a8`` on the same
     codes, so their logits are bit-equal; ``int8q``, ``int8t`` and
     ``int8g`` all run ``int8_post`` and are bit-equal; ``int8`` with
-    ``layout="row"`` at g=128 and ``int8`` at g=64 run ``int8_fused`` on
-    every linear, and their logits with float32 activations are within
-    2e-2 * max of the dequantized weights' dense float32 forward. Returns
-    the launches of the ``int8_fused`` forwards."""
+    ``layout="row"`` at g=128 runs ``int8_fused`` on every linear, and its
+    logits with float32 activations are within 2e-2 * max of the
+    dequantized weights' dense float32 forward (``int8`` at g=64 runs at
+    full depth in ``int_main_path``)."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama_3_2_1b(),
                               num_hidden_layers=2)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1733,13 +1742,12 @@ def int8_layouts(gemv, llama, api, linear):
     ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
                         device="cuda", dtype=torch.int32)
     out = {}
-    fused_launches = {}
     for kernel, names in (
             ("w8a8", (("w8a8", 128, "row"), ("w8a8q", 128, None),
                       ("w8a8t", 128, None), ("w8a8g", 128, None))),
             ("int8_post", (("int8q", 128, None), ("int8t", 128, None),
                            ("int8g", 128, None))),
-            ("int8_fused", (("int8", 128, "row"), ("int8", 64, None)))):
+            ("int8_fused", (("int8", 128, "row"),))):
         logits = []
         for name, g, layout in names:
             kw = {"layout": layout} if layout else {}
@@ -1752,7 +1760,6 @@ def int8_layouts(gemv, llama, api, linear):
             if kernel == "int8_fused":
                 got = llama.forward(to_float32(q, linear), cfg32, ids)[0]
                 torch.cuda.synchronize()
-                fused_launches = dict(gemv.LAUNCHES)
                 ref = llama.forward(to_float32(q, linear, dequantize=True),
                                     cfg32, ids)[0]
                 err = rel_err(got, ref)
@@ -1773,15 +1780,13 @@ def int8_layouts(gemv, llama, api, linear):
                   f"the logits of {[n for n, _, _ in names]} are not "
                   f"bit-equal")
             out[f"{kernel}_names_bit_equal"] = [n for n, _, _ in names]
-    emit({"phase": "int8_layouts", "layers": 2, "m": 128, **out,
-          "launches_int8_fused_forward": fused_launches})
-    return fused_launches
+    emit({"phase": "int8_layouts", "layers": 2, "m": 128, **out})
 
 
 def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts,
                 forced=None):
-    """The engine over a main path's model (int4, w4a8, int8, w8a8 or any4
-    at g=64), paged bf16 pools, once with ``run(burst=1)`` and once with
+    """The engine over a main path's model (int4, w4a8, int8, w8a8, or any4
+    or int8 at g=64), paged bf16 pools, once with ``run(burst=1)`` and once with
     ``run(burst=8, pipeline=True)``: tokens in the vocabulary, both runs
     equal, exact launch counts. ``forced``: ``(gen_mod, llama)`` to hold a
     teacher-forced decode step with float32 activations within 2e-2 * max
@@ -2079,8 +2084,12 @@ def main():
                               ("q4_lut_select", 128, "row")):
         emit({"phase": "post_bit_equal", "name": name,
               **kernel_a_bit_equal(gemv, packing, name, g, lut_kind)})
+    for name, g in (("int8_fused", 64), ("int8_fused", 128)):
+        emit({"phase": "post_bit_equal", "name": name,
+              **kernel_a_bit_equal(gemv, packing, name, g)})
     for name, gs in (("q4_lut_fused", (16, 32, 64, 128, 256)),
-                     ("q4_lut_select", (128, 256))):
+                     ("q4_lut_select", (128, 256)),
+                     ("int8_fused", (16, 32, 64, 128, 256))):
         emit({"phase": "post_edge_cases", "name": name, "group_sizes": gs,
               "passed": post_edge_cases(gemv, packing, name, gs)})
     emit({"phase": "fused_identity", "passed": fused_identity(gemv, linear)})
@@ -2106,6 +2115,7 @@ def main():
     torch.cuda.empty_cache()
     # each kernel's launches in the main path that carries it
     for fmt, names in (("any4_g64", ("q4_lut_fused",)),
+                       ("int8_g64", ("int8_fused",)),
                        ("int4", ("q4_int4_magic",)),
                        ("w4a8", ("w4a8", "w4a8_fused")),
                        ("int8", ("int8_post",)),
@@ -2116,13 +2126,13 @@ def main():
         if fmt != "any4q8":
             int_serving(teng, gemv, kvc, linear, qf, cfg, fmt,
                         serve_prompts(cfg),
-                        (gen_mod, llama) if fmt == "any4_g64" else None)
+                        (gen_mod, llama) if fmt in ("any4_g64", "int8_g64")
+                        else None)
         del qf
         torch.cuda.empty_cache()
     launches.update({k: v for k, v in select_path(
         args, gemv, llama, api, linear).items() if v})
-    launches["int8_fused"] = int8_layouts(gemv, llama, api,
-                                          linear)["int8_fused"]
+    int8_layouts(gemv, llama, api, linear)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2190,12 +2200,10 @@ def main():
                                        "library_ms")},
             "timed_as": (f"sum over one 1B decoder layer's 7 linears at m=1,"
                          f" g={g}"),
-            "launches_from": ("int8 forwards of 128 rows at layout=row g=128"
-                              " and g=64, 2 layers"
-                              if name == "int8_fused" else
-                              f"generate at b=1 and 4 over the "
-                              f"{'int8' if name == 'int8_post' else 'w8a8'}"
-                              f" model")})
+            "launches_from": (f"generate at b=1 and 4 over the "
+                              f"{'w8a8' if name.startswith('w8a8') else 'int8'}"
+                              f" model"
+                              f"{' at g=64' if name == 'int8_fused' else ''}")})
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int8_rows, name, INT8_KERNELS[name][2])
     emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,

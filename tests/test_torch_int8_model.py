@@ -2,7 +2,9 @@
 intermediate 4096, so that down_proj's k = 4096 takes the grouped ``g``
 route and the other six linears the ``q`` route), quantized by the port's
 ``quantize_model`` and by the JAX package's from the same float32 weights,
-as ``int8``, ``w8a8`` and ``any4q8`` (deterministic k-means init).
+as ``int8``, ``w8a8`` and ``any4q8`` (deterministic k-means init) at
+g=128, and as ``int8`` at g=64, which keeps every linear in the row
+layout (``int8_fused``).
 
 Bars: int8 and w8a8 weights equal JAX's field for field, any4q8's snapped
 codes at least 99.9% equal with scales within 1e-4 relative; logits within
@@ -30,8 +32,13 @@ from any4_tpu_torch.quant import api
 from test_torch_convert import assert_close_max, jax_to_numpy
 
 WIDTHS = dict(hidden_size=256, intermediate_size=4096, num_hidden_layers=2)
+# model -> quantize_model's arguments besides fmt=model and group_size=128
 MODELS = {"int8": {}, "w8a8": {},
-          "any4q8": dict(init="int", kmeans_iters=3)}
+          "any4q8": dict(init="int", kmeans_iters=3),
+          "int8_g64": dict(fmt="int8", group_size=64)}
+# model -> format of the six k = 256 linears, of down_proj (k = 4096)
+KINDS = {"int8": ("int8q", "int8g"), "w8a8": ("w8a8q", "w8a8g"),
+         "any4q8": ("any4q8", "any4q8g"), "int8_g64": ("int8", "int8")}
 LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
            "down_proj")
 # the plain versions each forward calls, by model and rows per forward
@@ -40,6 +47,8 @@ PLAINS = {
     ("int8", 136): {"int8_post_plain": 12},
     ("w8a8", 24): {"w8a8_fused_plain": 12, "w8a8_plain": 2},
     ("w8a8", 136): {"w8a8_plain": 12},
+    ("int8_g64", 24): {"int8_fused_plain": 14},
+    ("int8_g64", 136): {"int8_fused_plain": 14},
 }
 
 
@@ -50,16 +59,17 @@ def _ids(b=2, t=12, seed=0):
 
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def models(request):
-    fmt, kw = request.param, MODELS[request.param]
+    fmt = request.param
+    kw = {"fmt": fmt, "group_size": 128, **MODELS[fmt]}
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), **WIDTHS,
                                dtype=jnp.float32)
     tcfg = dataclasses.replace(llama.LlamaConfig.tiny(), **WIDTHS,
                                dtype=torch.float32)
     dense = jllama.init_params(jcfg, jax.random.PRNGKey(2))
-    jq = japi.quantize_model(dense, fmt=fmt, group_size=128, **kw)
+    jq = japi.quantize_model(dense, **kw)
     own = api.quantize_model(
-        convert.from_jax_params(jax_to_numpy(dense), device="cpu"), fmt=fmt,
-        group_size=128, device="cpu", **kw)
+        convert.from_jax_params(jax_to_numpy(dense), device="cpu"),
+        device="cpu", **kw)
     carried = convert.from_jax_params(jax_to_numpy(jq), device="cpu")
     return fmt, jcfg, tcfg, jq, own, carried
 
@@ -69,8 +79,7 @@ def test_weights_equal_jax(models):
     for ol, cl in zip(own["layers"], carried["layers"]):
         for key in LINEARS:
             got, ref = ol[key], cl[key]
-            kind = fmt + ("g" if key == "down_proj" else
-                          "" if fmt == "any4q8" else "q")
+            kind = KINDS[fmt][key == "down_proj"]
             assert got.fmt == ref.fmt == kind and got.lut is None
             assert got.packed.dtype == torch.int8
             if fmt == "any4q8":
@@ -125,7 +134,7 @@ def test_checkpoints_both_ways(models, tmp_path):
     checkpoint.save_params(str(tmp_path / "port"), carried, tcfg)
     jparams, jcfg2 = jckpt.load_params(str(tmp_path / "port"))
     assert jcfg2 == jcfg
-    assert jparams["layers"][0]["down_proj"].fmt == fmt + "g"
+    assert jparams["layers"][0]["down_proj"].fmt == KINDS[fmt][1]
     assert jparams["layers"][0]["q_proj"].lut is None
     x = jnp.asarray(ids.numpy())
     np.testing.assert_array_equal(

@@ -1,7 +1,8 @@
 """The tensor-core kernels (A ``q4_lut_post``, B ``q4_lut_fused``, C
-``q4_int4_magic``, E ``q4_lut_select``, ``int8_post``, D ``w4a8``,
-``w8a8`` and their fused twins ``w4a8_fused`` and ``w8a8_fused``) at the
-shapes their tiles make ragged, and their launch plan, on the CPU.
+``q4_int4_magic``, E ``q4_lut_select``, ``int8_post``, ``int8_fused``, D
+``w4a8``, ``w8a8`` and their fused twins ``w4a8_fused`` and
+``w8a8_fused``) at the shapes their tiles make ragged, and their launch
+plan, on the CPU.
 
 - The plain versions, which the wrapper runs on CPU tensors and which the
   CUDA kernels are held against on the card, against the JAX package's
@@ -32,8 +33,10 @@ shapes their tiles make ragged, and their launch plan, on the CPU.
 - The same for B's and E's plain versions against the interpreted
   ``_q4_kernel`` (any4 at g in {16, 32, 64}, row-layout int4 at g in {128,
   256}) and ``_q4select_kernel`` (``use_gather=False``: row-layout any4
-  and int4 at g in {128, 256}), at m in {1, 8, 9, 17, 130}, n in {24,
-  200} and k in {1024, 2048}, within 1e-4 * max of the f32 output.
+  and int4 at g in {128, 256}), and for ``int8_fused``'s against the
+  interpreted ``_int8_kernel`` (``int8`` at g in {16, 32, 64}, row layout
+  at g in {128, 256}), at m in {1, 8, 9, 17, 130}, n in {24, 200} and k
+  in {1024, 2048}, within 1e-4 * max of the f32 output.
 - ``gemv.kernel_a_plan``: the split of k depends on (n, num_groups, sms)
   and never on m, so that a token's sums run in the same order at every m;
   the token tiles, row blocks and splits cover (m, n, k) exactly, with no
@@ -44,10 +47,10 @@ shapes their tiles make ragged, and their launch plan, on the CPU.
 - ``gemv.post_launch_plan``, which every tensor-core launch goes through:
   at the 1B shapes a fused kernel gets its external twin's plan at every
   m <= 64, so that it runs the same bodies in the same order, and room
-  for its quantized x beside the split scratch; B and E take the same plan
-  at every m, over ``ceil(G g / 128)`` slices (a g that does not divide 128
-  included), split alike at every m, with tiles and splits that cover (m,
-  n, k).
+  for its quantized x beside the split scratch; B, E and ``int8_fused``
+  take the same plan at every m, over ``ceil(G g / 128)`` slices (a g that
+  does not divide 128 included), split alike at every m, with tiles and
+  splits that cover (m, n, k).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -288,7 +291,8 @@ def test_fused_takes_the_external_plan(n, k, sms):
 
 
 # (fmt, layout, g, n, k, m, use_gather): kernel B (``_q4_kernel``) with
-# use_gather, kernel E (``_q4select_kernel``) without
+# use_gather, kernel E (``_q4select_kernel``) without; int8 runs
+# ``int8_fused`` (``_int8_kernel``) either way
 LUT_TAILS = [
     ("any4", None, 16, 24, 1024, 1, True),
     ("any4", None, 16, 200, 2048, 9, True),
@@ -306,21 +310,43 @@ LUT_TAILS = [
     ("any4", "row", 256, 24, 1024, 17, False),
     ("int4", "row", 128, 200, 1024, 130, False),
     ("int4", "row", 256, 24, 2048, 9, False),
+    ("int8", None, 16, 24, 1024, 1, True),
+    ("int8", None, 16, 200, 2048, 9, True),
+    ("int8", None, 16, 24, 2048, 17, True),
+    ("int8", None, 16, 200, 1024, 130, True),
+    ("int8", None, 32, 200, 1024, 1, True),
+    ("int8", None, 32, 24, 2048, 9, True),
+    ("int8", None, 32, 200, 2048, 17, True),
+    ("int8", None, 32, 24, 1024, 130, True),
+    ("int8", None, 64, 24, 2048, 1, True),
+    ("int8", None, 64, 200, 1024, 9, True),
+    ("int8", None, 64, 24, 1024, 17, True),
+    ("int8", None, 64, 200, 2048, 130, True),
+    ("int8", "row", 128, 200, 2048, 1, True),
+    ("int8", "row", 128, 24, 1024, 9, True),
+    ("int8", "row", 128, 200, 1024, 17, True),
+    ("int8", "row", 128, 24, 2048, 130, True),
+    ("int8", "row", 256, 24, 1024, 1, True),
+    ("int8", "row", 256, 200, 2048, 9, True),
+    ("int8", "row", 256, 24, 2048, 17, True),
+    ("int8", "row", 256, 200, 1024, 130, True),
 ]
 
 
 @pytest.mark.parametrize("fmt,layout,g,n,k,m,use_gather", LUT_TAILS,
                          ids=[f"{f}-{l or 'default'}-g{g}-n{n}-k{k}-m{m}-"
-                              f"{'gather' if u else 'select'}"
+                              f"{'fused' if f == 'int8' else 'gather' if u else 'select'}"
                               for f, l, g, n, k, m, u in LUT_TAILS])
 def test_fused_lut_plain_matches_jax_kernel_at_tails(fmt, layout, g, n, k, m,
                                                      use_gather,
                                                      monkeypatch):
     """``quantized_matmul`` runs kernel B's plain version (any4 below g=128,
     row-layout int4 with the ramp LUT) or, with ``use_gather=False``, kernel
-    E's, which hold the interpreted JAX kernel of that route."""
+    E's, or for row-layout int8 ``int8_fused``'s, which hold the
+    interpreted JAX kernel of that route."""
     jqt, qt = _pair(fmt, g, layout, n, k, seed=m + g)
-    kernel = "q4_lut_fused" if use_gather else "q4_lut_select"
+    kernel = ("int8_fused" if fmt == "int8" else
+              "q4_lut_fused" if use_gather else "q4_lut_select")
     assert qt.fmt == jqt.fmt == fmt and qt.group_size == g
     x = np.random.default_rng(k + m + g).standard_normal((m, k)).astype(
         np.float32)
@@ -343,31 +369,36 @@ def test_fused_lut_plain_matches_jax_kernel_at_tails(fmt, layout, g, n, k, m,
     assert_close_max(y, ref, 1e-4)
 
 
-# B's group sizes, 128's divisors and multiples and some that are neither
+# B's group sizes, 128's divisors and multiples and some that are neither,
+# and int8_fused's (16 or more, dividing 128 or a multiple of it)
 LUT_PLAN_GS = (8, 16, 24, 48, 64, 128, 256)
+LUT_PLAN_CASES = [("q4_lut_fused", g) for g in LUT_PLAN_GS] + [
+    ("int8_fused", g) for g in (16, 32, 64, 128, 256)]
 LUT_PLAN_SHAPES = [(24, 1024), (200, 2048), (2048, 2048), (512, 2048),
                    (8192, 2048), (2048, 8192)]
 
 
 @pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("g", LUT_PLAN_GS)
+@pytest.mark.parametrize("name,g", LUT_PLAN_CASES,
+                         ids=[str(g) if name == "q4_lut_fused" else
+                              f"{name}-{g}" for name, g in LUT_PLAN_CASES])
 @pytest.mark.parametrize("n,k", LUT_PLAN_SHAPES,
                          ids=[f"{n}x{k}" for n, k in LUT_PLAN_SHAPES])
-def test_fused_lut_plan(n, k, g, sms):
-    """B and E launch with one plan at every m (so E = B bit for bit), over
-    ``ceil(G g / 128)`` 128-wide slices, where ``G = kp // g`` groups may
-    end short of kp; the split of the slices is the same at every m; the
-    token tiles, row blocks and splits cover (m, n, k) exactly, and the
-    scratch and tickets match the split blocks."""
+def test_fused_lut_plan(n, k, name, g, sms):
+    """B, E and ``int8_fused`` launch with one plan at every m (so E = B
+    bit for bit), over ``ceil(G g / 128)`` 128-wide slices, where ``G = kp
+    // g`` groups may end short of kp; the split of the slices is the same
+    at every m; the token tiles, row blocks and splits cover (m, n, k)
+    exactly, and the scratch and tickets match the split blocks."""
     G = packing.padded_k(k) // g
     slices = -(-G * g // gemv.SLICE)
     if gemv.SLICE % g and g % gemv.SLICE:
         assert slices * gemv.SLICE > G * g          # the floor would drop one
     splits_at = set()
     for m in PLAN_MS:
-        b = gemv.post_launch_plan("q4_lut_fused", m, n, k, G, g, sms)
-        assert gemv.post_launch_plan("q4_lut_select", m, n, k, G, g,
-                                     sms) == b
+        b = gemv.post_launch_plan(name, m, n, k, G, g, sms)
+        for twin in ("q4_lut_fused", "q4_lut_select"):         # B's plan
+            assert gemv.post_launch_plan(twin, m, n, k, G, g, sms) == b
         tn, per, split_blocks, floats, ints = b
         splits = -(-slices // per)
         assert (tn, splits, per, split_blocks) == gemv.kernel_a_plan(

@@ -10,10 +10,11 @@ linear shapes across m, each held against its plain version.
 any4 with per-row LUTs; the default), ``q4_lut_fused`` (kernel B, any4
 with per-row LUTs at g=64), ``q4_int4_magic`` (kernel C, int4),
 ``q4_lut_select`` (kernel E, int4 with the ramp LUT), ``int8_post`` (int8
-codes), ``w4a8`` (kernel D: int8 activations, 4-bit codes), ``w8a8`` (int8
-activations and codes), ``w4a8_fused`` and ``w8a8_fused`` (D-fused and
-``w8a8_fused``: bf16 activations, which they quantize themselves), all at
-g=128 but B; ``--group-size`` sets one group size for all of them (for
+codes), ``int8_fused`` (int8 codes at g=64), ``w4a8`` (kernel D: int8
+activations, 4-bit codes), ``w8a8`` (int8 activations and codes),
+``w4a8_fused`` and ``w8a8_fused`` (D-fused and ``w8a8_fused``: bf16
+activations, which they quantize themselves), all at g=128 but B and
+``int8_fused``; ``--group-size`` sets one group size for all of them (for
 example 128, to time B beside A on the same kind of operands). For each
 kernel, (n, k) shape and m it
 checks the kernel's output against the plain version (bf16 within 1e-2 *
@@ -29,11 +30,12 @@ memory rate, or 2mnk over the tensor cores' bf16 rate (int8 for the four
 W4A8/W8A8 kernels), the larger). A last ``layer`` row per kernel and m sums
 one Llama-3.2-1B decoder layer's 7 linears.
 
-To time kernels B and E against a parent checkout, in one call (parent,
-this tree, this tree, parent)::
+To time ``int8_fused`` beside the kernels that share its bodies against a
+parent checkout, in one call (parent, this tree, this tree, parent)::
 
-    python3 tools/torch_gemv_sweep.py --kernels q4_lut_fused,q4_lut_select \
-        --ms 1,8,16,128,512 --root chip_check/parent
+    python3 tools/torch_gemv_sweep.py --kernels int8_fused,q4_lut_post,\
+        q4_int4_magic,int8_post,q4_lut_fused,q4_lut_select \
+        --ms 1,8,16,32,128,512 --root chip_check/parent
 
 ``--root DIR`` imports ``any4_tpu_torch`` and ``chip_smoke.py`` from another
 checkout (for example the parent commit unpacked with ``git archive``) and
@@ -59,6 +61,7 @@ KERNELS = {"q4_lut_post": ("any4", False, "bf16", 128),
            "q4_int4_magic": ("int4", False, "bf16", 128),
            "q4_lut_select": ("int4", False, "bf16", 128),
            "int8_post": ("int8", True, "bf16", 128),
+           "int8_fused": ("int8", True, "bf16", 64),
            "w4a8": ("int4", False, "int8", 128),
            "w8a8": ("int8", True, "int8", 128),
            "w4a8_fused": ("int4", False, "quantized", 128),
