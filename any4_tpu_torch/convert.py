@@ -15,13 +15,16 @@ Quantized weights are unpacked from their TPU layout to codes and repacked
 in the port's layout (:mod:`any4_tpu_torch.ops.packing`); the scales and
 zeros ``[kp/g, n]`` are the same arrays in both packages, and the LUT is
 turned to ``[n, 16]``/``[1, 16]``. The TPU layouts: planar ``[n, kp/8]``
-for ``any4``/``nf4``/``fp4``/``int4``, transposed ``[kp/8, n]`` for
+for ``any4``/``nf4``/``fp4``/``mx4``/``int4``, transposed ``[kp/8, n]`` for
 ``any4t``/``nf4t``/``fp4t``, pair words for ``int4p`` and quad words for
 ``w4a8``; for the int8 formats row ``[n, kp]`` (``int8``/``w8a8``), quad
 words ``[n/4, kp]`` (``int8q``/``w8a8q``/``any4q8``), transposed ``[kp,
-n]`` (``int8t``/``w8a8t``) and grouped ``[kp/128, n, 128]``
-(``int8g``/``w8a8g``/``any4q8g``). Each format name selects its layout from
-an explicit table: ``int8t`` and ``w8a8t`` end in ``t`` but have no LUT.
+n]`` (``int8t``/``w8a8t``), grouped ``[kp/128, n, 128]``
+(``int8g``/``w8a8g``/``any4q8g``), ``[k, n]`` with ``[1, n]`` scales and
+zeros for the row-scale formats (``int8r``/``w8a8r``/``any4q8r``), and
+int8p's nibble planes (:func:`int8p_groups_from_jax`). Each format name
+selects its layout from an explicit table: ``int8t`` and ``w8a8t`` end in
+``t`` but have no LUT.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from .ops import packing
-from .ops.linear import FMTS, TRANSPOSED_LUT_FMTS, QuantizedTensor
+from .ops.linear import (FMTS, ROWSCALE_FMTS, TRANSPOSED_LUT_FMTS,
+                         QuantizedTensor)
 
 QT_FIELDS = ("packed", "scales", "zeros", "lut")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -73,8 +77,7 @@ def _check_fmt(fmt: str, row_shards: int) -> None:
             "row_shards != 1 weights are not ported yet (ROADMAP queue 1, "
             "item 12)")
     if fmt not in FMTS:
-        raise NotImplementedError(
-            f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
+        raise ValueError(f"unsupported fmt {fmt!r}")
 
 
 # format -> (unpack, pack) of its TPU layout, besides the 4-bit planar one
@@ -91,8 +94,46 @@ _TPU_LAYOUTS = {
        for f in ("int8t", "w8a8t")},
     **{f: (packing.unpack_int8_grouped, packing.pack_int8_grouped)
        for f in ("int8g", "w8a8g", "any4q8g")},
+    **{f: (packing.unpack_rowscale, packing.pack_rowscale)
+       for f in ROWSCALE_FMTS},
+    "int8p": (packing.unpack_int8_planes, packing.pack_int8_planes),
 }
 _PLANAR = (packing.unpack_int4, packing.pack_int4)
+
+
+def int8p_groups_from_jax(s4: np.ndarray, z4: np.ndarray, k: int,
+                          group_size: int):
+    """int8p's per-plane rows -> the port's ``[kp/g, n]`` scales and zeros.
+
+    The JAX package stores, for each 128-wide k slice, a row for the low
+    nibble plane (``s``, ``z - 120 s``) and one for the high (``16 s``,
+    ``128 s``), padded to ``padded_k(2 k) / 128`` rows. ``s`` is the low
+    plane's scale of every ``g / 128``-th slice and ``z = (z - 120 s) + 120
+    s``: that sum may land up to an ulp of ``120 s`` off the zero
+    ``int8_quantize`` gave, and is the zero the JAX package's own
+    ``dequantize_tensor`` uses."""
+    step = group_size // packing.LANES
+    s = s4[0::2][:k // packing.LANES][::step]
+    z = z4[0::2][:k // packing.LANES][::step] + np.float32(120.0) * s
+    gp = packing.padded_k(k) // group_size
+    pad = ((0, gp - s.shape[0]), (0, 0))
+    return np.pad(s, pad), np.pad(z, pad)
+
+
+def int8p_groups_to_jax(s: np.ndarray, z: np.ndarray, k: int,
+                        group_size: int):
+    """Inverse of :func:`int8p_groups_from_jax`, as the JAX package's
+    ``quantize_tensor(fmt="int8p")`` derives the plane rows."""
+    step = group_size // packing.LANES
+    s128 = np.repeat(s[:k // group_size], step, axis=0)
+    z128 = np.repeat(z[:k // group_size], step, axis=0)
+    n = s.shape[1]
+    s4 = np.stack([s128, np.float32(16.0) * s128], axis=1).reshape(-1, n)
+    z4 = np.stack([z128 - np.float32(120.0) * s128,
+                   np.float32(128.0) * s128], axis=1).reshape(-1, n)
+    pad = ((0, packing.padded_k(2 * k) // packing.LANES - s4.shape[0]),
+           (0, 0))
+    return np.pad(s4, pad), np.pad(z4, pad)
 
 
 def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
@@ -110,10 +151,15 @@ def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
         .copy())
     pack = packing.pack_codes8 if codes.dtype == torch.int8 \
         else packing.pack_codes
+    scales = np.asarray(d["scales"], np.float32)
+    zeros = np.asarray(d["zeros"], np.float32)
+    if fmt == "int8p":
+        scales, zeros = int8p_groups_from_jax(scales, zeros, k,
+                                              int(d["group_size"]))
     f32 = (lambda a: tensor_from_numpy(np.asarray(a, np.float32), device))
     return QuantizedTensor(
         pack(codes).to(device),
-        f32(d["scales"]), f32(d["zeros"]), None if lut is None else f32(lut),
+        f32(scales), f32(zeros), None if lut is None else f32(lut),
         fmt, int(d["group_size"]), (n, k),
         torch_dtype(d.get("dtype", "bfloat16")), 1)
 
@@ -130,9 +176,11 @@ def qt_to_jax(qt: QuantizedTensor) -> dict:
     packed = _TPU_LAYOUTS.get(qt.fmt, _PLANAR)[1](codes)
     if qt.fmt in TRANSPOSED_LUT_FMTS:
         lut = np.ascontiguousarray(lut.T)             # [16, n|1]
-    return {"packed": packed,
-            "scales": qt.scales.detach().cpu().numpy(),
-            "zeros": qt.zeros.detach().cpu().numpy(),
+    scales = qt.scales.detach().cpu().numpy()
+    zeros = qt.zeros.detach().cpu().numpy()
+    if qt.fmt == "int8p":
+        scales, zeros = int8p_groups_to_jax(scales, zeros, k, qt.group_size)
+    return {"packed": packed, "scales": scales, "zeros": zeros,
             "lut": lut, "fmt": qt.fmt, "group_size": qt.group_size,
             "shape": (n, k), "dtype": dtype_name(qt.dtype),
             "row_shards": 1}

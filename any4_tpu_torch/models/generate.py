@@ -23,8 +23,11 @@ def _prefill_mask(t: int, max_len: int, device) -> torch.Tensor:
 
 
 def _check_device(params: Dict, device) -> torch.device:
+    """The device of ``params`` (of ``embed_tokens``, or of its codes when
+    it is quantized); raises unless it is of ``device``'s type."""
     device = torch.device(device)
-    have = params["embed_tokens"].device
+    emb = params["embed_tokens"]
+    have = getattr(emb, "packed", emb).device
     if have.type != device.type:
         raise ValueError(f"params are on {have}, generation asked for "
                          f"{device}")

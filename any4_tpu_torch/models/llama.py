@@ -5,7 +5,12 @@ Parameters are a nested dict: ``embed_tokens [vocab, d]``, ``norm [d]``,
 ``layers`` (a list of dicts of norms and linear weights) and, when the
 embeddings are not tied, ``lm_head``. A linear weight is a dense ``[n, k]``
 tensor or a :class:`~any4_tpu_torch.ops.linear.QuantizedTensor`; the
-forward calls :func:`~any4_tpu_torch.ops.linear.linear` either way.
+forward calls :func:`~any4_tpu_torch.ops.linear.linear` either way. A
+layer may hold ``qkv_proj`` (and ``qkv_bias``) and ``gateup_proj`` in
+place of q/k/v and gate/up (:mod:`.fuse`). ``embed_tokens`` may be
+quantized: the lookup gathers and dequantizes rows
+(:func:`~any4_tpu_torch.ops.linear.embed`), and a tied head runs the
+quantized kernel on the same table.
 
 Casts follow the JAX package: RMSNorm and RoPE tables in f32, attention
 logits and softmax in f32 with the probabilities cast back to the model
@@ -165,6 +170,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def qkv(layer: Dict, cfg: LlamaConfig, x: torch.Tensor, **kw):
+    """The q, k and v projections of ``x``, from ``qkv_proj`` (split as
+    ``[nq * hd, nkv * hd, nkv * hd]``) when the layer has it."""
+    if "qkv_proj" not in layer:
+        return tuple(lin.linear(x, layer[f"{p}_proj"], layer.get(f"{p}_bias"),
+                                **kw) for p in "qkv")
+    hd = cfg.head_dim_
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    out = lin.linear(x, layer["qkv_proj"], layer.get("qkv_bias"), **kw)
+    return (out[..., :nq * hd], out[..., nq * hd:(nq + nkv) * hd],
+            out[..., (nq + nkv) * hd:])
+
+
 def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
               cos: torch.Tensor, sin: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]],
@@ -178,9 +196,7 @@ def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
     b, t, _ = x.shape
     hd = cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    q = lin.linear(x, layer["q_proj"], layer.get("q_bias"), **kw)
-    k = lin.linear(x, layer["k_proj"], layer.get("k_bias"), **kw)
-    v = lin.linear(x, layer["v_proj"], layer.get("v_bias"), **kw)
+    q, k, v = qkv(layer, cfg, x, **kw)
     q = apply_rope(q.reshape(b, t, nq, hd), cos, sin)
     k = apply_rope(k.reshape(b, t, nkv, hd), cos, sin)
     v = v.reshape(b, t, nkv, hd)
@@ -224,8 +240,13 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp(layer: Dict, x: torch.Tensor, act: str = "silu",
         **kw) -> torch.Tensor:
-    g = lin.linear(x, layer["gate_proj"], **kw)
-    u = lin.linear(x, layer["up_proj"], **kw)
+    if "gateup_proj" in layer:
+        gu = lin.linear(x, layer["gateup_proj"], **kw)
+        f = gu.shape[-1] // 2
+        g, u = gu[..., :f], gu[..., f:]
+    else:
+        g = lin.linear(x, layer["gate_proj"], **kw)
+        u = lin.linear(x, layer["up_proj"], **kw)
     h = _act(g.float(), act).to(x.dtype) * u
     return lin.linear(h, layer["down_proj"], **kw)
 
@@ -249,7 +270,7 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
     if positions is None:
         positions = torch.arange(t, device=dev)[None, :].expand(b, t)
     cos, sin = rope_tables(cfg, positions)
-    x = params["embed_tokens"][input_ids.long()].to(cfg.dtype)
+    x = lin.embed(params["embed_tokens"], input_ids, cfg.dtype)
     if cfg.embed_scale is not None:  # gemma scales embeddings, in dtype
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
 
@@ -282,14 +303,23 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
             x = x + mlp(layer, h, act=cfg.hidden_act, **kw)
 
     x = rms_norm(x, params["norm"], eps, off)
-    if "lm_head" in params:
-        logits = lin.linear(x, params["lm_head"], **kw)
-    else:  # tied embeddings: a plain bf16 matmul, as in the JAX package
-        logits = x @ params["embed_tokens"].t().to(x.dtype)
+    logits = head(params, x, **kw)
     if cfg.final_logit_softcapping is not None:  # gemma2
         cap = cfg.final_logit_softcapping
         logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
     return logits, kv_caches
+
+
+def head(params: Dict, x: torch.Tensor, **kw) -> torch.Tensor:
+    """The LM head, in the JAX package's order: ``lm_head``, else a
+    quantized tied ``embed_tokens`` through the quantized kernel, else the
+    tied table as a plain matmul in x's dtype."""
+    if "lm_head" in params:
+        return lin.linear(x, params["lm_head"], **kw)
+    emb = params["embed_tokens"]
+    if isinstance(emb, lin.QuantizedTensor):
+        return lin.linear(x, emb, **kw)
+    return x @ emb.t().to(x.dtype)
 
 
 def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,

@@ -6,8 +6,8 @@ package:
 - ``nf4``: the 16-entry NormalFloat table (bitsandbytes NF4);
 - ``fp4``: the e2m1 table in sign-magnitude code order, scaled so that the
   largest magnitude is 1 (the bitsandbytes fp4 codebook);
-- ``mx4``: the raw e2m1 values (kept for the table lookup only; the mx4
-  format itself is not ported yet).
+- ``mx4``: the raw e2m1 values, the table of the ``mx4`` format (each group
+  scaled by a power of two, its e8m0 exponent, :func:`.quant.mx4_quantize`).
 """
 from __future__ import annotations
 
@@ -44,6 +44,9 @@ FP4_E2M1_TABLE = np.array(
 )
 
 FP4_BNB_TABLE = FP4_E2M1_TABLE / 6.0
+FP4_E2M1_MAX = 6.0   # max_norm of fp4_e2m1
+FP4_E2M1_EMAX = 2    # largest unbiased exponent of e2m1
+E8M0_BIAS = 127      # shared-exponent bias for MX scale (e8m0)
 
 _TABLES = {
     "nf4": NF4_TABLE,

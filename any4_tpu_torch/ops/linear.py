@@ -5,12 +5,14 @@ A quantized weight is a :class:`QuantizedTensor` leaf in the parameter
 tree, and :func:`linear` dispatches on the leaf type: dense weights go to a
 plain matmul, quantized ones to the fused kernels of :mod:`.gemv`.
 
-Formats ported so far:
+Every format of the JAX package:
 
 - ``any4`` (learned per-row LUT), ``nf4`` and ``fp4`` (global tables), and
   their ``t`` names (``any4t``, ``nf4t``, ``fp4t``); as in the JAX package,
   ``any4``/``nf4``/``fp4`` are renamed to the ``t`` formats when
   ``group_size % 128 == 0`` unless ``layout="row"``;
+- ``mx4``: e2m1 codes with one e8m0 power-of-two scale a group (g=32 by
+  default in ``quant_methods``), the global e2m1 table as its LUT;
 - ``int4`` (uniform, no LUT), renamed to ``int4p`` when ``g % 128 == 0``,
   ``n`` is even and the layout is not ``"row"``;
 - ``w4a8``: int4 weights with activations quantized per row to int8;
@@ -21,7 +23,10 @@ Formats ported so far:
   (transposed) and ``int8g``/``w8a8g``/``any4q8g`` (grouped). As in the JAX
   package, ``int8``/``w8a8``/``any4q8`` are renamed by k at ``g % 128 ==
   0`` unless ``layout="row"``: to the ``q`` names (``any4q8`` keeps its
-  name) at ``k < 4096`` with ``n % 4 == 0``, else to the ``g`` names.
+  name) at ``k < 4096`` with ``n % 4 == 0``, else to the ``g`` names;
+- ``int8p``: ``int8``'s codes, which the TPU split into nibble planes;
+- the row-scale formats ``int8r``, ``w8a8r`` and ``any4q8r``: one group of
+  the whole row (``group_size = k``), scales and zeros ``[1, n]``.
 
 The name records which TPU layout a weight came from or goes back to; in
 the port every name shares one Hopper layout per code width
@@ -30,14 +35,16 @@ the port every name shares one Hopper layout per code width
 LUT formats at ``g % 128 == 0``, kernel B below that and for row-layout
 ``int4`` at every g, kernel C for ``int4p``, kernels D/D-fused for
 ``w4a8``, kernel E for the row-layout formats with ``use_gather=False``;
-``w8a8``/``w8a8_fused`` for ``w8a8``/``w8a8q``/``w8a8t``/``any4q8`` and for
-``w8a8g``/``any4q8g`` up to ``_XLA_GROUPED_M_MAX`` rows, ``int8_post`` for
-``int8q``/``int8t`` and for ``int8g`` up to that many rows, and
-``int8_fused`` for ``int8``. The grouped formats dequantize above it.
+``w8a8``/``w8a8_fused`` for ``w8a8``/``w8a8q``/``w8a8t``/``any4q8``/
+``w8a8r``/``any4q8r`` and for ``w8a8g``/``any4q8g`` up to
+``_XLA_GROUPED_M_MAX`` rows, ``int8_post`` for ``int8q``/``int8t``/
+``int8p``/``int8r`` and for ``int8g`` up to that many rows, and
+``int8_fused`` for ``int8``. The grouped formats dequantize above it. The
+row-scale formats give the kernels one group of ``padded_k(k)``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -70,18 +77,24 @@ LUT_FMTS = ("any4", "any4t", "nf4", "nf4t", "fp4", "fp4t")
 TRANSPOSED_LUT_FMTS = ("any4t", "nf4t", "fp4t")
 INT_FMTS = ("int4", "int4p", "w4a8")
 GROUPED_FMTS = ("w8a8g", "int8g", "any4q8g")
-INT8_FMTS = ("int8", "int8q", "int8t", "w8a8", "w8a8q", "w8a8t",
-             "any4q8") + GROUPED_FMTS
+ROWSCALE_FMTS = ("w8a8r", "int8r", "any4q8r")
+INT8_FMTS = ("int8", "int8q", "int8t", "int8p", "w8a8", "w8a8q", "w8a8t",
+             "any4q8") + GROUPED_FMTS + ROWSCALE_FMTS
 # formats whose activations are quantized to int8: their kernels run at
 # every m, as in the JAX package (the grouped ones up to _XLA_GROUPED_M_MAX)
 ACT_INT8_FMTS = ("w4a8", "w8a8", "w8a8q", "w8a8t", "any4q8", "w8a8g",
-                 "any4q8g")
-FMTS = LUT_FMTS + INT_FMTS + INT8_FMTS
+                 "any4q8g", "w8a8r", "any4q8r")
+FMTS = LUT_FMTS + ("mx4",) + INT_FMTS + INT8_FMTS
+# formats a quantized embedding table may use: the JAX package's layouts
+# of one weight row per packed row (int4p/w4a8 interleave rows in a word,
+# int8p splits bytes across planes)
+EMBED_FMTS = ("int4", "any4", "nf4", "fp4", "mx4", "int8", "w8a8")
 # which formats take int_zeros and scale_only, after the renames (the JAX
 # package's lists; the q names take neither)
-_INT_ZEROS_FMTS = ("int4", "int4p", "w4a8", "int8", "w8a8", "w8a8t", "int8t",
-                   "w8a8g", "int8g")
-_SCALE_ONLY_FMTS = _INT_ZEROS_FMTS + ("any4", "any4t", "any4q8", "any4q8g")
+_INT_ZEROS_FMTS = ("int4", "int4p", "w4a8", "int8", "int8p", "w8a8",
+                   "w8a8t", "int8t", "w8a8g", "int8g")
+_SCALE_ONLY_FMTS = _INT_ZEROS_FMTS + ("w8a8r", "int8r", "any4", "any4t",
+                                      "any4q8", "any4q8g", "any4q8r")
 
 
 @dataclass
@@ -93,8 +106,10 @@ class QuantizedTensor:
               (:func:`~.packing.pack_codes`), ``kp = padded_k(k)``, for the
               4-bit formats; ``[n, kp] int8`` centered codes
               (:func:`~.packing.pack_codes8`) for the int8 formats.
-      scales: ``[kp/g, n] f32`` group scales (the JAX package's layout).
-      zeros:  ``[kp/g, n] f32`` group zeros (0 for the absmax formats).
+      scales: ``[kp/g, n] f32`` group scales (the JAX package's layout);
+              ``[1, n]`` for the row-scale formats, whose one group is
+              the row (``group_size = k``).
+      zeros:  as ``scales``, the group zeros (0 for the absmax formats).
       lut:    ``[n, 16]`` per-row or ``[1, 16]`` global f32 table, centered
               (any4 stores ``lut - 8``), or None for the integer formats.
               Always row-oriented here, whatever the format name; the JAX
@@ -121,35 +136,48 @@ class QuantizedTensor:
 
 def _check_fmt(fmt: str) -> None:
     if fmt not in FMTS:
-        raise NotImplementedError(
-            f"format {fmt!r} is not ported yet (ROADMAP queue 1, item 8)")
+        raise ValueError(f"unsupported fmt {fmt!r}")
 
 
 # weight format -> kernel format, where they differ whatever the LUT
-_KERNEL_FMTS = {"nf4": "lut4", "fp4": "lut4", "nf4t": "lut4t",
-                "fp4t": "lut4t", "any4q8": "w8a8q", "any4q8g": "w8a8g"}
+_KERNEL_FMTS = {"nf4": "lut4", "fp4": "lut4", "mx4": "lut4", "nf4t": "lut4t",
+                "fp4t": "lut4t", "any4q8": "w8a8q", "any4q8g": "w8a8g",
+                "int8p": "int8q", "int8r": "int8q", "w8a8r": "w8a8",
+                "any4q8r": "w8a8"}
 
 
 def _kernel_fmt(fmt: str, lut: Optional[torch.Tensor] = None) -> str:
-    """The kernel format of a weight format, as the JAX package names it:
-    ``lut4``/``lut4t`` for a global table, ``w8a8q``/``w8a8g`` for
-    ``any4q8``/``any4q8g`` (whose LUT became int8 codes at pack time), the
-    format itself otherwise."""
+    """The kernel format of a weight format: ``lut4``/``lut4t`` for a
+    global table, ``w8a8q``/``w8a8g`` for ``any4q8``/``any4q8g`` (whose LUT
+    became int8 codes at pack time), as the JAX package names them; the
+    port's int8 layout also runs ``int8p`` and ``int8r`` as ``int8q`` and
+    ``w8a8r``/``any4q8r`` as ``w8a8``; the format itself otherwise."""
     if fmt in ("any4", "any4t") and lut is not None and lut.shape[0] == 1:
         return "lut4" if fmt == "any4" else "lut4t"
     return _KERNEL_FMTS.get(fmt, fmt)
+
+
+def _kernel_group(w: "QuantizedTensor") -> int:
+    """The group size the kernels get: a row-scale weight's one group is
+    its padded row, ``padded_k(k)`` (a multiple of 128; the padded codes
+    are 0, so the dot does not move)."""
+    if w.fmt in ROWSCALE_FMTS:
+        return packing.padded_k(w.shape[1])
+    return w.group_size
 
 
 def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
                     row_shards: int = 1, **kwargs) -> QuantizedTensor:
     """Quantize a 2-D weight ``[n, k]`` on its own device.
 
-    ``kwargs`` go to the any4 learner for the any4 formats and ``any4q8``
-    (sample_weight, init, kmeans_iters, keep_outliers, ...) and are not read
-    by the others; ``layout="row"`` keeps the ``any4``/``nf4``/``fp4``/
-    ``int4``/``int8``/``w8a8``/``any4q8`` name at ``g % 128 == 0``.
-    ``scale_only`` (symmetric) and ``int_zeros`` (integer zero points)
-    apply to the formats the JAX package takes them for, after its renames.
+    ``kwargs`` go to the any4 learner for the any4 formats, ``any4q8`` and
+    ``any4q8r`` (sample_weight, init, kmeans_iters, keep_outliers, ...) and
+    are not read by the others; ``layout="row"`` keeps the ``any4``/
+    ``nf4``/``fp4``/``int4``/``int8``/``w8a8``/``any4q8`` name at ``g %
+    128 == 0``. ``scale_only`` (symmetric) and ``int_zeros`` (integer zero
+    points) apply to the formats the JAX package takes them for, after its
+    renames. The row-scale formats ignore ``group_size``: their group is
+    the row.
     """
     from ..quant import anyq  # anyq imports this package's ops
 
@@ -183,6 +211,12 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
     if fmt in INT8_FMTS:
         return _quantize_int8(w, fmt, group_size, symmetric, int_zeros,
                               kwargs)
+    if fmt == "mx4":
+        codes, exps = quant.mx4_quantize(w, group_size)
+        scales = quant.mx4_scales(exps)
+        lut = torch.as_tensor(get_table("mx4"), device=w.device)[None, :]
+        return _packed(codes, scales, torch.zeros_like(scales), lut, fmt,
+                       group_size, w.dtype)
     base = fmt[:-1] if fmt in TRANSPOSED_LUT_FMTS else fmt
     if group_size % 128 == 0 and (fmt != base or layout != "row"):
         fmt = base + "t"
@@ -244,28 +278,42 @@ def snap_lut8(lutc: torch.Tensor):
 
 def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs):
     """The int8-weight formats: centered int8 group codes
-    (:func:`~.quant.int8_quantize`), or for ``any4q8``/``any4q8g`` the any4
-    LUT snapped to an int8 grid (:func:`snap_lut8`), the codes materialized
-    as ``lut8[code]`` and ``sr`` folded into the group scales. The format
-    checks are the JAX package's."""
+    (:func:`~.quant.int8_quantize`), or for ``any4q8``/``any4q8g``/
+    ``any4q8r`` the any4 LUT snapped to an int8 grid (:func:`snap_lut8`),
+    the codes materialized as ``lut8[code]`` and ``sr`` folded into the
+    group scales. The row-scale formats quantize whole rows and keep their
+    ``[1, n]`` scales and zeros unpadded. The format checks are the JAX
+    package's."""
     from ..quant import anyq  # anyq imports this package's ops
 
-    n = w.shape[0]
-    if fmt not in ("int8", "int8t", "w8a8t") and group_size % 128:
+    n, k = w.shape
+    rowscale = fmt in ROWSCALE_FMTS
+    if rowscale:
+        group_size = k
+    elif fmt not in ("int8", "int8t", "w8a8t") and group_size % 128:
         raise ValueError(f"{fmt} requires group_size a multiple of 128, got "
                          f"{group_size}")
     if fmt in ("int8q", "w8a8q", "any4q8") and n % 4:
         raise ValueError(f"{fmt} quad packing requires n % 4 == 0, got {n}")
-    if fmt not in ("any4q8", "any4q8g"):
+    if fmt == "int8p" and k % 128:
+        raise ValueError(f"int8p requires k a multiple of 128, got {k}")
+    if fmt not in ("any4q8", "any4q8g", "any4q8r"):
         q, scales, zeros = quant.int8_quantize(
             w, group_size, symmetric=symmetric, int_zeros=int_zeros)
-        return _packed(q, scales, zeros, None, fmt, group_size, w.dtype)
-    codes, lut01, scales, zeros = anyq.any4_quantize(
-        w, n_bit=4, group_size=group_size, scale_only=symmetric, **kwargs)
-    lut8, sr = snap_lut8((lut01 - 8.0).float())
-    lut8, sr = lut8.expand(n, 16), sr.expand(n, 1)       # a global LUT too
-    q8 = torch.gather(lut8, 1, codes.long()).to(torch.int8)
-    return _packed(q8, scales * sr, zeros, None, fmt, group_size, w.dtype)
+    else:
+        codes, lut01, scales, zeros = anyq.any4_quantize(
+            w, n_bit=4, group_size=group_size, scale_only=symmetric,
+            **kwargs)
+        lut8, sr = snap_lut8((lut01 - 8.0).float())
+        lut8, sr = lut8.expand(n, 16), sr.expand(n, 1)   # a global LUT too
+        q = torch.gather(lut8, 1, codes.long()).to(torch.int8)
+        scales = scales * sr
+    if rowscale:
+        return QuantizedTensor(packing.pack_codes8(q),
+                               scales.t().contiguous(),
+                               zeros.t().contiguous(), None, fmt, k, (n, k),
+                               w.dtype, 1)
+    return _packed(q, scales, zeros, None, fmt, group_size, w.dtype)
 
 
 def dequantize_tensor(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
@@ -291,6 +339,37 @@ def dequantize_tensor(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
     return w[:, :k].to(dtype or qt.dtype)
 
 
+def embedding_lookup(qt: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of a quantized embedding table ``[vocab, d]``: the
+    codes, the scale and zero columns and the per-row LUT rows are gathered,
+    then reconstructed as :func:`dequantize_tensor` does on the sub-table,
+    in the table's dtype. Only the formats of :data:`EMBED_FMTS`, as in the
+    JAX package. Returns ``[*ids.shape, d]``."""
+    if qt.row_shards != 1:
+        raise ValueError("embedding tables are not row-sharded")
+    if qt.fmt not in EMBED_FMTS:
+        raise ValueError(
+            f"embedding lookup needs row-gatherable packing; fmt {qt.fmt!r} "
+            f"packs multiple rows per word (use one of {EMBED_FMTS})")
+    n, k = qt.shape
+    flat = ids.reshape(-1).long()
+    per_row = qt.lut is not None and qt.lut.shape[0] == n
+    sub = replace(
+        qt, packed=qt.packed[flat], scales=qt.scales[:, flat],
+        zeros=qt.zeros[:, flat], lut=qt.lut[flat] if per_row else qt.lut,
+        shape=(flat.shape[0], k))
+    return dequantize_tensor(sub).reshape(*ids.shape, k)
+
+
+def embed(w, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Token embeddings from a dense or a quantized table."""
+    if isinstance(w, QuantizedTensor):
+        x = embedding_lookup(w, ids)
+    else:
+        x = w[ids.long()]
+    return x if dtype is None else x.to(dtype)
+
+
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
            fused_m_max: int = FUSED_M_MAX,
            use_gather: bool = True) -> torch.Tensor:
@@ -298,7 +377,8 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     :class:`QuantizedTensor`.
 
     The formats that quantize activations (``w4a8``, ``w8a8``/``w8a8q``/
-    ``w8a8t``, ``any4q8``) run their kernel at every m: up to
+    ``w8a8t``/``w8a8r``, ``any4q8``/``any4q8r``) run their kernel at every
+    m: up to
     ``gemv.FUSED_ACT_M_MAX`` rows in one call that quantizes the activations
     itself, above that after :func:`quantize_activations`, in chunks of
     ``_int8_m_tile(k)`` rows once m exceeds ``max(fused_m_max,
@@ -324,14 +404,23 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
                                   fmt="int8g")
     elif fused_m_max > 0:
         kfmt = _kernel_fmt(w.fmt, w.lut)
+        g = _kernel_group(w)
+        # JAX's int8r multiplies bf16 x but sums x as it comes; the kernel
+        # sums bf16 x, so float32 or float16 x gets the difference below
+        fix = w.fmt == "int8r" and x.dtype != torch.bfloat16
+        out_dtype = torch.float32 if fix else x.dtype
 
         def mm(xc):
             return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
-                                         w.lut, group_size=w.group_size,
-                                         out_dtype=x.dtype, fmt=kfmt,
+                                         w.lut, group_size=g,
+                                         out_dtype=out_dtype, fmt=kfmt,
                                          use_gather=use_gather)
 
         y = _chunked(mm, x, m, fused_m_max, fused_m_max, w.shape[0])
+        if fix:
+            xf = x.float()
+            dx = (xf - xf.to(torch.bfloat16).float()).sum(-1, keepdim=True)
+            y = (y + dx * w.zeros[0]).to(x.dtype)
     else:
         y = torch.matmul(x, dequantize_tensor(w, dtype=x.dtype).t())
     if bias is not None:
@@ -352,10 +441,11 @@ def _chunked(mm, x, m, one_call_max, tile, n):
 def _act_int8_linear(x, w, fused_m_max):
     m = x.numel() // x.shape[-1]
     kfmt = _kernel_fmt(w.fmt)
+    g = _kernel_group(w)
 
     def mm(xc, out_dtype):
         return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
-                                     group_size=w.group_size,
+                                     group_size=g,
                                      out_dtype=out_dtype, fmt=kfmt)
 
     if m <= gemv.FUSED_ACT_M_MAX and w.fmt not in GROUPED_FMTS:

@@ -60,7 +60,13 @@ and zeros ``[kp/g, n]`` carry across unchanged.
   (``int8t``, ``w8a8t``): int8 ``[kp, n]``;
 - :func:`pack_int8_grouped` / :func:`unpack_int8_grouped` (``int8g``,
   ``w8a8g``, ``any4q8g``): int8 ``[kp/128, n, 128]``, one 128-wide k slice
-  per leading index.
+  per leading index;
+- :func:`pack_rowscale` / :func:`unpack_rowscale` (``int8r``, ``w8a8r``,
+  ``any4q8r``): int8 ``[k, n]``, unpadded;
+- :func:`pack_int8_planes` / :func:`unpack_int8_planes` (``int8p``): the
+  byte ``u = q + 128`` split into its low and high nibble, the two planes of
+  each 128-wide k slice side by side on a doubled k axis (``[n, G, 2,
+  128]``, low plane first), in the pair layout.
 """
 from __future__ import annotations
 
@@ -110,6 +116,32 @@ def pack_codes8(q: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((n, padded_k(k)), dtype=torch.int8, device=q.device)
     out[:, :k] = q
     return out
+
+
+def pad_axis(x: torch.Tensor, axis: int, target: int,
+             value=0) -> torch.Tensor:
+    """Pad ``x`` with ``value`` along ``axis`` up to length ``target``."""
+    cur = x.shape[axis]
+    if cur == target:
+        return x
+    if cur > target:
+        raise ValueError(f"axis {axis} has {cur} > target {target}")
+    widths = [0, 0] * (x.dim() - 1 - axis % x.dim()) + [0, target - cur]
+    return torch.nn.functional.pad(x, widths, value=value)
+
+
+def pad_group_arrays(scales: torch.Tensor, zeros, k: int, group_size: int):
+    """Zero-pad per-group ``[n, k/g]`` scales and zeros (or None) to cover
+    ``padded_k(k)``, so that padded weights reconstruct to 0."""
+    gp = padded_k(k) // group_size
+    return (pad_axis(scales, 1, gp),
+            None if zeros is None else pad_axis(zeros, 1, gp))
+
+
+def transposed_layout(fmt: str, group_size: int) -> bool:
+    """Does a LUT format take the JAX package's transposed layout? The
+    per-element LUT formats at ``group_size % 128 == 0``."""
+    return fmt in ("any4", "nf4", "fp4", "mx4") and group_size % LANES == 0
 
 
 def pad_groups(a: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
@@ -298,3 +330,34 @@ def unpack_int8_grouped(packed: np.ndarray, k: int) -> np.ndarray:
     G, n, lanes = packed.shape
     return np.ascontiguousarray(
         np.asarray(packed).transpose(1, 0, 2).reshape(n, G * lanes)[:, :k])
+
+
+def pack_rowscale(q: np.ndarray) -> np.ndarray:
+    """TPU row-scale layout ``[k, n]`` int8, unpadded (``any4_tpu``
+    ``pack_rowscale``)."""
+    return np.ascontiguousarray(np.asarray(q, np.int8).T)
+
+
+def unpack_rowscale(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_rowscale`; int8 codes ``[n, k]``."""
+    return np.ascontiguousarray(np.asarray(packed)[:k].T)
+
+
+def pack_int8_planes(q: np.ndarray) -> np.ndarray:
+    """int8p's split bytes: ``u = q + 128`` as nibble planes ``[n, G, 2,
+    128]`` (low, high) on a doubled k axis, in the pair layout ``[n/2,
+    padded_k(2k)/4]``. ``k`` must be a multiple of 128."""
+    n, k = q.shape
+    u = (np.asarray(q, np.int32) + 128).astype(np.uint8).reshape(
+        n, k // LANES, 1, LANES)
+    c4 = np.concatenate([u & 0xF, u >> 4], axis=2)
+    return pack_int4_pair(c4.reshape(n, 2 * k))
+
+
+def unpack_int8_planes(packed: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_int8_planes`; int8 codes ``[n, k]``."""
+    c4 = unpack_int4_pair(packed, 2 * k).astype(np.int32)
+    n = c4.shape[0]
+    c4 = c4.reshape(n, k // LANES, 2, LANES)
+    u = c4[:, :, 0] + 16 * c4[:, :, 1]
+    return (u - 128).astype(np.int8).reshape(n, k)

@@ -25,11 +25,14 @@ DEFAULT_LINEAR_KEYS = (
     "w1", "w2", "w3", "w13", "moe_w13", "moe_w2", "wq", "wk", "wv", "wo",
 )
 DEFAULT_SKIP = ("lm_head",)
-LEARNED_FMTS = ("any4", "any4t", "anyq", "any4q8", "any4q8g")
+LEARNED_FMTS = ("any4", "any4t", "anyq", "any4q8", "any4q8g", "any4q8r")
 _LEARNER_KWARGS = ("sample_weight", "init", "keep_outliers",
                    "scale_sample_weight", "abs_weight_sample_weight",
                    "bias_pow", "kmeans_iters", "seed", "per_row",
                    "surrogate_cluster")
+# the learner options that quantize_embeddings passes on to an any4 table
+_EMBED_KWARGS = ("kmeans_iters", "init", "keep_outliers", "per_row",
+                 "row_chunk")
 
 
 def _walk(tree: Any, prefix: str = ""):
@@ -86,14 +89,26 @@ def quantize_model(
       :func:`~any4_tpu_torch.ops.linear.quantize_tensor`.
     - If a layer runs out of device memory while clustering, it is retried
       once with a chunk budget 16 times smaller.
+    - ``quantize_embeddings``: also quantize every ``embed_tokens`` table in
+      the row layout, to ``fmt`` (``True``) or to the format named
+      (``"anyq"``: any4, ``"intq"``: int4), one of
+      :data:`~any4_tpu_torch.ops.linear.EMBED_FMTS`. An any4 table gets only
+      the learner options ``kmeans_iters``, ``init``, ``keep_outliers``,
+      ``per_row`` and ``row_chunk``, and the learner's default seed. A tied
+      head then runs the quantized kernel on the same table.
     """
     if calibrate_fn is not None:
         raise NotImplementedError(
             "calibrate_fn (per-layer online calibration) is not ported yet "
             "(ROADMAP queue 1, item 10)")
+    efmt = None
     if quantize_embeddings:
-        raise NotImplementedError(
-            "quantize_embeddings is not ported yet (ROADMAP queue 1, item 8)")
+        efmt = fmt if quantize_embeddings is True else str(quantize_embeddings)
+        efmt = {"anyq": "any4", "intq": "int4"}.get(efmt, efmt)
+        if efmt not in lin.EMBED_FMTS:
+            raise ValueError(f"quantize_embeddings needs a row-gatherable "
+                             f"packing, one of {lin.EMBED_FMTS}; got "
+                             f"{efmt!r}")
     if row_parallel_shards != 1:
         raise NotImplementedError(
             "row_parallel_shards is not ported yet (ROADMAP queue 1, item 12)")
@@ -135,6 +150,19 @@ def quantize_model(
         if progress:
             print(f"  quantized {name} {tuple(leaf.shape)} -> {qt.fmt}")
         setter(lin.dequantize_tensor(qt, dtype=leaf.dtype) if pseudo else qt)
+    if efmt is not None:
+        ekw = ({k: v for k, v in kwargs.items() if k in _EMBED_KWARGS}
+               if efmt == "any4" else {})
+        for name, leaf, setter in _walk(out):
+            if name.split(".")[-1] != "embed_tokens" \
+                    or getattr(leaf, "ndim", 0) != 2:
+                continue
+            qt = lin.quantize_tensor(leaf.to(device), efmt, group_size,
+                                     layout="row", **ekw)
+            if progress:
+                print(f"  quantized {name} {tuple(leaf.shape)} -> {efmt}")
+            setter(lin.dequantize_tensor(qt, dtype=leaf.dtype) if pseudo
+                   else qt)
     return out
 
 
@@ -159,6 +187,9 @@ def model_size_bytes(params: Dict) -> int:
 
 quant_methods = {
     name: functools.partial(quantize_model, fmt=name)
-    for name in ("int4", "int4p", "int8", "w4a8", "w8a8", "intq", "any4",
-                 "any4t", "any4q8", "anyq", "nf4", "nf4t", "fp4", "fp4t")
+    for name in ("int4", "int4p", "int8", "int8p", "w4a8", "w8a8", "intq",
+                 "any4", "any4t", "any4q8", "any4q8r", "w8a8r", "int8r",
+                 "anyq", "nf4", "nf4t", "fp4", "fp4t")
 }
+quant_methods["mx4"] = functools.partial(quantize_model, fmt="mx4",
+                                         group_size=32)

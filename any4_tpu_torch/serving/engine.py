@@ -15,9 +15,13 @@ reads a burst's tokens (:meth:`Engine._absorb_burst`); that is what the JAX
 package's ``scan`` with a device-resident carry buys. ``run(pipeline=True)``
 dispatches the next burst before reading the last one.
 
-Not ported: tensor parallelism (``mesh``/``param_spec``), MoE layers and
-quantized embeddings; each raises ``NotImplementedError`` naming its
-ROADMAP item.
+The decode step uses fused projections (``qkv_proj``/``gateup_proj``,
+:mod:`..models.fuse`) and a quantized ``embed_tokens`` (its rows gathered
+and dequantized, and as a tied head through the quantized kernel) as
+``llama.forward`` does.
+
+Not ported: tensor parallelism (``mesh``/``param_spec``) and MoE layers;
+each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,15 +54,6 @@ def _model_forward(params):
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP queue 1, item 9)")
     return llama.forward
-
-
-def _embed_table(params) -> torch.Tensor:
-    emb = params["embed_tokens"]
-    if isinstance(emb, lin.QuantizedTensor):
-        raise NotImplementedError(
-            "quantized embeddings are not ported yet (ROADMAP queue 1, "
-            "item 8)")
-    return emb
 
 
 def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
@@ -105,7 +100,7 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
     """
     b = tokens.shape[0]
     cos, sin = llama.rope_tables(cfg, seq_lens[:, None])
-    x = _embed_table(params)[tokens[:, None].long()].to(cfg.dtype)
+    x = lin.embed(params["embed_tokens"], tokens[:, None], cfg.dtype)
     if cfg.embed_scale is not None:  # gemma scales embeddings, in dtype
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
 
@@ -128,9 +123,7 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
             else kvc.paged_attention)
     for li, layer in enumerate(params["layers"]):
         h = llama.rms_norm(x, layer["input_layernorm"], eps, off)
-        q = lin.linear(h, layer["q_proj"], layer.get("q_bias"))
-        k = lin.linear(h, layer["k_proj"], layer.get("k_bias"))
-        v = lin.linear(h, layer["v_proj"], layer.get("v_bias"))
+        q, k, v = llama.qkv(layer, cfg, h)
         q = llama.apply_rope(q.reshape(b, 1, nq, hd), cos, sin)
         k = llama.apply_rope(k.reshape(b, 1, nkv, hd), cos, sin)
         v = v.reshape(b, 1, nkv, hd)
@@ -159,11 +152,7 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
                                off)
             x = x + llama.mlp(layer, h, act=cfg.hidden_act)
 
-    x = llama.rms_norm(x, params["norm"], eps, off)
-    if "lm_head" in params:
-        logits = lin.linear(x, params["lm_head"])
-    else:
-        logits = x @ params["embed_tokens"].t().to(x.dtype)
+    logits = llama.head(params, llama.rms_norm(x, params["norm"], eps, off))
     if cfg.final_logit_softcapping is not None:  # gemma2
         cap = cfg.final_logit_softcapping
         logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
@@ -214,7 +203,6 @@ class Engine:
                 "the tensor-parallel engine is not ported yet (ROADMAP queue "
                 "1, item 12)")
         _model_forward(params)
-        _embed_table(params)
         self.device = _check_device(params, device)
         self.params = params
         self.cfg = cfg

@@ -22,7 +22,11 @@ Phases, each printing JSON lines:
    kernel A also with the buffer written, ``ms_dirty_l2``), the plain
    version's time, one ``torch.matmul`` on the dequantized bf16 weight as a
    yardstick (``library_ms``, both ways for kernel A; the port never calls
-   it) and the least time the card could take (``bound_ms``). Then both
+   it) and the least time the card could take (``bound_ms``). Kernel A
+   also at the fused projections' shapes (n 3072 and 16384, k 2048, m in
+   {1, 8, 128, 512}) and at the quantized tied head's (n 128256, m in {1,
+   8}; checked at 130 too, each row of m = 8 and 130 equal to the row
+   alone), with its launch plan (``kernel_fused_shapes``). Then both
    kernels on edge cases (odd n and k, a misaligned x, float32/float16
    outputs, a global LUT) against their plain versions; kernel A at m in
    {3, 9, 17, 130}, n in {24, 1000}, g = 128 and 256, k = 2048 and 1004,
@@ -48,7 +52,10 @@ Phases, each printing JSON lines:
    ``w8a8``'s. C's, ``int8_post``'s, D's and ``w8a8``'s edge cases as
    kernel A's, with g = 256 (two slices a group), int8
    codes of -128, and int8 x for D and ``w8a8`` (float32 within 1e-5 *
-   max: exact integer dots) (``post_edge_cases``).
+   max: exact integer dots) (``post_edge_cases``); and ``int8_post``,
+   ``w8a8`` and ``w8a8_fused`` with one group a row, as the row-scale
+   formats give it them (g = ``padded_k(k)``, scales ``[1, n]``, k in
+   {1024, 1408, 2048, 8192}).
 3. attention_kernel: the four decode-attention kernels
    (``flash_paged_decode``/``_q8``, ``flash_contig_decode``/``_q8``) at the
    1B serving shapes (8 kv heads, rep 4, head_dim 64, page size 16, bf16 q)
@@ -88,6 +95,21 @@ Phases, each printing JSON lines:
    decode step, prefill ms, peak memory and the device's busy share
    (``torch.profiler`` over 8 steps at 8 active slots), with the attention
    and the linear kernels' device ms per step.
+5b. the fused model with a quantized tied head (``main_path_fused_qemb``,
+   ``serving_fused_qemb``): phase 4's linears with the table quantized as
+   ``quantize_model(..., quantize_embeddings=True)`` quantizes it (any4,
+   g=128, the row layout; quantized alone, the linears keeping their
+   seeds), then ``fuse_projections``. Every layer holds ``qkv_proj`` and
+   ``gateup_proj``; kernel A launches exactly 65 times a forward (16 x 4
+   and the head; per 512-row chunk of a 1024-token prompt) and nothing
+   else; prefill logits with float32 activations within 2e-2 * max of the
+   dense float32 forward of the dequantized weights (table included, for
+   the lookup and the head), and within 1e-2 * max of the same model
+   unfused. ``generate`` at batch 1 and 4 with phase 4's figures, then the
+   engine (paged bf16 pools, the prompts of 5) at ``run(burst=1)`` and
+   ``run(burst=8, pipeline=True)``: equal tokens, kernel A 65 x (decode
+   steps + prefill chunks), the teacher-forced step within 2e-2 * max, and
+   5's figures, printed beside the unfused model's from 4 and 5.
 6. int kernels (slice 3): kernel C (``q4_int4_magic``), D (``w4a8``,
    int8 x), D-fused (``w4a8_fused``) and E (``q4_lut_select``, with the
    int4 ramp LUT and with a per-row LUT), g=128, at the 1B linear shapes,
@@ -152,6 +174,15 @@ Phases, each printing JSON lines:
    ``w8a8``; above, 96 per chunk (``FUSED_M_MAX`` rows for int8,
    ``_int8_m_tile(k)`` for w8a8) and down_proj dequantized. int8 and w8a8
    then behind the engine as in 8.
+9b. mx4 (``quant_methods["mx4"]``, g=32) at full width and depth: every
+   linear ``mx4`` on kernel B, logits as int4's, ``generate`` at batch 1
+   with 112 B launches a forward; a weight group poisoned to NaN gives NaN
+   in its output row only, on the card as on the CPU, at m = 1, 8, 130.
+   Then ``int8r``, ``w8a8r`` and ``any4q8r`` (kmeans_iters=10) at full
+   width and 2 layers, as in 9: every linear at g = k; 112 ``int8_post``
+   a forward for ``int8r``, 112 ``w8a8_fused`` (m <= 64) or ``w8a8`` for
+   the others; int8r's logits held as int8's, the others' linears as
+   w8a8's.
 10. select path: row-layout int4 at g=128, full width and depth
     (``--layers`` cuts it): ``llama.forward(..., use_gather=False)`` runs
     kernel E on every linear, the default runs kernel B with the ramp LUT
@@ -159,15 +190,16 @@ Phases, each printing JSON lines:
     1-token forward) are equal bit for bit.
 11. int8 layouts (2 layers, one prefill of 128 rows): ``w8a8`` with
     ``layout="row"``, ``w8a8q``, ``w8a8t`` and ``w8a8g`` run ``w8a8`` on
-    the same codes and give bit-equal logits; ``int8q``, ``int8t`` and
-    ``int8g`` run ``int8_post`` and give bit-equal logits; ``int8`` with
-    ``layout="row"`` (g=128) runs ``int8_fused`` on every linear, within
+    the same codes and give bit-equal logits; ``int8q``, ``int8t``,
+    ``int8g`` and ``int8p`` run ``int8_post`` and give bit-equal logits;
+    ``int8`` with ``layout="row"`` (g=128) runs ``int8_fused`` on every linear, within
     2e-2 * max of the dense float32 forward with float32 activations (int8
     at g=64 runs at full depth in 8); exact launch counts.
 12. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
-    the ten linear kernels, all on the tensor cores, also ``by_m``;
-    ``int8_fused``'s launches from the int8 g=64 ``generate`` of 8).
+    the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
+    A also ``fused_shapes``; launches summed over the main paths that run
+    the kernel, as ``launches_from`` lists them).
 13. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
@@ -234,6 +266,15 @@ INT8_KERNELS = {
                    (1, 8, 16, 128, 512), 64),
 }
 INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core rate
+# kernel A at the fused projections' and the quantized tied head's shapes
+# (n, k) -> m timed; the head is also checked at m = 130 (a block body)
+FUSED_SHAPES = {(3072, 2048): (1, 8, 128, 512),      # qkv_proj
+                (16384, 2048): (1, 8, 128, 512),     # gateup_proj
+                (128256, 2048): (1, 8)}              # the tied head
+HEAD_CHECK_MS = (1, 8, 130)
+# one forward of the fused model with the quantized tied head: 4 linears a
+# layer, then the head
+FUSED_PER_LAYER = 4
 PROMPT_LEN = 64
 NEW_TOKENS = 64
 # decode attention: (layout, int8 pool, the TPU kernel it replaces)
@@ -372,6 +413,83 @@ def kernel_phase(gemv, packing, linear, timer, dirty, bw, peak):
                 emit(row)
                 rows.append(row)
             del qt, w_bf16
+    return rows
+
+
+def kernel_a_fused_shapes(gemv, packing, linear, timer, bw, peak):
+    """Kernel A (g=128, per-row LUT) at :data:`FUSED_SHAPES`: the fused
+    qkv_proj and gateup_proj and the quantized tied head (n = 128256, 2004
+    row blocks of 64). Each is held against its plain version (bf16 output
+    within 1e-2 * max, float32 within 1e-4 * max) at its timed m and, for
+    the head, at m = 1, 8 and 130, with the launch plan printed; the head's
+    rows at m = 8 and 130 give the bits of each row alone (float32). Timed
+    as in the kernel phase, beside a bf16 ``torch.matmul`` on the
+    dequantized weight."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wrapper, plain = gemv.q4_lut_post, gemv.q4_lut_post_plain
+    for (n, k), ms in FUSED_SHAPES.items():
+        head = n == 128256
+        codes = torch.randint(0, 16, (n, k), generator=gen, device="cuda",
+                              dtype=torch.uint8)
+        lut = torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
+                         dim=1).values * 15.0 - 8.0
+        G = packing.padded_k(k) // 128
+        scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 \
+            + 1e-3
+        zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+        qt = linear.QuantizedTensor(packing.pack_codes(codes), scales, zeros,
+                                    lut.contiguous(), "any4", 128, (n, k))
+        del codes
+        w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+        args = (qt.packed, qt.scales, qt.zeros, qt.lut, 128)
+        for m in sorted(set(ms) | set(HEAD_CHECK_MS if head else ())):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            errs, abs_err = {}, {}
+            for out, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+                y = wrapper(x, *args, out)
+                ref = plain(x, *args, out)
+                errs[str(out)] = rel_err(y, ref)
+                abs_err[str(out)] = float((y.float() - ref.float()).abs()
+                                          .max())
+                del ref
+                check(bool(torch.isfinite(y).all()) and errs[str(out)] <= tol,
+                      f"kernel A n={n} k={k} m={m} {out}: {errs[str(out)]} > "
+                      f"{tol} of max")
+            if head and m > 1:
+                for i in range(m):
+                    check(same_bits(wrapper(x[i:i + 1], *args, torch.float32),
+                                    y[i:i + 1]),
+                          f"kernel A head m={m}: row {i} differs alone")
+            tn, per, split_blocks, floats, ints = gemv.post_launch_plan(
+                "q4_lut_post", m, n, k, G, 128, sms)
+            row = {"phase": "kernel_fused_shapes", "name": "q4_lut_post",
+                   "n": n, "k": k, "m": m, "group_size": 128,
+                   "rel_err": errs, "rows_alone_equal": head and m > 1,
+                   "plan": {"token_tiles": tn, "groups_per_split": per,
+                            "split_blocks": split_blocks,
+                            "scratch_floats": floats, "counters": ints}}
+            if m in ms:
+                nbytes = (qt.packed.numel() * 4 + 2 * G * n * 4 + n * 16 * 4
+                          + m * k * 2 + m * n * 2)
+                t_bytes = nbytes / bw * 1e3
+                t_ops = 2 * m * n * k / peak * 1e3
+                row.update({
+                    "ms": timer(lambda: wrapper(x, *args, torch.bfloat16)),
+                    "plain_ms": timer(lambda: plain(x, *args, torch.bfloat16),
+                                      reps=3, warmup=1),
+                    "library_ms": timer(lambda: torch.matmul(x, w_bf16.t())),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations", "bytes": nbytes,
+                    "max_abs_err": abs_err[str(torch.bfloat16)]})
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+            emit(row)
+        del qt, w_bf16
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -607,6 +725,43 @@ def post_edge_cases(gemv, packing, name, gs=(128, 256)):
                                   f"misaligned={misaligned} {out}: {err} > "
                                   f"{tol}")
                             cases += 1
+    return cases
+
+
+def rowscale_edge_cases(gemv, packing, name):
+    """``int8_post``, ``w8a8`` or ``w8a8_fused`` with one group a row, as
+    the row-scale formats run them: ``g = padded_k(k)`` for k in {1024,
+    1408, 2048, 8192}, scales and zeros ``[1, n]``, n in {24, 1000}, m in
+    {3, 9, 17} and 130 (64 for ``w8a8_fused``), float32 (1e-4 * max; 1e-5
+    for the integer dots of ``w8a8`` and ``w8a8_fused``), bf16 and float16
+    (1e-2 * max) outputs, against the plain version. Scales shrink as
+    sqrt(128 / kp) (and by 2^-7 for int8 x) to keep float16 finite."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    fn, plain = post_call(gemv, name), post_call(gemv, name, plain=True)
+    int8_x = name in gemv.INT8_X_KERNELS
+    cases = 0
+    for k in (1024, 1408, 2048, 8192):
+        g = packing.padded_k(k)
+        mag = (gemv.SLICE / g) ** 0.5 * (2.0 ** -7 if int8_x else 1.0)
+        for n in (24, 1000):
+            packed = packing.pack_codes8(torch.randint(
+                -128, 128, (n, k), generator=gen, device="cuda",
+                dtype=torch.int8))
+            args = (packed, (torch.rand((1, n), generator=gen,
+                                        device="cuda") + 0.5) * mag,
+                    torch.randn((1, n), generator=gen, device="cuda") * mag,
+                    None, g)
+            for m in (3, 9, 17, 64 if name == "w8a8_fused" else 130):
+                x = post_x(gemv, name, m, k, gen)
+                for out, tol in ((torch.float32, 1e-4 if name == "int8_post"
+                                  else 1e-5), (torch.bfloat16, 1e-2),
+                                 (torch.float16, 1e-2)):
+                    y = fn(x, *args, out)
+                    err = rel_err(y, plain(x, *args, out))
+                    check(y.shape == (m, n) and bool(torch.isfinite(y).all())
+                          and err <= tol, f"{name} g=k edge n={n} k={k} "
+                          f"m={m} {out}: {err} > {tol}")
+                    cases += 1
     return cases
 
 
@@ -1385,6 +1540,16 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
                                  kmeans_iters=10)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
+    # quantize_model(..., quantize_embeddings=True) quantizes the table after
+    # the linears, which keep their seeds, and the table with the learner's
+    # default seed: so the table alone completes that model
+    # (main_path_fused_qemb) from this one's linears
+    t0 = time.perf_counter()
+    qtable = api.quantize_model(
+        {"embed_tokens": params["embed_tokens"]}, fmt="any4", group_size=128,
+        kmeans_iters=10, quantize_embeddings=True)["embed_tokens"]
+    torch.cuda.synchronize()
+    qtable_s = time.perf_counter() - t0
     quantized = [l for l in qparams["layers"] for l in l.values()
                  if isinstance(l, linear.QuantizedTensor)]
     check(len(quantized) == per_forward
@@ -1470,10 +1635,150 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
           "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
     del params          # the serving phase reuses qparams
     torch.cuda.empty_cache()
+    prefill = prefill_chunks(llama, qparams, cfg, gen)
     emit({"phase": "prefill_fused_m_max", "tokens": 1024,
-          "layers": cfg.num_hidden_layers,
-          "forward_ms": prefill_chunks(llama, qparams, cfg, gen)})
-    return launches, qparams, cfg
+          "layers": cfg.num_hidden_layers, "forward_ms": prefill})
+    figures = {"quantize_s": quantize_s, "any4": any4, "profile_b1": prof,
+               "prefill_1024_tokens_forward_ms": prefill}
+    return launches, qparams, cfg, (qtable, qtable_s, figures)
+
+
+def fused_qemb_path(qparams, qtable, cfg, unfused, gemv, kvc, teng, llama,
+                    gen_mod, api, linear, fuse):
+    """The phase-4 model with its tied table quantized (any4, g=128, the
+    row layout) and its projections fused (``fuse_projections``): 16 x 4
+    linears and the head, all on kernel A. ``unfused``: phase 4's and
+    phase 5's figures of the same linears, unfused with the bf16 head, from
+    this run. See the module docstring (phase 5b)."""
+    per_forward = FUSED_PER_LAYER * cfg.num_hidden_layers + 1
+    unfused_model = {**qparams, "embed_tokens": qtable}
+    fused = fuse.fuse_projections(unfused_model)
+    emb = fused["embed_tokens"]
+    check(isinstance(emb, linear.QuantizedTensor) and emb.fmt == "any4"
+          and emb.group_size == 128 and emb.lut.shape == (cfg.vocab_size, 16),
+          "embed_tokens is any4 at g=128 in the row layout, a LUT a row")
+    check(all("qkv_proj" in l and "gateup_proj" in l and "q_proj" not in l
+              and l["qkv_proj"].fmt == l["gateup_proj"].fmt == "any4t"
+              for l in fused["layers"]), "every layer holds qkv_proj and "
+          "gateup_proj (any4t)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    one = prompt[:1]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got = llama.forward(to_float32(fused, linear), cfg32, one)[0]
+    ref = llama.forward(to_float32(fused, linear, dequantize=True), cfg32,
+                        one)[0]
+    plain_unfused = llama.forward(to_float32(unfused_model, linear), cfg32,
+                                  one)[0]
+    bf16 = {k: llama.forward(m, cfg, one)[0]
+            for k, m in (("fused", fused), ("unfused", unfused_model))}
+    torch.cuda.synchronize()
+    errs = {"rel_err_fused_f32_vs_dense_f32": rel_err(got, ref),
+            "rel_err_fused_vs_unfused_f32": rel_err(got, plain_unfused),
+            "rel_err_fused_vs_unfused_bf16": rel_err(bf16["fused"],
+                                                     bf16["unfused"])}
+    emit({"phase": "main_path_check_fused_qemb", "bar_dense": 2e-2,
+          "bar_unfused": 1e-2, **errs})
+    check(bool(torch.isfinite(got).all()) and all(
+        bool(torch.isfinite(v).all()) for v in bf16.values()),
+        "fused logits finite")
+    check(errs["rel_err_fused_f32_vs_dense_f32"] <= 2e-2,
+          f"fused any4 with the quantized head vs the dense float32 forward "
+          f"of its dequantized weights: {errs}")
+    check(errs["rel_err_fused_vs_unfused_f32"] <= 1e-2,
+          f"fused vs unfused (float32 activations): {errs}")
+    del got, ref, plain_unfused, bf16
+
+    torch.cuda.reset_peak_memory_stats()
+    gemv.reset_launches()
+    gen_ms, tokens = {}, {}
+    for b in (1, 4):
+        tokens[b], gen_ms[b] = timed_generate(gen_mod, fused, cfg, prompt[:b])
+    launches = dict(gemv.LAUNCHES)
+    check_launches(gemv, {"q4_lut_post": per_forward}, 2 * NEW_TOKENS,
+                   "fused generate: kernel A a forward")
+    for b, tok in tokens.items():
+        check(tok.shape == (b, PROMPT_LEN + NEW_TOKENS)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+              and torch.equal(tok[:, :PROMPT_LEN], prompt[:b]),
+              f"fused tokens b={b}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    figs = decode_figures(gen_mod, llama, fused, cfg, prompt)
+    prof = device_profile(gen_mod, llama, fused, cfg, prompt)
+    prof["busy_share_b1"] = (prof["device_ms_per_step"]
+                             / figs[1]["decode_ms_per_token"])
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    gemv.reset_launches()
+    check(bool(torch.isfinite(llama.forward(fused, cfg, ids)[0]).all()),
+          "fused 1024-token logits finite")
+    torch.cuda.synchronize()
+    chunks = -(-1024 // linear.FUSED_M_MAX)
+    check_launches(gemv, {"q4_lut_post": per_forward}, chunks,
+                   f"fused 1024-token forward: kernel A a {linear.FUSED_M_MAX}"
+                   f"-row chunk")
+    prefill = prefill_chunks(llama, fused, cfg, gen)
+    emit({"phase": "main_path_fused_qemb", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "fmt": "any4", "group_size": 128,
+          "kmeans_iters": 10, "quantize_embeddings": True, "fused": True,
+          "launches": launches, "launches_per_forward": per_forward,
+          "generate_ms": gen_ms, "max_memory_allocated": peak_mem,
+          "model_bytes": api.model_size_bytes(fused),
+          "model_bytes_unfused_bf16_head": api.model_size_bytes(qparams),
+          "any4_fused_qemb": figs, "profile_b1": prof,
+          "prefill_1024_tokens_forward_ms": prefill,
+          "unfused_bf16_head": unfused["main"],
+          "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
+
+    prompts = serve_prompts(cfg)
+    out, runs = {}, {}
+    for mode, run_kw in (("burst1", dict(burst=1)),
+                         ("burst8_pipeline", dict(burst=8, pipeline=True))):
+        gemv.reset_launches()
+        kvc.reset_launches()
+        out[mode], e, wall = serve(teng, fused, cfg, prompts, "paged", False,
+                                   run_kw)
+        steps = e.decode_steps
+        chunks = sum(-(-e._bucket(len(p)) // linear.FUSED_M_MAX)
+                     for p in prompts)
+        check(all(len(t) == SERVE_NEW_TOKENS
+                  and all(0 <= x < cfg.vocab_size for x in t)
+                  for t in out[mode]), f"fused {mode}: every request gives "
+              f"{SERVE_NEW_TOKENS} tokens in the vocabulary")
+        check(kvc.LAUNCHES["flash_paged_decode"] == cfg.num_hidden_layers
+              * steps and sum(kvc.LAUNCHES.values())
+              == kvc.LAUNCHES["flash_paged_decode"],
+              f"fused {mode}: attention launches {kvc.LAUNCHES}")
+        check_launches(gemv, {"q4_lut_post": per_forward}, steps + chunks,
+                       f"fused {mode} engine ({steps} steps + {chunks} "
+                       f"prefill chunks)")
+        runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
+                      "decode_steps": steps, "prefill_chunks": chunks,
+                      "wall_s": wall,
+                      "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
+        del e
+    check(out["burst1"] == out["burst8_pipeline"],
+          "fused: run(burst=8, pipeline=True) tokens differ from run(burst=1)")
+    forced = teacher_forced(teng, kvc, gen_mod, llama,
+                            to_float32(fused, linear), cfg32, "paged", False,
+                            torch.Generator(device="cuda").manual_seed(6))
+    check(forced <= 2e-2, f"fused: teacher-forced decode logits {forced} > "
+          f"2e-2 of max from decode_step over a dense f32 cache")
+    emit({"phase": "serving_fused_qemb", "kv_layout": "paged",
+          "kv_int8": False, "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
+          "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
+          "new_tokens": SERVE_NEW_TOKENS, "runs": runs,
+          "burst8_pipeline_equals_burst1": True,
+          "teacher_forced_rel_err": forced, "teacher_forced_bar": 2e-2,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **serving_figures(teng, fused, cfg, prompts, "paged", False),
+          "unfused_bf16_head": {k: unfused["serving"][k] for k in (
+              "runs", "ms_per_decode_step_8_slots", "decode_tok_s_8_slots",
+              "device_ms_per_step", "busy_share", "prefill_ms",
+              "attention_ms_per_step", "linear_ms_per_step")}})
+    return {"q4_lut_post": launches["q4_lut_post"]
+            + runs["burst1"]["launches"]["q4_lut_post"]}
 
 
 def to_device(tree, device, linear):
@@ -1525,6 +1830,9 @@ MAIN_FORMATS = {
     "any4_g64": ("any4", "any4", "dense",
                  {"fmt": "any4", "group_size": 64, "kmeans_iters": 10}),
     "int8_g64": ("int8", "int8", "dense", {"fmt": "int8", "group_size": 64}),
+    "int8r": ("int8r", "int8r", "dense", {}),
+    "w8a8r": ("w8a8r", "w8a8r", "held", {}),
+    "any4q8r": ("any4q8r", "any4q8r", "held", {"kmeans_iters": 10}),
 }
 
 
@@ -1539,7 +1847,9 @@ def int_layer_launches(gemv, linear, fmt, ms):
     ``max(FUSED_M_MAX, tile)`` (the tile is 512 for down_proj's k = 8192,
     1024 below). The grouped down_proj of int8/w8a8/any4q8 takes one call on
     (for w8a8 and any4q8: quantized) activations up to
-    ``_XLA_GROUPED_M_MAX`` rows and dequantizes above."""
+    ``_XLA_GROUPED_M_MAX`` rows and dequantizes above. The row-scale
+    formats route as int8 (``int8r``) and w8a8 (``w8a8r``, ``any4q8r``)
+    with no grouped layer."""
     out = {}
     _, down_fmt, _, _ = MAIN_FORMATS[fmt]
     for (_, k), count in LAYER_LINEARS.items():
@@ -1548,10 +1858,10 @@ def int_layer_launches(gemv, linear, fmt, ms):
         for m in ms:
             if grouped and m > linear._XLA_GROUPED_M_MAX:
                 continue                                  # dequantized
-            if fmt in ("int4", "int8", "any4_g64", "int8_g64"):
+            if fmt in ("int4", "int8", "any4_g64", "int8_g64", "int8r"):
                 name = {"int4": "q4_int4_magic", "int8": "int8_post",
-                        "any4_g64": "q4_lut_fused",
-                        "int8_g64": "int8_fused"}[fmt]
+                        "any4_g64": "q4_lut_fused", "int8_g64": "int8_fused",
+                        "int8r": "int8_post"}[fmt]
                 calls = 1 if grouped else -(-m // linear.FUSED_M_MAX)
             else:
                 ext = "w4a8" if fmt == "w4a8" else "w8a8"
@@ -1565,27 +1875,29 @@ def int_layer_launches(gemv, linear, fmt, ms):
     return out
 
 
-def check_launches(gemv, want, layers, what):
-    """Each kernel of ``gemv.LAUNCHES`` launched exactly ``layers`` x its
-    per-layer count in ``want`` (0 when absent), and each one in ``want``
-    at least once."""
+def check_launches(gemv, want, times, what):
+    """Each kernel of ``gemv.LAUNCHES`` launched exactly ``times`` x its
+    count in ``want`` (a layer's or a forward's; 0 when absent), and each
+    one in ``want`` at least once."""
     for name, count in gemv.LAUNCHES.items():
-        expect = layers * want.get(name, 0)
+        expect = times * want.get(name, 0)
         check(count == expect and (name not in want or count > 0),
               f"{what}: {name} launches {count} != {expect}")
 
 
-def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
-    """Llama-3.2-1B at full width (``--layers`` cuts the depth), bf16
-    weights from ``init_params(seed=0)``, quantized as path ``fmt`` says
-    (int4, w4a8, int8, w8a8 or any4q8 at g=128, any4 or int8 at g=64); see
-    the module docstring (phases 8 and 9)."""
+def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear, layers=None):
+    """Llama-3.2-1B at full width (``--layers``, or ``layers``, cuts the
+    depth), bf16 weights from ``init_params(seed=0)``, quantized as path
+    ``fmt`` says (int4, w4a8, int8, w8a8 or any4q8 at g=128, any4 or int8 at
+    g=64, the row-scale formats with one group a row); see the module
+    docstring (phases 8, 9 and 9b)."""
     kind, down_kind, how, qkw = MAIN_FORMATS[fmt]
     qkw = {"fmt": fmt, "group_size": 128, **qkw}
     g = qkw["group_size"]
     cfg = llama.LlamaConfig.llama_3_2_1b()
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    if layers or args.layers:
+        cfg = dataclasses.replace(cfg,
+                                  num_hidden_layers=layers or args.layers)
     per_forward = cfg.num_hidden_layers * 7
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1594,13 +1906,15 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     del params
-    fmts = [(key, l.fmt, l.group_size) for layer in qparams["layers"]
-            for key, l in layer.items()
+    fmts = [(key, l.fmt, l.group_size, l.shape[1])
+            for layer in qparams["layers"] for key, l in layer.items()
             if isinstance(l, linear.QuantizedTensor)]
+    rowscale = kind in linear.ROWSCALE_FMTS
     check(len(fmts) == per_forward and all(
-        f == (down_kind if key == "down_proj" else kind) and gs == g
-        for key, f, gs in fmts),
-        f"every linear is {kind} (down_proj {down_kind}) at g={g}")
+        f == (down_kind if key == "down_proj" else kind)
+        and gs == (k if rowscale else g) for key, f, gs, k in fmts),
+        f"every linear is {kind} (down_proj {down_kind}) at "
+        f"g={'k' if rowscale else g}")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
@@ -1683,6 +1997,74 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear):
     return launches, qparams, cfg
 
 
+def mx4_path(args, gemv, llama, gen_mod, api, linear):
+    """``quant_methods["mx4"]`` (g=32) on the 1B model at full width and
+    depth (``--layers`` cuts it): every linear ``mx4`` at g=32 on kernel B
+    (the e2m1 table as a global LUT), logits with float32 activations
+    within 2e-2 * max of the dequantized weights' dense float32 forward,
+    ``generate`` at batch 1 with 112 B launches a forward and no A; then one
+    weight group poisoned to NaN: its e8m0 byte is NaN, and on the card as
+    on the CPU that weight row's output is NaN and every other finite, at m
+    = 1, 8 and 130."""
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    per_forward = cfg.num_hidden_layers * 7
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = api.quant_methods["mx4"](params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    lins = [l for layer in q["layers"] for l in layer.values()
+            if isinstance(l, linear.QuantizedTensor)]
+    check(len(lins) == per_forward and all(
+        l.fmt == "mx4" and l.group_size == 32 and l.lut.shape == (1, 16)
+        for l in lins), "every linear is mx4 at g=32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got = llama.forward(to_float32(q, linear), cfg32, prompt)[0]
+    ref = llama.forward(to_float32(q, linear, dequantize=True), cfg32,
+                        prompt)[0]
+    err = rel_err(got, ref)
+    check(bool(torch.isfinite(got).all()) and err <= 2e-2,
+          f"mx4 logits (float32 activations) vs the dense float32 forward: "
+          f"{err}")
+    del got, ref
+    gemv.reset_launches()
+    tokens, gen_ms = timed_generate(gen_mod, q, cfg, prompt)
+    launches = dict(gemv.LAUNCHES)
+    check_launches(gemv, {"q4_lut_fused": per_forward}, NEW_TOKENS,
+                   "mx4 generate: kernel B a forward")
+    check(tokens.shape == (1, PROMPT_LEN + NEW_TOKENS) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "mx4 tokens")
+    # one poisoned group: row 5, the third group of 32
+    w = params["layers"][0]["q_proj"].clone()
+    w[5, 64:96] = float("nan")
+    qt = linear.quantize_tensor(w, "mx4", 32)
+    nan_scales = torch.isnan(qt.scales)
+    check(bool(nan_scales[2, 5]) and int(nan_scales.sum()) == 1,
+          "the poisoned group's e8m0 byte is NaN, and no other")
+    cpu_qt = to_device(qt, "cpu", linear)
+    for m in (1, 8, 130):
+        x = torch.randn((m, w.shape[1]), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for y in (linear.linear(x, qt), linear.linear(x.cpu(), cpu_qt)):
+            bad = ~torch.isfinite(y)
+            check(bool(torch.isnan(y[:, 5]).all()) and int(bad.sum()) == m,
+                  f"mx4 NaN group, m={m} on {y.device}: NaN in row 5 only")
+    emit({"phase": "main_path_mx4", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "fmt": "mx4", "group_size": 32,
+          "quantize_s": quantize_s, "rel_err_mx4_f32_vs_dense_f32": err,
+          "bar": 2e-2, "launches": launches,
+          "launches_per_forward": per_forward, "generate_ms_b1": gen_ms,
+          "model_bytes": api.model_size_bytes(q),
+          "nan_group_rows_only": True})
+    return launches
+
+
 def select_path(args, gemv, llama, api, linear):
     """Row-layout int4 at g=128, the 1B model at full width and depth
     (``--layers`` cuts it): ``forward`` with ``use_gather=False`` runs
@@ -1728,8 +2110,8 @@ def int8_layouts(gemv, llama, api, linear):
     """The int8 format names on 2 layers of the 1B model, one prefill of
     m = 128: ``w8a8`` with ``layout="row"``, ``w8a8q``, ``w8a8t`` and
     ``w8a8g`` all quantize the activations and run ``w8a8`` on the same
-    codes, so their logits are bit-equal; ``int8q``, ``int8t`` and
-    ``int8g`` all run ``int8_post`` and are bit-equal; ``int8`` with
+    codes, so their logits are bit-equal; ``int8q``, ``int8t``, ``int8g``
+    and ``int8p`` all run ``int8_post`` and are bit-equal; ``int8`` with
     ``layout="row"`` at g=128 runs ``int8_fused`` on every linear, and its
     logits with float32 activations are within 2e-2 * max of the
     dequantized weights' dense float32 forward (``int8`` at g=64 runs at
@@ -1746,7 +2128,7 @@ def int8_layouts(gemv, llama, api, linear):
             ("w8a8", (("w8a8", 128, "row"), ("w8a8q", 128, None),
                       ("w8a8t", 128, None), ("w8a8g", 128, None))),
             ("int8_post", (("int8q", 128, None), ("int8t", 128, None),
-                           ("int8g", 128, None))),
+                           ("int8g", 128, None), ("int8p", 128, None))),
             ("int8_fused", (("int8", 128, "row"),))):
         logits = []
         for name, g, layout in names:
@@ -2016,16 +2398,19 @@ def serving_phase(qparams, cfg, gemv, kvc, teng, llama, gen_mod, linear):
                                 layout, q8, gen)
         check(forced <= bar, f"{name}: teacher-forced decode logits {forced} "
               f"> {bar} of max from decode_step over a dense f32 cache")
-        emit({"phase": "serving", "kernel": name, "kv_layout": layout,
-              "kv_int8": q8, "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
-              "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
-              "prompt_lens": lens.tolist(), "new_tokens": SERVE_NEW_TOKENS,
-              "runs": runs, "burst8_pipeline_equals_burst1": True,
-              "teacher_forced_rel_err": forced, "teacher_forced_bar": bar,
-              "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              **serving_figures(teng, qparams, cfg, prompts, layout, q8)})
+        row = {"phase": "serving", "kernel": name, "kv_layout": layout,
+               "kv_int8": q8, "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
+               "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
+               "prompt_lens": lens.tolist(), "new_tokens": SERVE_NEW_TOKENS,
+               "runs": runs, "burst8_pipeline_equals_burst1": True,
+               "teacher_forced_rel_err": forced, "teacher_forced_bar": bar,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **serving_figures(teng, qparams, cfg, prompts, layout, q8)}
+        emit(row)
+        if name == "flash_paged_decode":
+            paged_bf16 = row
         torch.cuda.empty_cache()
-    return launches
+    return launches, paged_bf16
 
 
 def main():
@@ -2037,7 +2422,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from any4_tpu_torch.models import generate as gen_mod, llama
+    from any4_tpu_torch.models import fuse, generate as gen_mod, llama
     from any4_tpu_torch.ops import build, gemv, linear, packing, quant
     from any4_tpu_torch.quant import api
     from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
@@ -2066,6 +2451,7 @@ def main():
     timer = Timer()
     rows = kernel_phase(gemv, packing, linear, timer, Timer(dirty=True), bw,
                         peak)
+    fused_rows = kernel_a_fused_shapes(gemv, packing, linear, timer, bw, peak)
     emit({"phase": "kernel_edge_cases", "passed": edge_cases(gemv, packing)})
     emit({"phase": "kernel_a_edge_cases",
           "passed": kernel_a_edge_cases(gemv, packing)})
@@ -2076,6 +2462,10 @@ def main():
               **kernel_a_bit_equal(gemv, packing, name)})
         emit({"phase": "post_edge_cases", "name": name,
               "passed": post_edge_cases(gemv, packing, name)})
+    for name in ("int8_post", "w8a8", "w8a8_fused"):
+        emit({"phase": "post_edge_cases", "name": name,
+              "group_size": "padded_k(k)",
+              "passed": rowscale_edge_cases(gemv, packing, name)})
     for name in gemv.FLOAT_X_KERNELS:
         emit({"phase": "post_bit_equal", "name": name,
               **kernel_a_bit_equal(gemv, packing, name)})
@@ -2107,11 +2497,16 @@ def main():
     emit({"phase": "attention_buckets_bit_equal",
           "passed": attention_buckets(kvc)})
     del timer
-    launches, qparams, cfg = main_path(args, gemv, llama, gen_mod, api,
-                                       linear)
-    attn_launches = serving_phase(qparams, cfg, gemv, kvc, teng, llama,
-                                  gen_mod, linear)
-    del qparams
+    launches, qparams, cfg, (qtable, qtable_s, figures) = main_path(
+        args, gemv, llama, gen_mod, api, linear)
+    attn_launches, paged_bf16 = serving_phase(qparams, cfg, gemv, kvc, teng,
+                                              llama, gen_mod, linear)
+    figures["quantize_embeddings_s"] = qtable_s
+    fused_launches = fused_qemb_path(
+        qparams, qtable, cfg, {"main": figures, "serving": paged_bf16}, gemv,
+        kvc, teng, llama, gen_mod, api, linear, fuse)
+    launches["q4_lut_post"] += fused_launches["q4_lut_post"]
+    del qparams, qtable
     torch.cuda.empty_cache()
     # each kernel's launches in the main path that carries it
     for fmt, names in (("any4_g64", ("q4_lut_fused",)),
@@ -2130,6 +2525,19 @@ def main():
                         else None)
         del qf
         torch.cuda.empty_cache()
+    launches["q4_lut_fused"] += mx4_path(args, gemv, llama, gen_mod, api,
+                                         linear)["q4_lut_fused"]
+    torch.cuda.empty_cache()
+    # the row-scale formats at 2 layers: the full depth goes to the paths
+    # above
+    for fmt, names in (("int8r", ("int8_post",)),
+                       ("w8a8r", ("w8a8", "w8a8_fused")),
+                       ("any4q8r", ("w8a8", "w8a8_fused"))):
+        got, _, _ = int_main_path(args, fmt, gemv, llama, gen_mod, api,
+                                  linear, layers=2)
+        for k in names:
+            launches[k] += got[k]
+        torch.cuda.empty_cache()
     launches.update({k: v for k, v in select_path(
         args, gemv, llama, api, linear).items() if v})
     int8_layouts(gemv, llama, api, linear)
@@ -2145,8 +2553,12 @@ def main():
             "bound_by": summary["bound_by"],
             "library_ms": summary["library_ms"],
             "timed_as": "sum over one 1B decoder layer's 7 linears at m=1",
-            "launches_from": (f"generate at b=1 and 4 over the any4 g="
-                              f"{spec['group_size']} model"),
+            "launches_from": (
+                "generate at b=1 and 4 over the any4 g=128 model, then over "
+                "it fused with the quantized tied head, and that model's "
+                "engine run(burst=1)" if name == "q4_lut_post" else
+                "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
+                "over the mx4 (g=32) model"),
             "group_size": spec["group_size"]})
         if name == "q4_lut_post":
             kernels[-1]["by_m"] = {m: layer_summary(
@@ -2154,6 +2566,12 @@ def main():
                                        "bound_ms", "library_ms",
                                        "library_ms_dirty_l2"))
                 for m in spec["ms"]}
+            kernels[-1]["fused_shapes"] = {
+                f"{r['n']}x{r['k']}_m{r['m']}": {
+                    key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "max_abs_err")}
+                for r in fused_rows}
         else:
             kernels[-1]["by_m"] = by_m(rows, name, spec["ms"])
     for name, (layout, q8, replaces) in ATTN_KERNELS.items():
@@ -2200,10 +2618,14 @@ def main():
                                        "library_ms")},
             "timed_as": (f"sum over one 1B decoder layer's 7 linears at m=1,"
                          f" g={g}"),
-            "launches_from": (f"generate at b=1 and 4 over the "
-                              f"{'w8a8' if name.startswith('w8a8') else 'int8'}"
-                              f" model"
-                              f"{' at g=64' if name == 'int8_fused' else ''}")})
+            "launches_from": (
+                "generate at b=1 and 4 over the "
+                + {"int8_fused": "int8 g=64 model",
+                   "int8_post": "int8 model and the 2-layer int8r model",
+                   "w8a8": "w8a8 model and the 2-layer w8a8r and any4q8r "
+                           "models",
+                   "w8a8_fused": "w8a8 model and the 2-layer w8a8r and "
+                                 "any4q8r models"}[name])})
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int8_rows, name, INT8_KERNELS[name][2])
     emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,

@@ -77,11 +77,20 @@ def test_dense_bf16_round_trip():
 
 
 def test_unported_format_raises():
+    """int8p, the last format the port lacked, now carries across: the
+    split-byte planes become int8 codes and back, and the JAX fields come
+    back as they were (an unknown name is refused)."""
     qt = _jax_qt("int8p", 16, 1024, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlin.quantize_tensor(torch.zeros(16, 1024), "int8p")
+    port = convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
+    assert port.fmt == "int8p" and port.packed.dtype == torch.int8
+    back = convert.qt_to_jax(port)
+    for f in ("packed", "scales"):
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(qt, f)))
+    assert_close_max(back["zeros"], np.asarray(qt.zeros), 1e-6)
+    own = tlin.quantize_tensor(torch.zeros(16, 1024), "int8p")
+    assert own.fmt == "int8p" and own.packed.shape == (16, 1024)
+    with pytest.raises(ValueError, match="unsupported fmt"):
+        convert.qt_from_jax({**jax_to_numpy(qt), "fmt": "int3"}, device="cpu")
 
 
 def test_row_shards_raise():

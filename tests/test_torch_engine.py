@@ -9,8 +9,9 @@ seed. The dense f32 models must give the same tokens, token for token;
 the any4 model is held by ``_both``'s tie rule (its teacher-forced logits
 within ``QUANT_TIE`` of JAX's, and its tokens equal up to the first
 near-tie). The cases mirror
-``tests/test_serving.py`` without tensor parallelism, MoE and quantized
-embeddings, which the port does not have yet.
+``tests/test_serving.py`` without tensor parallelism and MoE, which the
+port does not have yet (quantized embeddings and fused projections:
+``tests/test_torch_fuse.py``).
 """
 import dataclasses
 
@@ -291,8 +292,11 @@ def test_engine_leaves_out_what_is_not_ported(models):
     moe = {**tp, "layers": [{**tp["layers"][0], "experts": {}}]}
     with pytest.raises(NotImplementedError, match="item 9"):
         teng.Engine(moe, tcfg, device="cpu")
-    qt = lin.quantize_tensor(torch.randn(256, 64), "nf4", 64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        teng.Engine({**tp, "embed_tokens": qt}, tcfg, device="cpu")
+    # a quantized table (item 8) is served: looked up and, tied, the head
+    qt = lin.quantize_tensor(tp["embed_tokens"], "nf4", 64)
+    got, _ = _serve(teng, {**tp, "embed_tokens": qt}, tcfg,
+                    _prompts(1, (4, 6)), 3, max_slots=2, max_ctx=32,
+                    page_size=8)
+    assert [len(t) for t in got] == [3, 3]
     with pytest.raises(ValueError, match="params are on cpu"):
         teng.Engine(tp, tcfg)                       # default device: cuda

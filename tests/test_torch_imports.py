@@ -68,7 +68,12 @@ def test_sources_import_no_jax():
                                 api.quant_methods["w4a8"],
                                 api.quant_methods["int8"],
                                 api.quant_methods["w8a8"],
-                                api.quant_methods["any4q8"]])
+                                api.quant_methods["any4q8"],
+                                api.quant_methods["mx4"],
+                                api.quant_methods["int8p"],
+                                api.quant_methods["int8r"],
+                                api.quant_methods["w8a8r"],
+                                api.quant_methods["any4q8r"]])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -151,8 +151,8 @@ def test_quantize_model_options():
     with pytest.raises(NotImplementedError, match="item 10"):
         api.quantize_model(params, calibrate_fn=lambda **kw: None,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.quantize_model(params, quantize_embeddings=True, device="cpu")
+    qe = api.quantize_model(params, quantize_embeddings=True, device="cpu")
+    assert qe["embed_tokens"].fmt == "any4"            # row layout
 
 
 def test_checkpoint_jax_to_port(any4_pair, tmp_path):
