@@ -4,7 +4,9 @@
 Prefill runs the prompt in one forward that writes the cache; each decode
 step is a one-token forward. :func:`decode_loop` is a Python loop over
 :func:`decode_step` where the JAX package scans the step inside one
-compiled program; every step launches its kernels from the host.
+compiled program; every step launches its kernels from the host. The
+forward is :func:`.llama.forward`, or :func:`.mixtral.forward` for a tree
+of MoE layers (:func:`_model_forward`).
 """
 from __future__ import annotations
 
@@ -12,7 +14,15 @@ from typing import Dict, Optional
 
 import torch
 
-from . import llama
+from . import llama, mixtral
+
+
+def _model_forward(params: Dict):
+    """``llama.forward``, or ``mixtral.forward`` when the tree's layers
+    carry MoE experts (``experts`` or stacked ``moe_w13``)."""
+    if params["layers"] and mixtral.is_moe(params["layers"][0]):
+        return mixtral.forward
+    return llama.forward
 
 
 def _prefill_mask(t: int, max_len: int, device) -> torch.Tensor:
@@ -40,7 +50,7 @@ def prefill(params: Dict, cfg: llama.LlamaConfig, input_ids: torch.Tensor,
     position's logits ``[b, vocab]`` and the caches."""
     t = input_ids.shape[1]
     max_len = kv_caches[0][0].shape[1]
-    logits, caches = llama.forward(
+    logits, caches = _model_forward(params)(
         params, cfg, input_ids, kv_caches=kv_caches, cache_pos=None,
         mask=_prefill_mask(t, max_len, input_ids.device))
     return logits[:, -1, :], caches
@@ -52,7 +62,7 @@ def decode_step(params: Dict, cfg: llama.LlamaConfig, token: torch.Tensor,
     b = token.shape[0]
     max_len = kv_caches[0][0].shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.long, device=token.device)
-    logits, caches = llama.forward(
+    logits, caches = _model_forward(params)(
         params, cfg, token[:, None], positions=positions,
         kv_caches=kv_caches, cache_pos=pos,
         mask=llama.decode_mask(max_len, pos, token.device))

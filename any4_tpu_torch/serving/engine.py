@@ -20,8 +20,15 @@ The decode step uses fused projections (``qkv_proj``/``gateup_proj``,
 and dequantized, and as a tied head through the quantized kernel) as
 ``llama.forward`` does.
 
-Not ported: tensor parallelism (``mesh``/``param_spec``) and MoE layers;
-each raises ``NotImplementedError`` naming its ROADMAP item.
+A tree of MoE layers (:mod:`..models.mixtral`: per-expert, ``w13``-fused
+or stacked experts) prefills through ``mixtral.forward``, and the decode
+step routes its FFN to ``mixtral.moe_ffn(dispatch="dense")``: every expert
+runs on every slot, so a burst never waits for the host to read the routed
+set. Sparse and dense dispatch give the same bits, so the tokens are those
+of the JAX engine's ``auto`` dispatch.
+
+Not ported: tensor parallelism (``mesh``/``param_spec``), which raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,8 +38,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..models import llama
-from ..models.generate import _check_device
+from ..models import llama, mixtral
+from ..models.generate import _check_device, _model_forward
 from ..ops import linear as lin
 from . import kv_cache as kvc
 
@@ -47,13 +54,12 @@ class Request:
     done: bool = False
 
 
-def _model_forward(params):
-    """llama.forward; MoE expert layers are not ported."""
-    if params["layers"] and ("experts" in params["layers"][0]
-                             or "moe_w13" in params["layers"][0]):
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP queue 1, item 9)")
-    return llama.forward
+def _ffn(layer, cfg, h):
+    """One decode-step layer's dense MLP, or its routed MoE FFN with dense
+    dispatch (see the module docstring)."""
+    if mixtral.is_moe(layer):
+        return mixtral.moe_ffn(layer, cfg, h, dispatch="dense")
+    return llama.mlp(layer, h, act=cfg.hidden_act)
 
 
 def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
@@ -143,14 +149,14 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
             x = x + out
             h = llama.rms_norm(x, layer["pre_feedforward_layernorm"],
                                eps, off)
-            m = llama.mlp(layer, h, act=cfg.hidden_act)
+            m = _ffn(layer, cfg, h)
             x = x + llama.rms_norm(m, layer["post_feedforward_layernorm"],
                                    eps, off)
         else:
             x = x + out
             h = llama.rms_norm(x, layer["post_attention_layernorm"], eps,
                                off)
-            x = x + llama.mlp(layer, h, act=cfg.hidden_act)
+            x = x + _ffn(layer, cfg, h)
 
     logits = llama.head(params, llama.rms_norm(x, params["norm"], eps, off))
     if cfg.final_logit_softcapping is not None:  # gemma2
@@ -202,7 +208,6 @@ class Engine:
             raise NotImplementedError(
                 "the tensor-parallel engine is not ported yet (ROADMAP queue "
                 "1, item 12)")
-        _model_forward(params)
         self.device = _check_device(params, device)
         self.params = params
         self.cfg = cfg

@@ -195,12 +195,44 @@ Phases, each printing JSON lines:
     ``int8`` with ``layout="row"`` (g=128) runs ``int8_fused`` on every linear, within
     2e-2 * max of the dense float32 forward with float32 activations (int8
     at g=64 runs at full depth in 8); exact launch counts.
-12. the script's wall time, the ``nvidia-smi`` name and power line again,
+12. Mixtral-8x7B and OPT-125m. First kernel A alone at Mixtral's expert
+    weights (``kernel_mixtral_shapes``: w1/w3 14336 x 4096, w2 4096 x
+    14336, w13 28672 x 4096, stacked ``moe_w13`` 229376 x 4096 and
+    ``moe_w2`` 4096 x 114688) at m in {1, 8, 512}, held against its plain
+    version (over blocks of 16384 rows) as in ``kernel_fused_shapes`` and
+    timed beside a bf16 ``torch.matmul`` and the bytes bound; and
+    ``flash_paged_decode`` at Mixtral's attention shape (8 kv heads, rep 4,
+    head_dim 128, b=8, ctx 2048), held within 1e-2 * max (float32 1e-4)
+    and timed against SDPA. Then ``main_path_mixtral``: the published
+    config.json widths of mistralai/Mixtral-8x7B-v0.1 (d 4096, FFN 14336,
+    32 q / 8 kv heads of 128, 8 experts, top 2, vocab 32000, rope_theta
+    1e6, an untied bf16 ``lm_head``) read by
+    ``loader._mixtral_cfg_from_hf`` and cut to 2 layers, bf16 weights from
+    ``mixtral.init_params(seed=0)``, any4 at g=128 (kmeans_iters=10; the
+    router and ``lm_head`` stay bf16). Prefill logits with float32
+    activations within 2e-2 * max of the dense float32 forward; four b=1
+    decode steps give the same bits with sparse dispatch (20 kernel A
+    launches a forward: 4 attention linears and 2 experts x 3 a layer) as
+    with dense (56); ``generate`` at batch 1 and 4 with exactly those
+    counts (prefills dense), its figures, and a 1024-token forward (56
+    launches a 512-row chunk). ``serving_mixtral``: the engine as in 5
+    (paged bf16 pools; dense dispatch a decode step, so 56 launches a step
+    and a prefill chunk), burst 1 and burst 8 + pipeline equal, the
+    teacher-forced step within 2e-2 * max. ``mixtral_fused_stacked``: the
+    model fused (``fuse_projections``) and fused then stacked
+    (``stack_experts``), each quantized: logits within 2e-2 * max of their
+    dense float32 forwards, 12 and 8 kernel A launches a b=1 decode step.
+    ``main_path_opt``: OPT-125m at full width and depth, any4 at g=128
+    (72 linears, unfused), logits as above, forwards of 64 and 1024 tokens
+    at b=1 and 4 with exactly 72 kernel A launches a 512-row chunk, and
+    their host and device ms beside the bf16 model's.
+13. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
     the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
-    A also ``fused_shapes``; launches summed over the main paths that run
-    the kernel, as ``launches_from`` lists them).
-13. ``{"ok": true, "device": {...}}`` as the last line.
+    A also ``fused_shapes`` and ``mixtral_shapes``, ``flash_paged_decode``
+    ``mixtral_shape``; launches summed over the main paths that run the
+    kernel, as ``launches_from`` lists them).
+14. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -298,6 +330,22 @@ F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 LINEAR_KERNEL_NAMES = ("q4_post_mma", "a8_mma")
 SERVE_SLOTS, SERVE_MAX_CTX = 8, 2048
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 32
+# mistralai/Mixtral-8x7B-v0.1's published config.json (the keys that set
+# its shape), read through the port's loader; cut to MIXTRAL_LAYERS layers
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "tie_word_embeddings": False, "hidden_act": "silu",
+    "sliding_window": None, "num_local_experts": 8,
+    "num_experts_per_tok": 2}
+MIXTRAL_LAYERS = 2
+# kernel A alone at Mixtral's expert weights, (n, k), at MIXTRAL_MS
+MIXTRAL_SHAPES = {"w1_w3": (14336, 4096), "w2": (4096, 14336),
+                  "w13": (28672, 4096), "moe_w13": (229376, 4096),
+                  "moe_w2": (4096, 114688)}
+MIXTRAL_MS = (1, 8, 512)
 
 
 def emit(obj) -> None:
@@ -1504,10 +1552,12 @@ def device_profile(gen_mod, llama, params, cfg, prompt, steps=8):
                                         for k, v in top}}
 
 
-def prefill_chunks(llama, qparams, cfg, gen, tokens=1024):
-    """Host ms (best of 3, ending in a synchronize) of one forward over a
-    ``tokens``-token prompt with ``linear``'s chunks of at most
-    ``fused_m_max`` rows at 256, 512 (``FUSED_M_MAX``) and 1024."""
+def prefill_chunks(llama, qparams, cfg, gen, tokens=1024, fwd=None):
+    """Host ms (best of 3, ending in a synchronize) of one forward
+    (``llama.forward`` unless ``fwd``) over a ``tokens``-token prompt with
+    ``linear``'s chunks of at most ``fused_m_max`` rows at 256, 512
+    (``FUSED_M_MAX``) and 1024."""
+    fwd = fwd or llama.forward
     ids = torch.randint(0, cfg.vocab_size, (1, tokens), generator=gen,
                         device="cuda", dtype=torch.int32)
     out = {}
@@ -1516,8 +1566,7 @@ def prefill_chunks(llama, qparams, cfg, gen, tokens=1024):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = llama.forward(qparams, cfg, ids,
-                                      fused_m_max=fused_m_max)
+            logits, _ = fwd(qparams, cfg, ids, fused_m_max=fused_m_max)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(logits).all()), "prefill logits finite")
@@ -2413,6 +2462,550 @@ def serving_phase(qparams, cfg, gemv, kvc, teng, llama, gen_mod, linear):
     return launches, paged_bf16
 
 
+def mixtral_config(loader):
+    """Mixtral-8x7B's published widths through the port's loader, cut to
+    :data:`MIXTRAL_LAYERS` layers."""
+    cfg = loader._mixtral_cfg_from_hf(MIXTRAL_8X7B)
+    return dataclasses.replace(cfg, num_hidden_layers=MIXTRAL_LAYERS)
+
+
+def moe_launches(cfg, kinds, dispatch):
+    """Kernel A launches of one Mixtral forward of at most ``FUSED_M_MAX``
+    rows: per layer q, k, v, o (or qkv, o) and, per expert run (top-k
+    sparse, all dense), w1, w3, w2 (or w13, w2); stacked: moe_w13 and
+    moe_w2."""
+    attn = 2 if kinds != "unfused" else 4
+    if kinds == "stacked":
+        return cfg.num_hidden_layers * (attn + 2)
+    experts = (cfg.num_experts_per_tok if dispatch == "sparse"
+               else cfg.num_local_experts)
+    per_expert = 3 if kinds == "unfused" else 2
+    return cfg.num_hidden_layers * (attn + experts * per_expert)
+
+
+@contextlib.contextmanager
+def moe_dispatch(mixtral, dispatch):
+    """While active, every ``moe_ffn`` call runs with ``dispatch``."""
+    orig = mixtral.moe_ffn
+
+    def forced(layer, cfg, x, **kw):
+        return orig(layer, cfg, x, **{**kw, "dispatch": dispatch})
+
+    mixtral.moe_ffn = forced
+    try:
+        yield
+    finally:
+        mixtral.moe_ffn = orig
+
+
+def check_quantized(params, linear, cfg, kinds):
+    """Every linear of a Mixtral layer any4t at g=128 (the router and
+    ``lm_head`` bf16), with the keys of ``kinds``."""
+    want = {"unfused": {"q_proj", "k_proj", "v_proj", "o_proj", "w1", "w3",
+                        "w2"},
+            "fused": {"qkv_proj", "o_proj", "w13", "w2"},
+            "stacked": {"qkv_proj", "o_proj", "moe_w13", "moe_w2"}}[kinds]
+    seen = set()
+    for layer in params["layers"]:
+        leaves = [(k, v) for k, v in layer.items() if k != "experts"] + [
+            (k, v) for e in layer.get("experts", []) for k, v in e.items()]
+        for key, leaf in leaves:
+            if isinstance(leaf, linear.QuantizedTensor):
+                check(leaf.fmt == "any4t" and leaf.group_size == 128,
+                      f"{kinds} {key} is {leaf.fmt} g={leaf.group_size}")
+                seen.add(key)
+        check(isinstance(layer["router"], torch.Tensor)
+              and layer["router"].dtype == torch.bfloat16, "router bf16")
+    check(seen == want, f"{kinds}: quantized linears {sorted(seen)}")
+    check(isinstance(params["lm_head"], torch.Tensor)
+          and params["embed_tokens"].dtype == torch.bfloat16,
+          "lm_head and embed_tokens stay bf16")
+
+
+@contextlib.contextmanager
+def routing(mixtral, record=None, replay=None):
+    """While active, every ``mixtral.route`` call appends its router logits
+    (f32) and top-k experts to ``record``; or, with ``replay``, routes
+    each call to the experts recorded for it, with gates from its own
+    router logits (a softmax over those experts' logits, as ``route``
+    takes), and yields a list that gains, per call, ``(positions where a
+    replayed expert is not among the call's own top k, the largest
+    distance of such an expert's logit below the call's own k-th best,
+    max|own - recorded logits|)``, each distance over max|own logits|."""
+    orig = mixtral.route
+    calls = None if replay is None else iter(replay)
+    out = []
+
+    def route(layer, cfg, x):
+        logits = mixtral.lin.linear(x, layer["router"]).float()
+        if calls is None:
+            topi, gate = orig(layer, cfg, x)
+            record.append((logits, topi))
+            return topi, gate
+        theirs, topi = next(calls)
+        scale = logits.abs().max()
+        kth = torch.sort(logits, dim=-1, descending=True).values[
+            ..., cfg.num_experts_per_tok - 1:cfg.num_experts_per_tok]
+        chosen = logits.gather(-1, topi)
+        below = (kth - chosen).clamp_min(0) / scale
+        out.append((int((below > 0).any(-1).sum()), float(below.max()),
+                    float((logits - theirs).abs().max() / scale)))
+        return topi, torch.softmax(chosen, dim=-1)
+
+    mixtral.route = route
+    try:
+        yield out
+    finally:
+        mixtral.route = orig
+
+
+def dense_f32_check(mixtral, linear, params, cfg, ids):
+    """The quantized model with float32 activations against the dense
+    float32 forward of its exactly dequantized weights, the reference
+    routed as the quantized forward routed (:func:`routing`): a routing of
+    random weights changes on a near-tie between router logits, and any
+    difference in what comes before the router can move such a tie, so
+    the reference takes the same experts and the router logits are held
+    to the same bar as the output. Returns ``{rel_err, router_rel_err,
+    routing_flips, routing_flip_gap}``: max|logits - ref| / max|ref|, the
+    same of the router logits over every layer, the positions where the
+    two routings differ and how far below the reference's own k-th best
+    router logit a replayed expert lay there (over max|logit|)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec = []
+    with routing(mixtral, record=rec):
+        got = mixtral.forward(to_float32(params, linear), cfg32, ids)[0]
+    with routing(mixtral, replay=rec) as calls:
+        ref = mixtral.forward(to_float32(params, linear, dequantize=True),
+                              cfg32, ids)[0]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "Mixtral logits finite")
+    return {"rel_err": rel_err(got, ref),
+            "router_rel_err": max(e for _, _, e in calls),
+            "routing_flips": sum(f for f, _, _ in calls),
+            "routing_flip_gap": max(g for _, g, _ in calls)}
+
+
+def generate_launches(gemv, gen_mod, params, cfg, prompt, per_prefill,
+                      per_step):
+    """``generate`` at batch 1 with host ms, kernel A launching exactly
+    ``per_prefill`` + (NEW_TOKENS - 1) x ``per_step`` times."""
+    gemv.reset_launches()
+    tokens, ms = timed_generate(gen_mod, params, cfg, prompt[:1])
+    want = per_prefill + (NEW_TOKENS - 1) * per_step
+    check(gemv.LAUNCHES["q4_lut_post"] == want and sum(
+        gemv.LAUNCHES.values()) == want, f"generate b=1: kernel A launches "
+        f"{dict(gemv.LAUNCHES)} != {per_prefill} + {NEW_TOKENS - 1} x "
+        f"{per_step}")
+    check(tokens.shape == (1, PROMPT_LEN + NEW_TOKENS) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens b=1")
+    return tokens, ms
+
+
+def mixtral_path(gemv, loader, mixtral, gen_mod, llama, api, linear):
+    """Mixtral-8x7B at full width, 2 layers, any4 g=128; see the module
+    docstring (phase 12). Returns the dense bf16 and the quantized trees,
+    the config and kernel A's launches in ``generate``."""
+    cfg = mixtral_config(loader)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams = api.quantize_model(params, fmt="any4", group_size=128,
+                                 kmeans_iters=10)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check_quantized(qparams, linear, cfg, "unfused")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    errs = dense_f32_check(mixtral, linear, qparams, cfg, prompt[:1])
+    emit({"phase": "main_path_check_mixtral", "bar": 2e-2, **errs})
+    check(errs["rel_err"] <= 2e-2 and errs["router_rel_err"] <= 2e-2,
+          f"Mixtral any4 logits or router logits (float32 activations) vs "
+          f"the dequantized model's dense float32 forward: {errs} > 2e-2 of "
+          f"max")
+
+    # sparse (auto at b=1) against dense, bit for bit, over 4 decode steps
+    sparse_pf = moe_launches(cfg, "unfused", "sparse")
+    dense_pf = moe_launches(cfg, "unfused", "dense")
+    steps = 4
+    caches = llama.init_kv_caches(cfg, 1, PROMPT_LEN + steps)
+    gen_mod.prefill(qparams, cfg, prompt[:1].long(), caches)
+    for i in range(steps):
+        tok = prompt[:1, i]
+        logits = {}
+        for dispatch in ("sparse", "dense"):
+            gemv.reset_launches()
+            with moe_dispatch(mixtral, dispatch):
+                logits[dispatch], _ = gen_mod.decode_step(
+                    qparams, cfg, tok, PROMPT_LEN + i, caches)
+            torch.cuda.synchronize()
+            want = sparse_pf if dispatch == "sparse" else dense_pf
+            check_launches(gemv, {"q4_lut_post": want}, 1,
+                           f"Mixtral decode step, {dispatch} dispatch")
+        check(torch.equal(logits["sparse"], logits["dense"]),
+              f"Mixtral b=1 decode step {i}: sparse logits != dense")
+    del caches
+
+    torch.cuda.reset_peak_memory_stats()
+    gemv.reset_launches()
+    gen_ms, tokens = {}, {}
+    for b in (1, 4):
+        tokens[b], gen_ms[b] = timed_generate(gen_mod, qparams, cfg,
+                                              prompt[:b])
+    # a prefill of b * 64 rows and b = 4 decode runs dense, b = 1 sparse
+    want = 2 * dense_pf + (NEW_TOKENS - 1) * (sparse_pf + dense_pf)
+    launches = dict(gemv.LAUNCHES)
+    check(launches["q4_lut_post"] == want and sum(launches.values()) == want,
+          f"Mixtral generate: kernel A launches {launches} != {want}")
+    for b, tok in tokens.items():
+        check(tok.shape == (b, PROMPT_LEN + NEW_TOKENS)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+              and torch.equal(tok[:, :PROMPT_LEN], prompt[:b]),
+              f"Mixtral tokens b={b}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    figs = decode_figures(gen_mod, llama, qparams, cfg, prompt)
+    prof = device_profile(gen_mod, llama, qparams, cfg, prompt)
+    prof["busy_share_b1"] = (prof["device_ms_per_step"]
+                             / figs[1]["decode_ms_per_token"])
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    gemv.reset_launches()
+    check(bool(torch.isfinite(mixtral.forward(qparams, cfg, ids)[0]).all()),
+          "Mixtral 1024-token logits finite")
+    torch.cuda.synchronize()
+    chunks = -(-1024 // linear.FUSED_M_MAX)
+    check_launches(gemv, {"q4_lut_post": dense_pf}, chunks,
+                   f"Mixtral 1024-token forward: kernel A a "
+                   f"{linear.FUSED_M_MAX}-row chunk")
+    prefill = prefill_chunks(llama, qparams, cfg, gen, fwd=mixtral.forward)
+    emit({"phase": "main_path_mixtral", "model": "mixtral_8x7b",
+          "source": "mistralai/Mixtral-8x7B-v0.1 config.json",
+          "layers": cfg.num_hidden_layers, "reduced": {
+              "num_hidden_layers": [MIXTRAL_8X7B["num_hidden_layers"],
+                                    cfg.num_hidden_layers]},
+          "fmt": "any4", "group_size": 128, "kmeans_iters": 10,
+          "init_s": init_s, "quantize_s": quantize_s,
+          "launches": launches, "launches_per_forward": {
+              "b1_sparse": sparse_pf, "dense": dense_pf},
+          "sparse_equals_dense_decode_steps": steps,
+          "generate_ms": gen_ms, "max_memory_allocated": peak_mem,
+          "model_bytes_any4": api.model_size_bytes(qparams),
+          "model_bytes_bf16": api.model_size_bytes(params),
+          "mixtral": figs, "profile_b1": prof,
+          "prefill_1024_tokens_forward_ms": prefill,
+          "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
+    return params, qparams, cfg, launches["q4_lut_post"]
+
+
+def mixtral_fused_stacked(params, cfg, gemv, mixtral, gen_mod, llama, api,
+                          linear, fuse):
+    """The Mixtral model fused (qkv and each expert's w13), and fused then
+    stacked (``moe_w13``/``moe_w2``), each quantized to any4 at g=128:
+    logits within 2e-2 * max of the dense float32 forward; kernel A 12 and
+    8 launches a b=1 decode step."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    out = {}
+    for kinds in ("fused", "stacked"):
+        tree = fuse.fuse_projections(params)
+        if kinds == "stacked":
+            tree = fuse.stack_experts(tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = api.quantize_model(tree, fmt="any4", group_size=128,
+                               kmeans_iters=10)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        del tree
+        torch.cuda.empty_cache()
+        check_quantized(q, linear, cfg, kinds)
+        errs = dense_f32_check(mixtral, linear, q, cfg, prompt[:1])
+        check(errs["rel_err"] <= 2e-2 and errs["router_rel_err"] <= 2e-2,
+              f"Mixtral {kinds} logits or router logits (float32 "
+              f"activations) vs the dense float32 forward: {errs} > 2e-2 of "
+              f"max")
+        step = moe_launches(cfg, kinds, "sparse")
+        _, ms = generate_launches(gemv, gen_mod, q, cfg, prompt,
+                                  moe_launches(cfg, kinds, "dense"), step)
+        figs = decode_figures(gen_mod, llama, q, cfg, prompt)
+        prof = device_profile(gen_mod, llama, q, cfg, prompt)
+        prof["busy_share_b1"] = (prof["device_ms_per_step"]
+                                 / figs[1]["decode_ms_per_token"])
+        out[kinds] = {"check_vs_dense_f32": errs,
+                      "launches_per_decode_step_b1": step,
+                      "quantize_s": quantize_s, "generate_ms_b1": ms,
+                      "model_bytes": api.model_size_bytes(q),
+                      "mixtral": figs, "profile_b1": prof}
+        del q
+        torch.cuda.empty_cache()
+    emit({"phase": "mixtral_fused_stacked", "layers": cfg.num_hidden_layers,
+          "bar": 2e-2, **out})
+
+
+def mixtral_serving(qparams, cfg, gemv, kvc, teng, gen_mod, llama, linear):
+    """The any4 Mixtral model behind the engine (paged bf16 pools, the
+    prompts of phase 5) at ``run(burst=1)`` and ``run(burst=8,
+    pipeline=True)``: equal tokens, exact launches (every expert a decode
+    step: dense dispatch), the teacher-forced step within 2e-2 * max."""
+    prompts = serve_prompts(cfg)
+    per_forward = moe_launches(cfg, "unfused", "dense")
+    out, runs = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode, run_kw in (("burst1", dict(burst=1)),
+                         ("burst8_pipeline", dict(burst=8, pipeline=True))):
+        gemv.reset_launches()
+        kvc.reset_launches()
+        out[mode], e, wall = serve(teng, qparams, cfg, prompts, "paged",
+                                   False, run_kw)
+        steps = e.decode_steps
+        chunks = sum(-(-e._bucket(len(p)) // linear.FUSED_M_MAX)
+                     for p in prompts)
+        check(all(len(t) == SERVE_NEW_TOKENS
+                  and all(0 <= x < cfg.vocab_size for x in t)
+                  for t in out[mode]), f"Mixtral {mode}: every request "
+              f"gives {SERVE_NEW_TOKENS} tokens in the vocabulary")
+        check(kvc.LAUNCHES["flash_paged_decode"] == cfg.num_hidden_layers
+              * steps and sum(kvc.LAUNCHES.values())
+              == kvc.LAUNCHES["flash_paged_decode"],
+              f"Mixtral {mode}: attention launches {kvc.LAUNCHES}")
+        check_launches(gemv, {"q4_lut_post": per_forward}, steps + chunks,
+                       f"Mixtral {mode} engine ({steps} steps + {chunks} "
+                       f"prefill chunks)")
+        runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
+                      "decode_steps": steps, "prefill_chunks": chunks,
+                      "wall_s": wall,
+                      "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
+        del e
+    check(out["burst1"] == out["burst8_pipeline"],
+          "Mixtral: run(burst=8, pipeline=True) tokens differ from "
+          "run(burst=1)")
+    forced = teacher_forced(
+        teng, kvc, gen_mod, llama, to_float32(qparams, linear),
+        dataclasses.replace(cfg, dtype=torch.float32), "paged", False,
+        torch.Generator(device="cuda").manual_seed(6))
+    check(forced <= 2e-2, f"Mixtral: teacher-forced decode logits {forced} "
+          f"> 2e-2 of max from decode_step over a dense f32 cache")
+    emit({"phase": "serving_mixtral", "kv_layout": "paged", "kv_int8": False,
+          "slots": SERVE_SLOTS, "max_ctx": SERVE_MAX_CTX,
+          "page_size": PAGE_SIZE, "layers": cfg.num_hidden_layers,
+          "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW_TOKENS, "runs": runs,
+          "burst8_pipeline_equals_burst1": True,
+          "teacher_forced_rel_err": forced, "teacher_forced_bar": 2e-2,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **serving_figures(teng, qparams, cfg, prompts, "paged", False)})
+    return runs["burst1"]["launches"]["flash_paged_decode"]
+
+
+def timed_forward(fn, reps=3):
+    """(host ms, device ms) of one call of ``fn``: the host clock over
+    ``reps`` calls ending in a synchronize, and the kernels' time from
+    ``torch.profiler`` over as many, both per call, after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA) / 1e3 / reps
+    return host, device
+
+
+def opt_path(gemv, opt, api, linear):
+    """OPT-125m at full width and depth, any4 g=128 (72 linears, all
+    ``any4t``, unfused: the forward reads q/k/v apart): logits of a
+    64-token prompt with float32 activations within 2e-2 * max of the
+    dense float32 forward; 64- and 1024-token forwards at b=1 and 4 with
+    exactly 72 kernel A launches per ``FUSED_M_MAX``-row chunk, and their
+    host and device ms."""
+    cfg = opt.OPTConfig.opt_125m()
+    params = opt.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = api.quantize_model(params, fmt="any4", group_size=128,
+                           kmeans_iters=10)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    per_chunk = 6 * cfg.num_hidden_layers
+    fmts = [l.fmt for layer in q["layers"] for l in layer.values()
+            if isinstance(l, linear.QuantizedTensor)]
+    check(len(fmts) == per_chunk and set(fmts) == {"any4t"}
+          and isinstance(q["embed_tokens"], torch.Tensor),
+          f"OPT: every linear any4t, the tied table bf16 ({set(fmts)})")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ids = torch.randint(0, cfg.vocab_size, (4, 1024), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got = opt.forward(to_float32(q, linear), cfg32, ids[:1, :PROMPT_LEN])[0]
+    ref = opt.forward(to_float32(q, linear, dequantize=True), cfg32,
+                      ids[:1, :PROMPT_LEN])[0]
+    err = rel_err(got, ref)
+    check(bool(torch.isfinite(got).all()) and err <= 2e-2,
+          f"OPT any4 logits (float32 activations) vs the dense float32 "
+          f"forward: {err} > 2e-2 of max")
+    del got, ref
+    launches, times = {}, {}
+    for b in (1, 4):
+        for t in (PROMPT_LEN, 1024):
+            x = ids[:b, :t]
+            gemv.reset_launches()
+            logits, _ = opt.forward(q, cfg, x)
+            torch.cuda.synchronize()
+            check(logits.shape == (b, t, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), f"OPT b={b} t={t}")
+            chunks = -(-b * t // linear.FUSED_M_MAX)
+            check_launches(gemv, {"q4_lut_post": per_chunk}, chunks,
+                           f"OPT forward b={b} t={t}")
+            launches[f"b{b}_t{t}"] = gemv.LAUNCHES["q4_lut_post"]
+            host, device = timed_forward(lambda: opt.forward(q, cfg, x))
+            dense_host, dense_device = timed_forward(
+                lambda: opt.forward(params, cfg, x))
+            times[f"b{b}_t{t}"] = {"host_ms": host, "device_ms": device,
+                                   "dense_bf16_host_ms": dense_host,
+                                   "dense_bf16_device_ms": dense_device}
+    emit({"phase": "main_path_opt", "model": "opt_125m",
+          "layers": cfg.num_hidden_layers, "fmt": "any4", "group_size": 128,
+          "kmeans_iters": 10, "quantize_s": quantize_s,
+          "rel_err_any4_f32_vs_dense_f32": err, "bar": 2e-2,
+          "launches_per_chunk": per_chunk, "launches": launches,
+          "forward": times, "model_bytes": api.model_size_bytes(q),
+          "model_bytes_bf16": api.model_size_bytes(params)})
+    return sum(launches.values())
+
+
+def plain_by_rows(plain, x, args, out, rows=16384):
+    """Kernel A's plain version over blocks of ``rows`` weight rows (each
+    output column depends on its own row only), concatenated."""
+    packed, scales, zeros, lut, g = args
+    n = packed.shape[0]
+    per_row = lut.shape[0] == n
+    return torch.cat([
+        plain(x, packed[i:i + rows], scales[:, i:i + rows],
+              zeros[:, i:i + rows], lut[i:i + rows] if per_row else lut, g,
+              out) for i in range(0, n, rows)], dim=1)
+
+
+def kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak):
+    """Kernel A (g=128, per-row LUT) at :data:`MIXTRAL_SHAPES`, m in
+    :data:`MIXTRAL_MS`: held against its plain version (run over blocks of
+    rows; bf16 output within 1e-2 * max, float32 within 1e-4 * max), with
+    its launch plan, and timed as in the kernel phase beside a bf16
+    ``torch.matmul`` on the dequantized weight and the bytes bound. Each
+    shape is launched once before it is timed."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wrapper, plain = gemv.q4_lut_post, gemv.q4_lut_post_plain
+    for name, (n, k) in MIXTRAL_SHAPES.items():
+        codes = torch.randint(0, 16, (n, k), generator=gen, device="cuda",
+                              dtype=torch.uint8)
+        lut = torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
+                         dim=1).values * 15.0 - 8.0
+        G = packing.padded_k(k) // 128
+        scales = torch.rand((G, n), generator=gen, device="cuda") * 0.01 \
+            + 1e-3
+        zeros = torch.randn((G, n), generator=gen, device="cuda") * 0.01
+        qt = linear.QuantizedTensor(packing.pack_codes(codes), scales, zeros,
+                                    lut.contiguous(), "any4", 128, (n, k))
+        del codes
+        w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
+        args = (qt.packed, qt.scales, qt.zeros, qt.lut, 128)
+        for m in MIXTRAL_MS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            errs, abs_err = {}, {}
+            for out, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+                y = wrapper(x, *args, out)
+                ref = plain_by_rows(plain, x, args, out)
+                errs[str(out)] = rel_err(y, ref)
+                abs_err[str(out)] = float((y.float() - ref.float()).abs()
+                                          .max())
+                del y, ref
+                check(errs[str(out)] <= tol, f"kernel A {name} n={n} k={k} "
+                      f"m={m} {out}: {errs[str(out)]} > {tol} of max")
+            tn, per, split_blocks, floats, ints = gemv.post_launch_plan(
+                "q4_lut_post", m, n, k, G, 128, sms)
+            nbytes = (qt.packed.numel() * 4 + 2 * G * n * 4 + n * 16 * 4
+                      + m * k * 2 + m * n * 2)
+            t_bytes = nbytes / bw * 1e3
+            t_ops = 2 * m * n * k / peak * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_by_rows(plain, x, args, torch.bfloat16)
+            torch.cuda.synchronize()
+            row = {"phase": "kernel_mixtral_shapes", "name": "q4_lut_post",
+                   "weight": name, "n": n, "k": k, "m": m,
+                   "group_size": 128, "rel_err": errs,
+                   "plan": {"token_tiles": tn, "groups_per_split": per,
+                            "split_blocks": split_blocks,
+                            "scratch_floats": floats, "counters": ints},
+                   "ms": timer(lambda: wrapper(x, *args, torch.bfloat16)),
+                   "plain_ms": (time.perf_counter() - t0) * 1e3,
+                   "plain_timed_as": "one call, host clock, synchronized",
+                   "library_ms": timer(lambda: torch.matmul(x, w_bf16.t())),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "flops": 2 * m * n * k,
+                   "max_abs_err": abs_err[str(torch.bfloat16)]}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            emit(row)
+            rows.append(row)
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attention_mixtral_shape(kvc, timer, bw):
+    """``flash_paged_decode`` at Mixtral's attention shape (8 kv heads, rep
+    4, head_dim 128: the kernel's general body, not the ``SMALL`` one) at
+    b=8, ctx 2048, bf16 pools and q: held within 1e-2 * max of its plain
+    version (float32 within 1e-4), timed against SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    name = "flash_paged_decode"
+    b, ctx = ATTN_TIMED
+    dims = dict(h=8, rep=4, d=128)
+    fn, plain, args = attn_inputs(kvc, name, b, ctx, gen, torch.bfloat16,
+                                  torch.bfloat16, **dims)
+    y, ref = fn(*args), plain(*args)
+    err = float((y.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    check(bool(torch.isfinite(y).all()) and err <= 1e-2 * scale,
+          f"{name} at Mixtral's shape: |kernel - plain| {err} > 1e-2 * "
+          f"{scale}")
+    f32_fn, f32_plain, f32_args = attn_inputs(
+        kvc, name, b, ctx, gen, torch.float32, torch.float32, **dims)
+    f32 = rel_err(f32_fn(*f32_args), f32_plain(*f32_args))
+    check(f32 <= 1e-4, f"{name} at Mixtral's shape, float32: {f32} > 1e-4")
+    bound, by, nbytes, flops = attn_bound(name, args, bw)
+    split = kvc.split_len(b, dims["h"])
+    row = {"phase": "attention_kernel", "shape": "mixtral_8x7b",
+           "name": name, "b": b, "ctx": ctx, **dims, "page_size": PAGE_SIZE,
+           "S": split, "splits": -(-ctx // split),
+           "pool": "torch.bfloat16", "q": "torch.bfloat16",
+           "ms": timer(lambda: fn(*args)),
+           "plain_ms": timer(lambda: plain(*args), reps=3),
+           "library_ms": timer(sdpa_yardstick(kvc, args)),
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+           "flops": flops, "max_abs_err": err, "rel_err": err / scale,
+           "f32_rel_err": f32, "bar": 1e-2}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit(row)
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
@@ -2423,6 +3016,7 @@ def main():
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from any4_tpu_torch.models import fuse, generate as gen_mod, llama
+    from any4_tpu_torch.models import loader, mixtral, opt
     from any4_tpu_torch.ops import build, gemv, linear, packing, quant
     from any4_tpu_torch.quant import api
     from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
@@ -2541,6 +3135,24 @@ def main():
     launches.update({k: v for k, v in select_path(
         args, gemv, llama, api, linear).items() if v})
     int8_layouts(gemv, llama, api, linear)
+    # Mixtral-8x7B's shapes alone, then the model (2 layers) through
+    # generate, the engine, fused and stacked; then OPT-125m
+    timer = Timer()
+    mixtral_rows = kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw,
+                                           peak)
+    attn_mixtral = attention_mixtral_shape(kvc, timer, bw)
+    del timer
+    mparams, mq, mcfg, mixtral_launches = mixtral_path(
+        gemv, loader, mixtral, gen_mod, llama, api, linear)
+    attn_launches["flash_paged_decode"] += mixtral_serving(
+        mq, mcfg, gemv, kvc, teng, gen_mod, llama, linear)
+    del mq
+    mixtral_fused_stacked(mparams, mcfg, gemv, mixtral, gen_mod, llama, api,
+                          linear, fuse)
+    del mparams
+    torch.cuda.empty_cache()
+    launches["q4_lut_post"] += mixtral_launches + opt_path(gemv, opt, api,
+                                                           linear)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2556,7 +3168,9 @@ def main():
             "launches_from": (
                 "generate at b=1 and 4 over the any4 g=128 model, then over "
                 "it fused with the quantized tied head, and that model's "
-                "engine run(burst=1)" if name == "q4_lut_post" else
+                "engine run(burst=1); generate at b=1 and 4 over the any4 "
+                "Mixtral-8x7B model (2 layers); OPT-125m's forwards of 64 "
+                "and 1024 tokens at b=1 and 4" if name == "q4_lut_post" else
                 "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
                 "over the mx4 (g=32) model"),
             "group_size": spec["group_size"]})
@@ -2572,6 +3186,12 @@ def main():
                                             "bound_by", "library_ms",
                                             "max_abs_err")}
                 for r in fused_rows}
+            kernels[-1]["mixtral_shapes"] = {
+                f"{r['weight']}_{r['n']}x{r['k']}_m{r['m']}": {
+                    key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "max_abs_err")}
+                for r in mixtral_rows}
         else:
             kernels[-1]["by_m"] = by_m(rows, name, spec["ms"])
     for name, (layout, q8, replaces) in ATTN_KERNELS.items():
@@ -2588,7 +3208,14 @@ def main():
                          f"{ATTN_TIMED[1]}, {ATTN_HEADS} kv heads, rep "
                          f"{ATTN_REP}, d={ATTN_HEAD_DIM}; launches from "
                          f"the engine's run(burst=1) in the {layout} "
-                         f"{'int8' if q8 else 'bf16'} combination")})
+                         f"{'int8' if q8 else 'bf16'} combination"
+                         + (" and the Mixtral engine's" if name ==
+                            "flash_paged_decode" else ""))})
+        if name == "flash_paged_decode":
+            kernels[-1]["mixtral_shape"] = {
+                k: attn_mixtral[k] for k in (
+                    "b", "ctx", "h", "rep", "d", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err")}
     for name, (source, replaces, _) in INT_KERNELS.items():
         lut = "ramp" if name == "q4_lut_select" else "none"
         summary = layer_summary(int_rows, name, lut)

@@ -9,9 +9,9 @@ seed. The dense f32 models must give the same tokens, token for token;
 the any4 model is held by ``_both``'s tie rule (its teacher-forced logits
 within ``QUANT_TIE`` of JAX's, and its tokens equal up to the first
 near-tie). The cases mirror
-``tests/test_serving.py`` without tensor parallelism and MoE, which the
-port does not have yet (quantized embeddings and fused projections:
-``tests/test_torch_fuse.py``).
+``tests/test_serving.py`` without tensor parallelism, which the port does
+not have yet (quantized embeddings and fused projections:
+``tests/test_torch_fuse.py``; MoE layers: ``tests/test_torch_mixtral.py``).
 """
 import dataclasses
 
@@ -289,9 +289,9 @@ def test_engine_leaves_out_what_is_not_ported(models):
     jp, jcfg, tp, tcfg = models["f32"]
     with pytest.raises(NotImplementedError, match="item 12"):
         teng.Engine(tp, tcfg, mesh=object(), param_spec={}, device="cpu")
+    # MoE layers (item 9) are served (tests/test_torch_mixtral.py)
     moe = {**tp, "layers": [{**tp["layers"][0], "experts": {}}]}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.Engine(moe, tcfg, device="cpu")
+    assert teng.Engine(moe, tcfg, device="cpu").params is moe
     # a quantized table (item 8) is served: looked up and, tied, the head
     qt = lin.quantize_tensor(tp["embed_tokens"], "nf4", 64)
     got, _ = _serve(teng, {**tp, "embed_tokens": qt}, tcfg,

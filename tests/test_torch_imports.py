@@ -12,7 +12,8 @@ import pytest
 
 import any4_tpu_torch
 from any4_tpu_torch import convert
-from any4_tpu_torch.models import checkpoint, generate, llama
+from any4_tpu_torch.models import (checkpoint, generate, llama, loader,
+                                   mixtral, opt)
 from any4_tpu_torch.quant import api
 from any4_tpu_torch.serving import engine, kv_cache
 
@@ -35,6 +36,28 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_model_modules_import_without_hf_packages():
+    """The loader and the Mixtral and OPT models import where neither
+    safetensors nor transformers can be imported; only the functions that
+    read shards or build HF models need them."""
+    code = ("import json, sys\n"
+            "sys.modules['safetensors'] = None\n"
+            "sys.modules['transformers'] = None\n"
+            "from any4_tpu_torch.models import loader, mixtral, opt\n"
+            "cfg = loader._mixtral_cfg_from_hf(dict(vocab_size=8, "
+            "hidden_size=4, intermediate_size=8, num_hidden_layers=1, "
+            "num_attention_heads=1))\n"
+            "print(json.dumps([type(cfg).__name__, sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('safetensors', "
+            "'transformers') and sys.modules[m] is not None)]))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [
+        "MixtralConfig", []]
 
 
 def test_sources_import_no_jax():
@@ -73,7 +96,14 @@ def test_sources_import_no_jax():
                                 api.quant_methods["int8p"],
                                 api.quant_methods["int8r"],
                                 api.quant_methods["w8a8r"],
-                                api.quant_methods["any4q8r"]])
+                                api.quant_methods["any4q8r"],
+                                mixtral.init_params, opt.init_params,
+                                opt.load_hf_opt, loader.load_model,
+                                loader.load_llama, loader.load_mixtral,
+                                loader.convert_torch_llama,
+                                loader.convert_torch_mixtral,
+                                loader.convert_torch_opt,
+                                loader.load_hf_torch_model])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
