@@ -18,6 +18,12 @@ dtype, SiLU in f32 then cast. The KV cache is a preallocated
 ``[b, max_len, n_kv, hd]`` tensor pair per layer that :func:`attention`
 writes **in place** (the JAX package returns an updated copy from
 ``dynamic_update_slice``); the caches returned are the same tensors.
+
+``capture`` (calibration and AWQ): the forwards of this module, of
+:mod:`.mixtral` and of :mod:`.opt` record each linear's input under the
+weight's dotted name (``layers.{i}.q_proj``, ...) at the JAX package's
+sites, as per-channel ``(sum |x|, sum x, count)`` in f32 (:func:`_capture`);
+a :class:`Capture` store made with ``raw=True`` also keeps the rows.
 """
 from __future__ import annotations
 
@@ -187,15 +193,20 @@ def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
               cos: torch.Tensor, sin: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]],
               cache_pos: Optional[int], mask: Optional[torch.Tensor],
-              **kw):
+              capture: Optional[dict] = None, prefix: str = "", **kw):
     """GQA attention. Returns ``(out, kv_cache)``.
 
     ``kv_cache`` is ``(k_cache, v_cache)``, each ``[b, max_len, n_kv, hd]``,
     written in place at ``cache_pos`` (``None``: prefill writes ``[0, t)``).
+    ``capture`` records the q/k/v input (under the three names, also when
+    ``qkv_proj`` is fused) and o_proj's, prefixed by ``prefix``.
     """
     b, t, _ = x.shape
     hd = cfg.head_dim_
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if capture is not None:
+        for nm in ("q_proj", "k_proj", "v_proj"):
+            _capture(capture, f"{prefix}{nm}", x)
     q, k, v = qkv(layer, cfg, x, **kw)
     q = apply_rope(q.reshape(b, t, nq, hd), cos, sin)
     k = apply_rope(k.reshape(b, t, nkv, hd), cos, sin)
@@ -225,8 +236,10 @@ def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
         logits = logits + mask
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhts,bshd->bthd", probs, vx.to(x.dtype))
-    out = lin.linear(out.reshape(b, t, nq * hd), layer["o_proj"],
-                     layer.get("o_bias"), **kw)
+    out = out.reshape(b, t, nq * hd)
+    if capture is not None:
+        _capture(capture, f"{prefix}o_proj", out)
+    out = lin.linear(out, layer["o_proj"], layer.get("o_bias"), **kw)
     return out, kv_cache
 
 
@@ -239,7 +252,11 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(layer: Dict, x: torch.Tensor, act: str = "silu",
+        capture: Optional[dict] = None, prefix: str = "",
         **kw) -> torch.Tensor:
+    if capture is not None:
+        _capture(capture, f"{prefix}gate_proj", x)
+        _capture(capture, f"{prefix}up_proj", x)
     if "gateup_proj" in layer:
         gu = lin.linear(x, layer["gateup_proj"], **kw)
         f = gu.shape[-1] // 2
@@ -248,6 +265,8 @@ def mlp(layer: Dict, x: torch.Tensor, act: str = "silu",
         g = lin.linear(x, layer["gate_proj"], **kw)
         u = lin.linear(x, layer["up_proj"], **kw)
     h = _act(g.float(), act).to(x.dtype) * u
+    if capture is not None:
+        _capture(capture, f"{prefix}down_proj", h)
     return lin.linear(h, layer["down_proj"], **kw)
 
 
@@ -262,9 +281,12 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             kv_caches: Optional[list] = None,
             cache_pos: Optional[int] = None,
-            mask: Optional[torch.Tensor] = None, **kw):
+            mask: Optional[torch.Tensor] = None,
+            capture: Optional[dict] = None, **kw):
     """Run the decoder. Returns ``(logits [b, t, vocab], kv_caches)``;
-    ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`."""
+    ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`. ``capture``
+    (a dict, or a :class:`Capture`) accumulates every linear's input
+    statistics (:func:`_capture`)."""
     b, t = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -285,22 +307,23 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
 
     eps, off = cfg.rms_norm_eps, cfg.rms_norm_offset
     for i, layer in enumerate(params["layers"]):
+        cap = dict(capture=capture, prefix=f"layers.{i}.")
         h = rms_norm(x, layer["input_layernorm"], eps, off)
         attn_out, _ = attention(
             layer, cfg, h, cos, sin,
             None if kv_caches is None else kv_caches[i],
-            cache_pos, sl_mask if cfg.is_sliding(i) else mask, **kw)
+            cache_pos, sl_mask if cfg.is_sliding(i) else mask, **cap, **kw)
         if cfg.sandwich_norms:  # gemma2: norm the attn output, then add
             attn_out = rms_norm(attn_out, layer["post_attention_layernorm"],
                                 eps, off)
             x = x + attn_out
             h = rms_norm(x, layer["pre_feedforward_layernorm"], eps, off)
-            m = mlp(layer, h, act=cfg.hidden_act, **kw)
+            m = mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
             x = x + rms_norm(m, layer["post_feedforward_layernorm"], eps, off)
         else:
             x = x + attn_out
             h = rms_norm(x, layer["post_attention_layernorm"], eps, off)
-            x = x + mlp(layer, h, act=cfg.hidden_act, **kw)
+            x = x + mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
 
     x = rms_norm(x, params["norm"], eps, off)
     logits = head(params, x, **kw)
@@ -320,6 +343,34 @@ def head(params: Dict, x: torch.Tensor, **kw) -> torch.Tensor:
     if isinstance(emb, lin.QuantizedTensor):
         return lin.linear(x, emb, **kw)
     return x @ emb.t().to(x.dtype)
+
+
+class Capture(dict):
+    """A ``capture`` store: ``{name: (sum |x|, sum x, count)}`` as a plain
+    dict holds it and, made with ``raw=True``, ``rows[name]``: a list of
+    each recorded input's rows ``[t, k]`` in f32, left on their device
+    (AWQ searches on them)."""
+
+    def __init__(self, raw: bool = False):
+        super().__init__()
+        self.rows = {} if raw else None
+
+
+def _capture(store: dict, name: str, x: torch.Tensor):
+    """Accumulate per-channel input statistics of the linear ``name`` into
+    ``store``: ``(sum |x|, sum x, count)`` in f32 over every dimension but
+    the last (the consumer picks absolute or signed means)."""
+    xf = x.float()
+    dims = tuple(range(x.ndim - 1))
+    stats = (xf.abs().sum(dim=dims), xf.sum(dim=dims),
+             math.prod(x.shape[:-1]))
+    if name in store:
+        store[name] = tuple(a + b for a, b in zip(store[name], stats))
+    else:
+        store[name] = stats
+    rows = getattr(store, "rows", None)
+    if rows is not None:
+        rows.setdefault(name, []).append(xf.reshape(-1, x.shape[-1]))
 
 
 def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,

@@ -90,7 +90,8 @@ def route(layer: Dict, cfg: MixtralConfig, x: torch.Tensor):
 
 
 def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
-            dispatch: str = "auto", **kw) -> torch.Tensor:
+            dispatch: str = "auto", capture: Optional[dict] = None,
+            prefix: str = "", **kw) -> torch.Tensor:
     """Top-k routed expert FFN (HF semantics: softmax over the top-k router
     logits); ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`.
 
@@ -105,6 +106,11 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
       adds for it (its output times a weight of 0), so both give the same
       bits.
     - ``"auto"``: sparse while :func:`_sparse_pays`.
+
+    ``capture`` (per-expert layouts only, as in the JAX package) records
+    the shared w1/w3 input as ``{prefix}moe`` and each expert's w2 input
+    over every token as ``{prefix}experts.{e}.w2``, so it forces dense
+    dispatch.
     """
     b, t, d = x.shape
     topi, gate = route(layer, cfg, x)
@@ -126,6 +132,9 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
     if dispatch == "auto":
         dispatch = ("sparse" if _sparse_pays(b * t, cfg.num_experts_per_tok,
                                              E) else "dense")
+    if capture is not None:
+        llama._capture(capture, f"{prefix}moe", x)
+        dispatch = "dense"
     routed = (set(topi.unique().tolist()) if dispatch == "sparse"
               else range(E))
 
@@ -141,6 +150,8 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
             g = lin.linear(x, expert["w1"], **kw)
             u = lin.linear(x, expert["w3"], **kw)
         h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        if capture is not None:
+            llama._capture(capture, f"{prefix}experts.{e}.w2", h)
         ye = lin.linear(h, expert["w2"], **kw).float()
         weight = torch.where(topi == e, gate, 0.0).sum(dim=-1)   # [b, t]
         out = out + ye * weight[..., None]
@@ -151,10 +162,12 @@ def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             kv_caches: Optional[list] = None,
             cache_pos: Optional[int] = None,
-            mask: Optional[torch.Tensor] = None, **kw):
+            mask: Optional[torch.Tensor] = None,
+            capture: Optional[dict] = None, **kw):
     """Run the decoder. Returns ``(logits [b, t, vocab], kv_caches)``; the
     caches are written in place. ``kw`` goes to
-    :func:`~any4_tpu_torch.ops.linear.linear`."""
+    :func:`~any4_tpu_torch.ops.linear.linear`; ``capture`` as in
+    :func:`.llama.forward` and :func:`moe_ffn`."""
     b, t = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -169,14 +182,15 @@ def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
 
     eps = cfg.rms_norm_eps
     for i, layer in enumerate(params["layers"]):
+        cap = dict(capture=capture, prefix=f"layers.{i}.")
         h = llama.rms_norm(x, layer["input_layernorm"], eps)
         attn_out, _ = llama.attention(
             layer, cfg, h, cos, sin,
             None if kv_caches is None else kv_caches[i], cache_pos, mask,
-            **kw)
+            **cap, **kw)
         x = x + attn_out
         h = llama.rms_norm(x, layer["post_attention_layernorm"], eps)
-        x = x + moe_ffn(layer, cfg, h, **kw)
+        x = x + moe_ffn(layer, cfg, h, **cap, **kw)
 
     x = llama.rms_norm(x, params["norm"], eps)
     return llama.head(params, x, **kw), kv_caches

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops import linear as lin
+from .llama import _capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +103,12 @@ def layer_norm(x: torch.Tensor, p: Dict, eps: float = 1e-5) -> torch.Tensor:
 
 def forward(params: Dict, cfg: OPTConfig, input_ids: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            mask: Optional[torch.Tensor] = None, **kw):
+            mask: Optional[torch.Tensor] = None,
+            capture: Optional[dict] = None, **kw):
     """Full-sequence forward. Returns ``(logits [b, t, vocab], None)``;
-    ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`."""
+    ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`. ``capture``
+    records the inputs of q/k/v, ``out_proj``, ``fc1`` and ``fc2`` as
+    :func:`.llama.forward` does."""
     b, t = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -125,10 +129,14 @@ def forward(params: Dict, cfg: OPTConfig, input_ids: torch.Tensor,
     # 1 / sqrt(hd) rounded in f32, as the JAX package computes it
     scale = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
 
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
+        pre = f"layers.{li}."
         res = x
         h = layer_norm(x, layer["self_attn_layer_norm"]) \
             if cfg.do_layer_norm_before else x
+        if capture is not None:
+            for nm in ("q_proj", "k_proj", "v_proj"):
+                _capture(capture, pre + nm, h)
         q = lin.linear(h, layer["q_proj"], layer["q_bias"], **kw)
         k = lin.linear(h, layer["k_proj"], layer["k_bias"], **kw)
         v = lin.linear(h, layer["v_proj"], layer["v_bias"], **kw)
@@ -142,6 +150,8 @@ def forward(params: Dict, cfg: OPTConfig, input_ids: torch.Tensor,
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         o = torch.einsum("bhts,bshd->bthd", probs, v.to(x.dtype)).reshape(
             b, t, nh * hd)
+        if capture is not None:
+            _capture(capture, pre + "out_proj", o)
         o = lin.linear(o, layer["out_proj"], layer["out_bias"], **kw)
         x = res + o
         if not cfg.do_layer_norm_before:
@@ -150,8 +160,12 @@ def forward(params: Dict, cfg: OPTConfig, input_ids: torch.Tensor,
         res = x
         h = layer_norm(x, layer["final_layer_norm"]) \
             if cfg.do_layer_norm_before else x
+        if capture is not None:
+            _capture(capture, pre + "fc1", h)
         h = lin.linear(h, layer["fc1"], layer["fc1_bias"], **kw)
         h = torch.clamp_min(h, 0)
+        if capture is not None:
+            _capture(capture, pre + "fc2", h)
         h = lin.linear(h, layer["fc2"], layer["fc2_bias"], **kw)
         x = res + h
         if not cfg.do_layer_norm_before:

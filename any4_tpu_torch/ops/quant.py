@@ -40,9 +40,11 @@ def div(a: torch.Tensor, b) -> torch.Tensor:
     """``a / b`` rounded once, for a Python number or a tensor ``b``. On
     CUDA, PyTorch divides by a Python number (or a CPU scalar) as a
     multiply by its reciprocal, which rounds twice; a tensor on ``a``'s
-    device is divided exactly, as XLA does."""
+    device is divided exactly, as XLA does. A Python number is filled into
+    such a tensor on the device (a copy from the host would wait for the
+    device)."""
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype)
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
     return a / b.to(a.device)
 
 

@@ -11,8 +11,11 @@ Options: ``sample_weight`` (per-input-feature activation magnitudes),
 minimizes the de-normalized error), ``abs_weight_sample_weight`` (multiply
 by ``|W|``), ``bias_pow`` (signed-power emphasis of extreme values),
 ``keep_outliers`` (pin the extreme centroids to the row min and max),
-``per_row=False`` (one global LUT), ``surrogate_cluster`` and
-``scale_only`` (symmetric grouping).
+``per_row=False`` (one global LUT), ``surrogate_cluster``,
+``scale_only`` (symmetric grouping), ``cluster_backend="agglomerative"``
+(Ward clustering per row on the host) and ``nnq`` (the LUT refined by
+gradient descent, :mod:`.nnq`, with ``nnq_args`` and
+``sample_activations``).
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..ops.quant import group_codes_float
+from ..ops.quant import anyq_dequantize, group_codes_float
 from . import kmeans as _kmeans
+from . import nnq as _nnq
 
 
 def _expand_groups(x: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
@@ -65,13 +69,10 @@ def any4_quantize(
     [n, k/g], zeros f32 [n, k/g])``. Random inits draw from a
     ``torch.Generator`` seeded with ``seed`` on ``w``'s device.
     """
-    if nnq:
-        raise NotImplementedError(
-            "nnq LUT refinement is not ported yet (ROADMAP queue 1, item 10)")
-    if cluster_backend != "kmeans":
-        raise NotImplementedError(
-            f"cluster_backend={cluster_backend!r} is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+    if cluster_backend not in ("kmeans", "agglomerative"):
+        raise ValueError(f"unsupported cluster_backend {cluster_backend!r}")
+    if nnq and not per_row:
+        raise ValueError("nnq LUT refinement requires per_row=True")
     if w.ndim != 2:
         raise ValueError(f"expected a 2-D weight, got shape {tuple(w.shape)}")
     dev = w.device
@@ -112,12 +113,16 @@ def any4_quantize(
         x = x - half
         x = x.abs() ** bias_pow * torch.sign(x)
 
-    surrogate = w.float().reshape(x.shape) if surrogate_cluster else None
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    lut, assign = _kmeans.kmeans_rows(
-        x, n_clusters=2**n_bit, sample_weight=sw, x_surrogate=surrogate,
-        init=init, iters=kmeans_iters, generator=gen, n_init=n_init,
-        row_chunk=row_chunk)
+    if cluster_backend == "agglomerative":
+        lut, assign = _kmeans.agglomerative_rows(
+            x, n_clusters=2**n_bit, sample_weight=sw)
+    else:
+        surrogate = w.float().reshape(x.shape) if surrogate_cluster else None
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        lut, assign = _kmeans.kmeans_rows(
+            x, n_clusters=2**n_bit, sample_weight=sw, x_surrogate=surrogate,
+            init=init, iters=kmeans_iters, generator=gen, n_init=n_init,
+            row_chunk=row_chunk)
 
     if keep_outliers:
         # centroids are sorted ascending: first and last are the extremes
@@ -128,8 +133,26 @@ def any4_quantize(
     if bias_pow != 1.0:
         lut = lut.abs() ** (1.0 / bias_pow) * torch.sign(lut) + half
 
+    if nnq:
+        lut, assign = _nnq.learn_lut(
+            w, lut, scales, zeros, group_size=group_size,
+            sample_activations=sample_activations, **(nnq_args or {}))
+
     codes = assign.to(torch.uint8)
     if not per_row:
         codes = codes.reshape(orig_shape)
     return codes, lut, scales, zeros
 
+
+def any4_reconstruct(w: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Quantize to any4 (:func:`any4_quantize` with ``kwargs``) and
+    dequantize back in ``w``'s dtype: the reference's
+    ``anyq_reconstruct_tensor``."""
+    n_bit = kwargs.get("n_bit", 4)
+    group_size = kwargs.get("group_size", 128)
+    if group_size <= 0:
+        group_size = w.shape[-1]
+    codes, lut, scales, zeros = any4_quantize(w, **kwargs)
+    lut = lut if lut.shape[0] == codes.shape[0] else lut[0]
+    return anyq_dequantize(codes, lut, scales, zeros, n_bit=n_bit,
+                           group_size=group_size).to(w.dtype)

@@ -84,6 +84,10 @@ def quantize_model(
     - ``pseudo``: store the dequantized reconstruction as a dense tensor.
     - ``sample_weight``: ``{layer_name: [k]}``, one ``[k]`` tensor, or a
       callable ``f(name) -> [k]``.
+    - ``calibrate_fn``: per-layer online calibration; it is called as
+      ``calibrate_fn(layers=[name], seed=index)`` for each layer, and what
+      it returns takes ``sample_weight``'s place
+      (:func:`~any4_tpu_torch.calibrate.make_calibrate_fn` makes one).
     - Learned formats get ``seed=index`` (the layer's position) unless a
       seed is given; other kwargs flow to
       :func:`~any4_tpu_torch.ops.linear.quantize_tensor`.
@@ -97,10 +101,6 @@ def quantize_model(
       ``per_row`` and ``row_chunk``, and the learner's default seed. A tied
       head then runs the quantized kernel on the same table.
     """
-    if calibrate_fn is not None:
-        raise NotImplementedError(
-            "calibrate_fn (per-layer online calibration) is not ported yet "
-            "(ROADMAP queue 1, item 10)")
     efmt = None
     if quantize_embeddings:
         efmt = fmt if quantize_embeddings is True else str(quantize_embeddings)
@@ -122,6 +122,8 @@ def quantize_model(
     for index, (name, leaf, setter) in enumerate(targets):
         kw = dict(kwargs)
         sw = sample_weight
+        if calibrate_fn is not None:
+            sw = calibrate_fn(layers=[name], seed=index)
         if isinstance(sw, dict):
             sw = sw.get(name)
         elif callable(sw):

@@ -17,6 +17,7 @@ LUTs up to float32 summation order.
 """
 from __future__ import annotations
 
+import heapq
 import re
 from typing import Optional, Union
 
@@ -263,3 +264,74 @@ def build_sample_weight(x: np.ndarray, spec: Union[None, str, np.ndarray],
     if use_abs:
         w = np.abs(w)
     return w
+
+
+# ---------------------------------------------------------------------------
+# Agglomerative backend: Ward clustering of each row on the host
+# ---------------------------------------------------------------------------
+
+def _ward_labels(v: np.ndarray, n_clusters: int) -> np.ndarray:
+    """Ward-linkage labels of the scalars ``v``, cut into ``n_clusters`` as
+    scikit-learn's ``AgglomerativeClustering`` cuts its tree (the same
+    scipy tree): from the root, ``n_clusters - 1`` times split the cluster
+    of the largest node id into its two children, in a heap of negated
+    ids whose array order numbers the clusters, so that clusters with
+    equal centroids (a row of fewer distinct values than clusters) are
+    numbered alike. (scipy's ``cut_tree`` and ``fcluster`` cut rows with
+    tied values differently.)"""
+    from scipy.cluster.hierarchy import linkage
+
+    k = v.shape[0]
+    children = linkage(v.reshape(-1, 1), "ward")[:, :2].astype(np.int64)
+    heap = [-(2 * k - 2)]                    # the root
+    for _ in range(n_clusters - 1):
+        left, right = children[-heap[0] - k]
+        heapq.heappush(heap, -left)
+        heapq.heappushpop(heap, -right)      # pops the node just split
+    labels = np.empty(k, np.int64)
+    for c, node in enumerate(heap):
+        stack = [-node]
+        while stack:
+            u = stack.pop()
+            if u < k:
+                labels[u] = c
+            else:
+                stack.extend(children[u - k])
+    return labels
+
+
+def agglomerative_rows(x: torch.Tensor, n_clusters: int = 16,
+                       sample_weight=None):
+    """Per-row agglomerative (Ward) clustering with weighted-average
+    centroids, the reference's ``cluster_row_agglomerative``. Rows run one
+    at a time on the host (scipy), so this is for small matrices and
+    parity experiments; :func:`kmeans_rows` is the production path.
+
+    ``sample_weight`` is ``[k]`` or ``[n, k]``; a cluster whose weights sum
+    to 0 takes the unweighted mean. Centroids are averaged in float64.
+    Returns ``(centroids [n, n_clusters] f32 sorted ascending, assign
+    [n, k] int32)`` on ``x``'s device.
+    """
+    xs = x.detach().cpu().double().numpy()
+    n, k = xs.shape
+    sw = None if sample_weight is None else \
+        torch.as_tensor(sample_weight).detach().cpu().numpy()
+    cents = np.zeros((n, n_clusters), np.float32)
+    assign = np.zeros((n, k), np.int32)
+    for r in range(n):
+        labels = _ward_labels(xs[r], n_clusters)
+        row_w = None if sw is None else (sw[r] if sw.ndim == 2 else sw)
+        vals = np.empty(n_clusters)
+        for c in range(n_clusters):
+            m = labels == c
+            w = None if row_w is None else row_w[m]
+            if w is not None and w.sum() == 0:
+                w = None
+            vals[c] = np.average(xs[r][m], weights=w)
+        order = np.argsort(vals)
+        inv = np.empty_like(order)
+        inv[order] = np.arange(n_clusters)
+        cents[r] = vals[order]
+        assign[r] = inv[labels]
+    return (torch.from_numpy(cents).to(x.device),
+            torch.from_numpy(assign).to(x.device))

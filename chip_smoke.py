@@ -226,13 +226,41 @@ Phases, each printing JSON lines:
     (72 linears, unfused), logits as above, forwards of 64 and 1024 tokens
     at b=1 and 4 with exactly 72 kernel A launches a 512-row chunk, and
     their host and device ms beside the bf16 model's.
-13. the script's wall time, the ``nvidia-smi`` name and power line again,
+13. AWQ, calibration and nnq. ``awq_main_path``: the 1B model at full
+    width and depth (``--layers`` cuts it), bf16 weights from
+    ``init_params(seed=0)``, 128 seeded calibration tokens:
+    ``run_awq(numeric_type="int")`` -> ``calibrate`` ->
+    ``quantize_model(fmt="any4", group_size=128, sample_weight=...,
+    kmeans_iters=10)`` -> ``generate`` at b=1 (112 kernel A launches a
+    forward). Checks: the searched scales applied to a float32 copy (no
+    clip) within 1e-4 * max of the unscaled float32 logits; the quantized
+    logits with float32 activations within 2e-2 * max of the dense float32
+    forward; layer 0's q/k/v scale search on the card within 1e-5
+    relative of the same search on the CPU, with the same ratio (or MSEs
+    within 1e-6 of each other) and the ratio ``run_awq`` chose. Prints
+    ``awq_s``, ``calibrate_s``, ``quantize_s``, every ratio, b=1 decode
+    ms (host and device) and the logit error against the bf16 original
+    with and without AWQ. ``awq_any4_search``: ``numeric_type="any4"``
+    at 2 layers (seconds a layer, peak memory, neutrality).
+    ``nnq_path``: 2 layers, ``quantize_model(..., nnq=True,
+    nnq_args={"objective": "y_mse", "steps": 200})``: each layer's summed
+    ``y_mse`` (on the activations ``learn_lut`` drew) no worse than the
+    k-means LUTs' of the same seeds, logits as above, ``generate`` b=1.
+    ``calibrate_fn_path``: 2 layers, ``quantize_model(calibrate_fn=
+    make_calibrate_fn(...))`` equal bit for bit to
+    ``quantize_model(sample_weight=calibrate(...))`` with PyTorch's
+    deterministic kernels (also reported without them). ``awq_mixtral``:
+    phase 12's Mixtral weights, ``run_awq`` (the router in the experts'
+    group) -> any4 -> phase 12's logit and router checks -> ``generate``
+    at b=1 (20 kernel A a sparse step). ``awq_opt``: OPT-125m, neutrality
+    as above, any4, a 64-token forward (72 launches).
+14. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
     the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
     A also ``fused_shapes`` and ``mixtral_shapes``, ``flash_paged_decode``
     ``mixtral_shape``; launches summed over the main paths that run the
     kernel, as ``launches_from`` lists them).
-14. ``{"ok": true, "device": {...}}`` as the last line.
+15. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -346,6 +374,12 @@ MIXTRAL_SHAPES = {"w1_w3": (14336, 4096), "w2": (4096, 14336),
                   "w13": (28672, 4096), "moe_w13": (229376, 4096),
                   "moe_w2": (4096, 114688)}
 MIXTRAL_MS = (1, 8, 512)
+# AWQ and calibration: cli_quantize.py's 128 seeded calibration tokens (its
+# choice without a tokenizer); the 2-layer phases' depth
+CALIB_TOKENS = 128
+AWQ_CUT_LAYERS = 2
+# two grid MSEs this close (relative) are a tie: either ratio may win
+SEARCH_TIE = 1e-6
 
 
 def emit(obj) -> None:
@@ -1500,12 +1534,12 @@ def timed_generate(gen_mod, params, cfg, prompt):
     return tokens, (time.perf_counter() - t0) * 1e3
 
 
-def decode_figures(gen_mod, llama, params, cfg, prompt):
+def decode_figures(gen_mod, llama, params, cfg, prompt, batches=(1, 4)):
     """Host time of ``prefill`` and of ``decode_loop`` over the remaining
     NEW_TOKENS-1 steps, each ending in a synchronize; the better of two
     runs at each batch size."""
     out = {}
-    for b in (1, 4):
+    for b in batches:
         best = None
         for _ in range(2):
             caches = llama.init_kv_caches(cfg, b, PROMPT_LEN + NEW_TOKENS)
@@ -2886,6 +2920,361 @@ def opt_path(gemv, opt, api, linear):
     return sum(launches.values())
 
 
+def calib_ids(cfg, seed=2):
+    """CALIB_TOKENS seeded calibration token ids ``[1, CALIB_TOKENS]``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (1, CALIB_TOKENS), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def seconds(fn):
+    """``(fn(), host seconds)``, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def deterministic():
+    """While active, PyTorch runs its deterministic kernels (k-means'
+    ``scatter_add_`` sums in a fixed order) and warns where it has none."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def llama_cut(llama, layers):
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    return cfg if not layers else dataclasses.replace(
+        cfg, num_hidden_layers=layers)
+
+
+def neutral_err(fwd, awq, linear, params, results, cfg, ids):
+    """max|logits| difference of the float32 model with ``results``'
+    scales applied (no clip) from the unscaled float32 model, over
+    max|logits|: AWQ's scaling is exact in exact arithmetic."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = to_float32(params, linear)
+    base = fwd(p32, cfg32, ids)[0]
+    scaled = fwd(awq.apply_awq(p32, results, do_clip=False), cfg32, ids)[0]
+    torch.cuda.synchronize()
+    return rel_err(scaled, base)
+
+
+def kernel_err(fwd, linear, q, cfg, ids):
+    """The quantized model with float32 activations against the dense
+    float32 forward of its exactly dequantized weights."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got = fwd(to_float32(q, linear), cfg32, ids)[0]
+    ref = fwd(to_float32(q, linear, dequantize=True), cfg32, ids)[0]
+    check(bool(torch.isfinite(got).all()), "quantized logits finite")
+    return rel_err(got, ref)
+
+
+def quantized_leaves(q, linear):
+    """The quantized weights of a Llama or OPT tree's layers."""
+    return [w for layer in q["layers"] for w in layer.values()
+            if isinstance(w, linear.QuantizedTensor)]
+
+
+def check_any4(q, linear, count):
+    fmts = [w.fmt for w in quantized_leaves(q, linear)]
+    check(len(fmts) == count and set(fmts) == {"any4t"},
+          f"every linear any4t at g=128 ({len(fmts)} of {count}: "
+          f"{sorted(set(fmts))})")
+
+
+def same_search(card, cpu):
+    """The card's grid MSEs within 1e-5 relative of the CPU's, and the same
+    argmin (or two within SEARCH_TIE of each other)."""
+    card, cpu = card.double().cpu(), cpu.double()
+    rel = float(((card - cpu).abs() / cpu.abs()).max())
+    i, j = int(card.argmin()), int(cpu.argmin())
+    tie = abs(float(cpu[i] - cpu[j])) <= SEARCH_TIE * float(cpu[j])
+    return rel, i, j, i == j or tie
+
+
+def awq_main_path(args, gemv, llama, gen_mod, api, linear, awq, cal):
+    """Llama-3.2-1B at full width and depth (``--layers`` cuts it): AWQ
+    (int) -> calibration -> any4 g=128 -> ``generate`` at b=1 on kernel A;
+    see the module docstring (phase 13). Returns kernel A's launches in
+    ``generate``."""
+    cfg = llama_cut(llama, args.layers)
+    per_forward = cfg.num_hidden_layers * 7
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    ids = calib_ids(cfg)
+    (results, aparams), awq_s = seconds(
+        lambda: awq.run_awq(params, cfg, ids, numeric_type="int"))
+    sw, calibrate_s = seconds(lambda: cal.calibrate(aparams, cfg, ids))
+    q, quantize_s = seconds(lambda: api.quantize_model(
+        aparams, fmt="any4", group_size=128, sample_weight=sw,
+        kmeans_iters=10))
+    check_any4(q, linear, per_forward)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    neutral = neutral_err(llama.forward, awq, linear, params, results, cfg,
+                          prompt)
+    check(neutral <= 1e-4, f"AWQ scales not output-neutral in float32: "
+          f"{neutral} > 1e-4 of max")
+    gemv.reset_launches()
+    err = kernel_err(llama.forward, linear, q, cfg, prompt)
+    check_launches(gemv, {"q4_lut_post": per_forward}, 1,
+                   "AWQ any4 forward (float32 activations)")
+    check(err <= 2e-2, f"AWQ any4 logits (float32 activations) vs the "
+          f"dequantized model's float32 dense forward: {err} > 2e-2")
+
+    # the search on the card against the same search on the CPU: layer 0's
+    # q/k/v group on the unscaled weights and its captured input
+    store = llama.Capture(raw=True)
+    llama.forward(params, cfg, ids, capture=store)
+    x = torch.cat(store.rows["layers.0.q_proj"])
+    del store
+    ws = [params["layers"][0][f"{p}_proj"] for p in "qkv"]
+    x_max = x.abs().mean(dim=0) + 1e-8
+    card = awq._scale_search_mses(x, ws, x_max, 20, 4, 128, "int")
+    cpu = awq._scale_search_mses(x.cpu(), [w.cpu() for w in ws],
+                                 x_max.cpu(), 20, 4, 128, "int")
+    rel, i_card, i_cpu, same = same_search(card, cpu)
+    chosen = results["scales"]["layers.0.input_layernorm"]["ratio"]
+    chosen_mse = float(card[round(chosen * 20)])
+    check(rel <= 1e-5 and same
+          and chosen_mse <= float(card.min()) * (1 + SEARCH_TIE),
+          f"AWQ search on the card vs the CPU: MSEs {rel} > 1e-5 relative, "
+          f"or ratios {i_card}/20 (card), {i_cpu}/20 (CPU), {chosen} "
+          f"(run_awq)")
+
+    # the bf16 model's logits: quantized with and without AWQ
+    orig = llama.forward(params, cfg, prompt)[0]
+    plain = api.quantize_model(params, fmt="any4", group_size=128,
+                               kmeans_iters=10, sample_weight=cal.calibrate(
+                                   params, cfg, ids))
+    vs_bf16 = {"awq": rel_err(llama.forward(q, cfg, prompt)[0], orig),
+               "no_awq": rel_err(llama.forward(plain, cfg, prompt)[0], orig)}
+    del plain, aparams
+    torch.cuda.empty_cache()
+
+    gemv.reset_launches()
+    tokens, gen_ms = timed_generate(gen_mod, q, cfg, prompt)
+    check_launches(gemv, {"q4_lut_post": per_forward}, NEW_TOKENS,
+                   "AWQ any4 generate b=1")
+    launches = gemv.LAUNCHES["q4_lut_post"]
+    check(tokens.shape == (1, PROMPT_LEN + NEW_TOKENS) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "AWQ tokens")
+    figs = decode_figures(gen_mod, llama, q, cfg, prompt, batches=(1,))
+    prof = device_profile(gen_mod, llama, q, cfg, prompt)
+    prof["busy_share_b1"] = (prof["device_ms_per_step"]
+                             / figs[1]["decode_ms_per_token"])
+    emit({"phase": "awq_main_path", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "numeric_type": "int",
+          "calib_tokens": CALIB_TOKENS, "fmt": "any4", "group_size": 128,
+          "kmeans_iters": 10, "awq_s": awq_s, "calibrate_s": calibrate_s,
+          "quantize_s": quantize_s,
+          "ratios": {k: v["ratio"] for k, v in results["scales"].items()},
+          "clip": results["clip"],
+          "neutral_rel_err_f32": neutral, "neutral_bar": 1e-4,
+          "rel_err_any4_f32_vs_dense_f32": err, "bar": 2e-2,
+          "search_card_vs_cpu": {"max_rel_mse": rel, "ratio_card": i_card / 20,
+                                 "ratio_cpu": i_cpu / 20,
+                                 "mses_card": card.tolist()},
+          "rel_err_vs_bf16": vs_bf16, "launches_per_forward": per_forward,
+          "launches": launches, "generate_ms_b1": gen_ms,
+          "decode_b1": figs[1], "profile_b1": prof})
+    return launches
+
+
+def awq_any4_search(llama, awq, linear):
+    """The any4 search (``numeric_type="any4"``, the paper's pairing) on the
+    1B model cut to AWQ_CUT_LAYERS layers: seconds a layer, peak memory,
+    and the scales output-neutral in float32."""
+    cfg = llama_cut(llama, AWQ_CUT_LAYERS)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    ids = calib_ids(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (results, _), awq_s = seconds(
+        lambda: awq.run_awq(params, cfg, ids, numeric_type="any4"))
+    peak = torch.cuda.max_memory_allocated()
+    neutral = neutral_err(llama.forward, awq, linear, params, results, cfg,
+                          ids)
+    check(neutral <= 1e-4, f"any4 AWQ scales not output-neutral: {neutral}")
+    emit({"phase": "awq_any4_search", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "numeric_type": "any4",
+          "awq_s": awq_s, "awq_s_per_layer": awq_s / cfg.num_hidden_layers,
+          "max_memory_allocated": peak, "allocated_before": before,
+          "ratios": {k: v["ratio"] for k, v in results["scales"].items()},
+          "clip": results["clip"], "neutral_rel_err_f32": neutral})
+
+
+def y_mse(linear, w, qt, x):
+    """mean((x W^T - x Wq^T)^2) of a weight and its quantized form."""
+    wq = linear.dequantize_tensor(qt, torch.float32)
+    return float(torch.mean((x @ w.float().t() - x @ wq.t()) ** 2))
+
+
+def nnq_path(gemv, llama, gen_mod, api, linear):
+    """any4 with nnq (``y_mse``, 200 Adam steps a weight) on the 1B model
+    cut to AWQ_CUT_LAYERS layers: each layer's summed ``y_mse`` on the
+    activations ``learn_lut`` drew is no worse than that of the k-means
+    LUTs (the same seeds) it started from; then ``generate`` at b=1."""
+    cfg = llama_cut(llama, AWQ_CUT_LAYERS)
+    per_forward = cfg.num_hidden_layers * 7
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    kw = dict(fmt="any4", group_size=128, kmeans_iters=10)
+    q0, kmeans_s = seconds(lambda: api.quantize_model(params, **kw))
+    q1, nnq_s = seconds(lambda: api.quantize_model(
+        params, nnq=True, nnq_args={"objective": "y_mse", "steps": 200},
+        **kw))
+    check_any4(q1, linear, per_forward)
+    xs = {}
+    ratio, per_layer = {}, []
+    for i, (layer, l0, l1) in enumerate(zip(params["layers"], q0["layers"],
+                                            q1["layers"])):
+        before = after = 0.0
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                     "up_proj", "down_proj"):
+            k = layer[name].shape[1]
+            if k not in xs:     # learn_lut's draw: seed 0 on the device
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                xs[k] = torch.randn((256, k), generator=gen, device="cuda")
+            e0 = y_mse(linear, layer[name], l0[name], xs[k])
+            e1 = y_mse(linear, layer[name], l1[name], xs[k])
+            ratio[f"layers.{i}.{name}"] = e1 / e0
+            before, after = before + e0, after + e1
+        per_layer.append({"kmeans": before, "nnq": after})
+        check(after <= before, f"nnq layer {i}: y_mse {after} > k-means "
+              f"{before}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    err = kernel_err(llama.forward, linear, q1, cfg, prompt)
+    check(err <= 2e-2, f"nnq logits vs the dense float32 forward: {err}")
+    gemv.reset_launches()
+    tokens, gen_ms = timed_generate(gen_mod, q1, cfg, prompt)
+    check_launches(gemv, {"q4_lut_post": per_forward}, NEW_TOKENS,
+                   "nnq any4 generate b=1")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "nnq tokens")
+    emit({"phase": "nnq_path", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "objective": "y_mse",
+          "steps": 200, "nnq_s": nnq_s, "kmeans_only_s": kmeans_s,
+          "nnq_s_per_weight": (nnq_s - kmeans_s) / per_forward,
+          "y_mse_per_layer": per_layer, "y_mse_ratio_per_weight": ratio,
+          "rel_err_any4_f32_vs_dense_f32": err, "bar": 2e-2,
+          "launches": gemv.LAUNCHES["q4_lut_post"], "generate_ms_b1": gen_ms})
+    return gemv.LAUNCHES["q4_lut_post"]
+
+
+def same_quantized(a, b, linear):
+    """Do two quantized trees hold the same codes, LUTs, scales and zeros,
+    bit for bit? Also the largest LUT difference."""
+    equal, lut_diff = True, 0.0
+    for x, y in zip(quantized_leaves(a, linear), quantized_leaves(b, linear)):
+        equal &= all(torch.equal(getattr(x, f), getattr(y, f))
+                     for f in ("packed", "scales", "zeros", "lut"))
+        lut_diff = max(lut_diff, float((x.lut - y.lut).abs().max()))
+    return equal, lut_diff
+
+
+def calibrate_fn_path(llama, api, linear, cal):
+    """``quantize_model(calibrate_fn=make_calibrate_fn(...))`` (a forward
+    per layer) against ``quantize_model(sample_weight=calibrate(...))`` on
+    the 1B model cut to AWQ_CUT_LAYERS layers: the same codes, LUTs,
+    scales and zeros bit for bit with PyTorch's deterministic kernels; the
+    same comparison without them is reported (k-means sums with atomics)."""
+    cfg = llama_cut(llama, AWQ_CUT_LAYERS)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    ids = calib_ids(cfg)
+    kw = dict(fmt="any4", group_size=128, kmeans_iters=10)
+    out = {}
+    for mode in ("default", "deterministic"):
+        ctx = deterministic() if mode == "deterministic" \
+            else contextlib.nullcontext()
+        with ctx:
+            online, online_s = seconds(lambda: api.quantize_model(
+                params, calibrate_fn=cal.make_calibrate_fn(params, cfg, ids),
+                **kw))
+            offline, offline_s = seconds(lambda: api.quantize_model(
+                params, sample_weight=cal.calibrate(params, cfg, ids), **kw))
+        equal, lut_diff = same_quantized(online, offline, linear)
+        out[mode] = {"bit_equal": equal, "max_lut_diff": lut_diff,
+                     "calibrate_fn_s": online_s, "sample_weight_s": offline_s}
+    emit({"phase": "calibrate_fn_path", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, **out})
+    check(out["deterministic"]["bit_equal"], "calibrate_fn and sample_weight "
+          "quantize to other bits with deterministic kernels")
+
+
+def awq_mixtral(params, cfg, gemv, mixtral, gen_mod, llama, api, linear,
+                awq):
+    """Mixtral-8x7B (2 layers, published widths): AWQ (int; the router in
+    the experts' w1/w3 group) -> any4 -> logits and router logits within
+    2e-2 * max of the dense float32 forward -> ``generate`` at b=1, sparse
+    dispatch (20 kernel A launches a step)."""
+    ids = calib_ids(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    (results, aparams), awq_s = seconds(
+        lambda: awq.run_awq(params, cfg, ids, numeric_type="int"))
+    peak = torch.cuda.max_memory_allocated()
+    q, quantize_s = seconds(lambda: api.quantize_model(
+        aparams, fmt="any4", group_size=128, kmeans_iters=10))
+    del aparams
+    check_quantized(q, linear, cfg, "unfused")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    errs = dense_f32_check(mixtral, linear, q, cfg, prompt)
+    check(errs["rel_err"] <= 2e-2 and errs["router_rel_err"] <= 2e-2,
+          f"AWQ Mixtral logits or router logits vs the dense float32 "
+          f"forward: {errs} > 2e-2 of max")
+    _, gen_ms = generate_launches(
+        gemv, gen_mod, q, cfg, prompt, moe_launches(cfg, "unfused", "dense"),
+        moe_launches(cfg, "unfused", "sparse"))
+    emit({"phase": "awq_mixtral", "model": "mixtral_8x7b",
+          "layers": cfg.num_hidden_layers, "numeric_type": "int",
+          "awq_s": awq_s, "quantize_s": quantize_s,
+          "max_memory_allocated_awq": peak,
+          "ratios": {k: v["ratio"] for k, v in results["scales"].items()},
+          "clip": results["clip"], **errs, "bar": 2e-2,
+          "launches": gemv.LAUNCHES["q4_lut_post"], "generate_ms_b1": gen_ms})
+    return gemv.LAUNCHES["q4_lut_post"]
+
+
+def awq_opt(gemv, opt, api, linear, awq):
+    """OPT-125m at full depth: AWQ (int; LayerNorm folds, ``v_bias`` and
+    ``fc1_bias`` scaled with their rows), output-neutral in float32, then
+    any4 and a 64-token forward (72 kernel A launches)."""
+    cfg = opt.OPTConfig.opt_125m()
+    params = opt.init_params(cfg, seed=0, device="cuda")
+    ids = calib_ids(cfg)
+    (results, aparams), awq_s = seconds(
+        lambda: awq.run_awq(params, cfg, ids, numeric_type="int"))
+    neutral = neutral_err(opt.forward, awq, linear, params, results, cfg,
+                          ids[:, :PROMPT_LEN])
+    check(neutral <= 1e-4, f"OPT AWQ scales not output-neutral: {neutral}")
+    q, quantize_s = seconds(lambda: api.quantize_model(
+        aparams, fmt="any4", group_size=128, kmeans_iters=10))
+    per_chunk = 6 * cfg.num_hidden_layers
+    check_any4(q, linear, per_chunk)
+    gemv.reset_launches()
+    err = kernel_err(opt.forward, linear, q, cfg, ids[:, :PROMPT_LEN])
+    check_launches(gemv, {"q4_lut_post": per_chunk}, 1, "AWQ OPT forward")
+    check(err <= 2e-2, f"AWQ OPT logits vs the dense float32 forward: {err}")
+    emit({"phase": "awq_opt", "model": "opt_125m",
+          "layers": cfg.num_hidden_layers, "numeric_type": "int",
+          "awq_s": awq_s, "quantize_s": quantize_s,
+          "ratios": {k: v["ratio"] for k, v in results["scales"].items()},
+          "clip": results["clip"], "neutral_rel_err_f32": neutral,
+          "rel_err_any4_f32_vs_dense_f32": err, "bar": 2e-2,
+          "launches": per_chunk})
+    return per_chunk
+
+
 def plain_by_rows(plain, x, args, out, rows=16384):
     """Kernel A's plain version over blocks of ``rows`` weight rows (each
     output column depends on its own row only), concatenated."""
@@ -3018,7 +3407,8 @@ def main():
     from any4_tpu_torch.models import fuse, generate as gen_mod, llama
     from any4_tpu_torch.models import loader, mixtral, opt
     from any4_tpu_torch.ops import build, gemv, linear, packing, quant
-    from any4_tpu_torch.quant import api
+    from any4_tpu_torch import calibrate as cal
+    from any4_tpu_torch.quant import api, awq
     from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3149,10 +3539,25 @@ def main():
     del mq
     mixtral_fused_stacked(mparams, mcfg, gemv, mixtral, gen_mod, llama, api,
                           linear, fuse)
-    del mparams
     torch.cuda.empty_cache()
     launches["q4_lut_post"] += mixtral_launches + opt_path(gemv, opt, api,
                                                            linear)
+    # AWQ, calibration and nnq (phase 13)
+    torch.cuda.empty_cache()
+    launches["q4_lut_post"] += awq_main_path(args, gemv, llama, gen_mod, api,
+                                             linear, awq, cal)
+    torch.cuda.empty_cache()
+    awq_any4_search(llama, awq, linear)
+    torch.cuda.empty_cache()
+    launches["q4_lut_post"] += nnq_path(gemv, llama, gen_mod, api, linear)
+    torch.cuda.empty_cache()
+    calibrate_fn_path(llama, api, linear, cal)
+    torch.cuda.empty_cache()
+    launches["q4_lut_post"] += awq_mixtral(mparams, mcfg, gemv, mixtral,
+                                           gen_mod, llama, api, linear, awq)
+    del mparams
+    torch.cuda.empty_cache()
+    launches["q4_lut_post"] += awq_opt(gemv, opt, api, linear, awq)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -3170,7 +3575,11 @@ def main():
                 "it fused with the quantized tied head, and that model's "
                 "engine run(burst=1); generate at b=1 and 4 over the any4 "
                 "Mixtral-8x7B model (2 layers); OPT-125m's forwards of 64 "
-                "and 1024 tokens at b=1 and 4" if name == "q4_lut_post" else
+                "and 1024 tokens at b=1 and 4; generate at b=1 over the "
+                "AWQ-scaled, calibrated any4 1B model and the 2-layer nnq "
+                "model, and over the AWQ any4 Mixtral (2 layers); the AWQ "
+                "any4 OPT-125m's 64-token forward"
+                if name == "q4_lut_post" else
                 "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
                 "over the mx4 (g=32) model"),
             "group_size": spec["group_size"]})

@@ -11,10 +11,10 @@ import sys
 import pytest
 
 import any4_tpu_torch
-from any4_tpu_torch import convert
+from any4_tpu_torch import calibrate, convert
 from any4_tpu_torch.models import (checkpoint, generate, llama, loader,
                                    mixtral, opt)
-from any4_tpu_torch.quant import api
+from any4_tpu_torch.quant import api, awq
 from any4_tpu_torch.serving import engine, kv_cache
 
 PKG_DIR = os.path.dirname(any4_tpu_torch.__file__)
@@ -60,23 +60,27 @@ def test_model_modules_import_without_hf_packages():
         "MixtralConfig", []]
 
 
-def test_sources_import_no_jax():
-    bad = []
+def _sources():
+    yield os.path.join(REPO, "chip_smoke.py")
     for root, _, files in os.walk(PKG_DIR):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            tree = ast.parse(open(path).read(), path)
-            for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                bad += [(path, n) for n in names
-                        if n.split(".")[0] in ("jax", "jaxlib", "any4_tpu",
-                                               "flax", "optax")]
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+
+
+def test_sources_import_no_jax():
+    """Neither the port nor ``chip_smoke.py`` imports JAX, the JAX package
+    or scikit-learn (the GPU machine has scipy, not scikit-learn)."""
+    bad = []
+    for path in _sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "any4_tpu",
+                                           "flax", "optax", "sklearn")]
     assert bad == []
 
 
@@ -103,7 +107,9 @@ def test_sources_import_no_jax():
                                 loader.convert_torch_llama,
                                 loader.convert_torch_mixtral,
                                 loader.convert_torch_opt,
-                                loader.load_hf_torch_model])
+                                loader.load_hf_torch_model,
+                                awq.run_awq, awq.apply_awq,
+                                calibrate.calibrate])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

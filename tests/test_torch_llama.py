@@ -148,9 +148,11 @@ def test_quantize_model_options():
         pseudo["layers"][0]["q_proj"].numpy(),
         api.dequantize_model(q)["layers"][0]["q_proj"].numpy())
     assert api.model_size_bytes(q) < 2 * api.model_size_bytes(params)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.quantize_model(params, calibrate_fn=lambda **kw: None,
-                           device="cpu")
+    seen = []       # per-layer online calibration: one call per layer
+    api.quantize_model(params, fmt="nf4", device="cpu",
+                       calibrate_fn=lambda **kw: seen.append(kw))
+    assert seen[0] == {"layers": ["layers.0.q_proj"], "seed": 0}
+    assert [kw["seed"] for kw in seen] == list(range(14))
     qe = api.quantize_model(params, quantize_embeddings=True, device="cpu")
     assert qe["embed_tokens"].fmt == "any4"            # row layout
 

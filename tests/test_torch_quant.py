@@ -192,11 +192,3 @@ def test_any4_quantize_kmeanspp_wmse(kw):
     ref = janyq.any4_quantize(jnp.asarray(w), kmeans_iters=30, **kw)
     out = anyq.any4_quantize(torch.from_numpy(w), kmeans_iters=30, **kw)
     assert _recon_wmse(w, out) <= _recon_wmse(w, ref) * 1.01
-
-
-def test_any4_unported_options_raise():
-    w = torch.zeros(8, 128)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        anyq.any4_quantize(w, nnq=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        anyq.any4_quantize(w, cluster_backend="agglomerative")
