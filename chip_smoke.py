@@ -254,13 +254,41 @@ Phases, each printing JSON lines:
     group) -> any4 -> phase 12's logit and router checks -> ``generate``
     at b=1 (20 kernel A a sparse step). ``awq_opt``: OPT-125m, neutrality
     as above, any4, a 64-token forward (72 launches).
-14. the script's wall time, the ``nvidia-smi`` name and power line again,
+14. cli_tools: the port's measuring tools and scripts
+    (``any4_tpu_torch/utils.py``, ``profiler.py``, ``cli/``). (a)
+    ``cli_tools_kxk``: ``microbenchmark.sweep``, the reference's 1xK . KxK
+    table at m = 1, K = N in {1024, ..., 8192}: bf16 ``x @ w.T``, int4
+    (kernel C), nf4 and any4 (kernel A; kmeans_iters=4) in 12 interleaved
+    rounds of 20 calls (CUDA events, the L2 emptied before each call), the
+    best round of each; every quantized call first held against its
+    kernel's plain version (bf16 within 1e-2 * max), exact launch counts.
+    (b) ``cli_microbenchmark``: ``microbenchmark.main`` at K = N = 4096, m =
+    1, for each of its ten ``--quantize`` choices, each row's
+    ``linear.linear(x, qt)`` first held against the same call on CPU copies
+    (the plain versions; bf16 within 1e-2 * max, and float32 x within 1e-5
+    * max for w4a8 and w8a8), with the kernels that ran and their exact
+    launches (any4/nf4/fp4: A, int4/int4p: C, w4a8: D-fused, mx4: B,
+    int8/int8p: ``int8_post``, w8a8: ``w8a8``). (c) phase 4's bf16 and any4 models (parked on the
+    host since phases 4 and 5b), full width and depth:
+    ``benchmark.decode_tokens_per_s`` at b=1, a 32-token prompt, 64 new
+    tokens, equal to ``generate``'s tokens, kernel A 112 x 257 forwards
+    for any4 and nothing for bf16 (``cli_benchmark``); then
+    ``profile_decode_components`` over the any4 model at ctx 256 with
+    exactly 4 A launches an attention call and 3 an MLP call
+    (``cli_profile``); model sizes and ``device_memory_stats``
+    (``cli_memory``). (d) ``cli_scripts``: the quantize (``--tiny --awq
+    --calibrate --group-size 64``), calibrate and example scripts on the
+    card; the quantize checkpoint loads back through
+    ``load_params(device="cuda")`` with the in-memory model's logits bit
+    for bit; ``benchmark --tiny --profile --max-new-tokens 8``: its JSON
+    fields and exact A and B launches.
+15. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
     the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
-    A also ``fused_shapes`` and ``mixtral_shapes``, ``flash_paged_decode``
-    ``mixtral_shape``; launches summed over the main paths that run the
-    kernel, as ``launches_from`` lists them).
-15. ``{"ok": true, "device": {...}}`` as the last line.
+    A also ``fused_shapes``, ``mixtral_shapes`` and ``kxk``, kernel C
+    ``kxk``, ``flash_paged_decode`` ``mixtral_shape``; launches summed over
+    the main paths that run the kernel, as ``launches_from`` lists them).
+16. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -270,16 +298,20 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+# the kernels' timer; tools/torch_*.py reach it as chip_smoke.Timer
+from any4_tpu_torch.utils import Timer
 
 # H100 data-sheet peaks (SXM part, dense, at the 700 W limit); the PCIe
 # part has its own. bytes/s, bf16 FLOP/s.
@@ -380,6 +412,22 @@ CALIB_TOKENS = 128
 AWQ_CUT_LAYERS = 2
 # two grid MSEs this close (relative) are a tie: either ratio may win
 SEARCH_TIE = 1e-6
+# the cli_tools phase: the K x K sweep's kernels; the kernel each
+# single-format row runs at K = N = 4096, m = 1 (int8 and w8a8 as int8g and
+# w8a8g there, on int8_post and on w8a8 after quantize_activations)
+KXK_KERNELS = {"int4": "q4_int4_magic", "nf4": "q4_lut_post",
+               "any4": "q4_lut_post"}
+MICRO_ROUTES = {"any4": "q4_lut_post", "nf4": "q4_lut_post",
+                "fp4": "q4_lut_post", "int4": "q4_int4_magic",
+                "int4p": "q4_int4_magic", "w4a8": "w4a8_fused",
+                "mx4": "q4_lut_fused", "int8": "int8_post",
+                "int8p": "int8_post", "w8a8": "w8a8"}
+BENCH_PROMPT, BENCH_NEW_TOKENS, PROFILE_CTX = 32, 64, 256
+# the benchmark script's run on its tiny model, and the fields of its line
+TINY_NEW_TOKENS = 8
+BENCH_KEYS = {"baseline_tok_s", "any4_tok_s", "speedup",
+              "model_bytes_baseline", "model_bytes_quantized",
+              "profile_baseline", "profile_quantized", "device"}
 
 
 def emit(obj) -> None:
@@ -396,34 +444,6 @@ def peaks(name: str):
         if key in name:
             return key, val
     return "H100", PEAKS["H100"]
-
-
-class Timer:
-    """Median device time of ``fn`` over ``reps`` launches, each timed by
-    its own pair of CUDA events after the 50 MB L2 cache is emptied by
-    reading a 128 MB buffer (``dirty=True``: by writing it, which leaves
-    dirty lines that the timed kernel's misses must write back first).
-    The device first spins for ~50 ms, so the host queues every launch
-    before the first one runs and the events see no host time."""
-
-    def __init__(self, dirty=False):
-        buf = torch.zeros(32 << 20, dtype=torch.float32, device="cuda")
-        self.flush = buf.zero_ if dirty else buf.amax
-
-    def __call__(self, fn, reps=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        torch.cuda.synchronize()
-        torch.cuda._sleep(100_000_000)
-        for start, end in events:
-            self.flush()
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def kernel_phase(gemv, packing, linear, timer, dirty, bw, peak):
@@ -1716,14 +1736,16 @@ def main_path(args, gemv, llama, gen_mod, api, linear):
           "any4_profile_b1": prof, "dense_bf16_profile_b1": dense_prof,
           "greedy_agreement_with_dense_b1": agree,
           "b4_row0_equals_b1": bool(torch.equal(tokens[4][0], tokens[1][0]))})
-    del params          # the serving phase reuses qparams
+    # the serving phase reuses qparams; the bf16 weights wait on the host
+    # for the cli_tools phase
+    params = to_device(params, "cpu", linear)
     torch.cuda.empty_cache()
     prefill = prefill_chunks(llama, qparams, cfg, gen)
     emit({"phase": "prefill_fused_m_max", "tokens": 1024,
           "layers": cfg.num_hidden_layers, "forward_ms": prefill})
     figures = {"quantize_s": quantize_s, "any4": any4, "profile_b1": prof,
                "prefill_1024_tokens_forward_ms": prefill}
-    return launches, qparams, cfg, (qtable, qtable_s, figures)
+    return launches, params, qparams, cfg, (qtable, qtable_s, figures)
 
 
 def fused_qemb_path(qparams, qtable, cfg, unfused, gemv, kvc, teng, llama,
@@ -3395,6 +3417,216 @@ def attention_mixtral_shape(kvc, timer, bw):
     return row
 
 
+def run_cli(main, argv):
+    """A script's ``main(argv)`` with its standard output kept: its return
+    value and its printed lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = main(argv)
+    return ret, out.getvalue().splitlines()
+
+
+def kxk_table(gemv, bw, peak):
+    """(a) of the cli_tools phase: the microbenchmark's 1xK . KxK sweep;
+    each quantized call held against its kernel's plain version first,
+    exact launch counts. Returns A's and C's ``kxk`` lists."""
+    from any4_tpu_torch.cli import microbenchmark as mb
+    rounds, iters = 12, 20
+    checks = {}
+
+    def check_row(k, x, wb, qts):
+        for fmt, qt in qts.items():
+            name = KXK_KERNELS[fmt]
+            y = mb.sweep_call(x, qt)
+            plain = getattr(gemv, f"{name}_plain")(
+                x, qt.packed, qt.scales, qt.zeros,
+                qt.lut if name in gemv.LUT_KERNELS else None,
+                qt.group_size, torch.bfloat16)
+            err = rel_err(y, plain)
+            check(err <= 1e-2, f"K={k} {fmt}: {name} vs its plain version "
+                               f"{err} > 1e-2 of max")
+            moved = qt.nbytes + x.numel() * 2 + k * 2
+            t_bytes, t_ops = moved / bw, 2.0 * x.shape[0] * k * k / peak
+            checks[(k, fmt)] = {
+                "rel_err": err,
+                "max_abs_err": float((y.float() - plain.float()).abs().max()),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    gemv.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):     # the table line
+        table = mb.sweep(rounds=rounds, iters=iters, check=check_row)
+    per_k = 2 + rounds * iters      # the check, the warm-up, the windows
+    want = {"q4_int4_magic": len(table) * per_k,
+            "q4_lut_post": 2 * len(table) * per_k}
+    got = {k: v for k, v in gemv.LAUNCHES.items() if v}
+    check(got == want, f"K x K launches {got} != {want}")
+    out = {"q4_lut_post": [], "q4_int4_magic": []}
+    for k, row in table.items():
+        emit({"phase": "cli_tools_kxk", "k": k, "m": 1, **row,
+              "rel_err": {f: checks[(k, f)]["rel_err"] for f in KXK_KERNELS},
+              "library": "torch.matmul(x, w_bf16.T)"})
+        for fmt, name in KXK_KERNELS.items():
+            out[name].append({
+                "k": k, "n": k, "m": 1, "fmt": fmt,
+                "ms": row[f"{fmt}_us"] / 1e3,
+                "library_ms": row["bf16_us"] / 1e3,
+                "speedup_over_library": row[fmt],
+                "launches": per_k - 1, **checks[(k, fmt)]})
+    return out
+
+
+def micro_check(linear, fmt, x, qt):
+    """(b)'s check of one row: ``linear.linear(x, qt)`` on the card against
+    the same call on CPU copies, which runs the plain versions: bf16 x
+    (bf16 out) within 1e-2 * max; for the formats that quantize x, float32
+    x as well (float32 out; exact integer dots) within 1e-5 * max. Returns
+    the errors by x dtype."""
+    cpu_qt = to_device(qt, "cpu", linear)
+    xs = {"bf16": (x, 1e-2)}
+    if qt.fmt in linear.ACT_INT8_FMTS:
+        xs["f32"] = (x.float(), 1e-5)
+    errs = {}
+    for name, (xi, bar) in xs.items():
+        y = linear.linear(xi, qt)
+        check(y.dtype == xi.dtype and y.shape == (x.shape[0], qt.shape[0]),
+              f"{fmt}: output {y.dtype} {tuple(y.shape)}")
+        errs[name] = rel_err(y.cpu(), linear.linear(xi.cpu(), cpu_qt))
+        check(errs[name] <= bar, f"{fmt} ({qt.fmt}) at {name} x: "
+                                 f"{errs[name]} > {bar} of max")
+    return errs
+
+
+def cli_tools(params, qparams, cfg, gemv, linear, llama, gen_mod, bw, peak):
+    """Phase 14: the port's measuring tools and scripts on the card; see the
+    module docstring. ``params``/``qparams``: phase 4's bf16 and any4
+    models. Returns kernel A's and C's ``kxk`` lists and kernel A's
+    launches in (c) and (d)."""
+    import tempfile
+    from any4_tpu_torch import profiler, utils
+    from any4_tpu_torch.cli import benchmark, calibrate as cal_cli
+    from any4_tpu_torch.cli import example, microbenchmark as mb
+    from any4_tpu_torch.cli import quantize as quant_cli
+    from any4_tpu_torch.models import checkpoint
+
+    t0 = time.perf_counter()
+    kxk = kxk_table(gemv, bw, peak)
+    # (b) one row per --quantize choice at K = N = 4096, m = 1, each held
+    # against the plain versions before it is timed
+    check(sorted(MICRO_ROUTES) == sorted(mb.FORMATS), "a format's route")
+    for fmt in mb.FORMATS:
+        errs = {}
+        row, _ = run_cli(lambda argv: mb.main(
+            argv, check=lambda x, qt: errs.update(
+                micro_check(linear, fmt, x, qt))),
+            ["--input-dim", "4096", "--output-dim", "4096", "--batch", "1",
+             "--quantize", fmt])
+        check(bool(errs), f"{fmt}: the row was not checked")
+        emit({"phase": "cli_microbenchmark", **row, "rel_err": errs})
+        want = {MICRO_ROUTES[fmt]: 1 + 12 * 20}
+        check(row["kernels"] == want,
+              f"{fmt}: launches {row['kernels']} != {want}")
+    # (c) the 1B at full width and depth: decode tokens/s, then the profile
+    per_forward = cfg.num_hidden_layers * 7
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (1, BENCH_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    figures, a_launches = {}, 0
+    for name, p in (("bf16", params), ("any4", qparams)):
+        gemv.reset_launches()
+        tps, tokens = benchmark.decode_tokens_per_s(p, cfg, prompt,
+                                                    BENCH_NEW_TOKENS)
+        got = gemv.LAUNCHES["q4_lut_post"]
+        want = per_forward * (1 + 4 * BENCH_NEW_TOKENS) if name == "any4" \
+            else 0
+        check(got == want and sum(gemv.LAUNCHES.values()) == got,
+              f"{name} decode_tokens_per_s launches {dict(gemv.LAUNCHES)}; "
+              f"kernel A {want} expected")
+        a_launches += got
+        ref = gen_mod.generate(p, cfg, prompt, max_new_tokens=BENCH_NEW_TOKENS)
+        check(torch.equal(tokens[:, :BENCH_NEW_TOKENS],
+                          ref[:, BENCH_PROMPT:]),
+              f"{name}: decode_tokens_per_s's tokens != generate's")
+        figures[name] = {"tok_s": tps, "tokens_equal_generate": True,
+                         "launches_q4_lut_post": got}
+    gemv.reset_launches()
+    rounds, iters = 6, 20
+    prof = profiler.profile_decode_components(qparams, cfg, ctx=PROFILE_CTX,
+                                              iters=iters, rounds=rounds)
+    calls = cfg.num_hidden_layers * (1 + rounds * iters)
+    got = dict(gemv.LAUNCHES)
+    check(got["q4_lut_post"] == calls * 7
+          and sum(got.values()) == calls * 7,
+          f"profile launches {got} != kernel A {calls} x (4 + 3)")
+    a_launches += got["q4_lut_post"]
+    emit({"phase": "cli_benchmark", "model": "llama_3_2_1b",
+          "layers": cfg.num_hidden_layers, "batch": 1,
+          "prompt_tokens": BENCH_PROMPT, "new_tokens": BENCH_NEW_TOKENS,
+          **{f"{k}_tok_s": v["tok_s"] for k, v in figures.items()},
+          "speedup": figures["any4"]["tok_s"] / figures["bf16"]["tok_s"],
+          "figures": figures})
+    emit({"phase": "cli_profile", "model": "llama_3_2_1b", "fmt": "any4",
+          "ctx": PROFILE_CTX, "iters": iters, "rounds": rounds,
+          "launches_q4_lut_post": got["q4_lut_post"],
+          "totals": prof["totals"],
+          "layers": {k: v for k, v in prof.items() if k != "totals"}})
+    stats = utils.device_memory_stats()
+    emit({"phase": "cli_memory", "model": "llama_3_2_1b",
+          "model_bytes_bf16": utils.get_model_size(params),
+          "model_bytes_any4": utils.get_model_size(qparams),
+          "device_memory_stats": {k: stats[k] for k in (
+              "allocated_bytes.all.current", "allocated_bytes.all.peak",
+              "reserved_bytes.all.current", "reserved_bytes.all.peak",
+              "num_alloc_retries", "num_ooms")},
+          "resident": "the bf16 and any4 models"})
+    # (d) the scripts on the card, on their tiny model
+    with tempfile.TemporaryDirectory() as d:
+        (qp, qcfg), _ = run_cli(quant_cli.main, [
+            "--tiny", "--awq", "--calibrate", "--group-size", "64",
+            "--output", os.path.join(d, "q")])
+        loaded, lcfg = checkpoint.load_params(os.path.join(d, "q"),
+                                              device="cuda")
+        check(lcfg == qcfg, "the checkpoint's config")
+        ids = torch.randint(0, qcfg.vocab_size, (2, 16), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        check(torch.equal(llama.forward(qp, qcfg, ids)[0],
+                          llama.forward(loaded, lcfg, ids)[0]),
+              "the quantize CLI's checkpoint gives the in-memory logits")
+        acts, _ = run_cli(cal_cli.main, ["--tiny", "--output",
+                                         os.path.join(d, "acts.npz")])
+        check(len(acts) == 14 and os.path.exists(os.path.join(d, "acts.npz")),
+              "the calibrate CLI's activations")
+        (before, after), lines = run_cli(example.main, ["--tiny"])
+        check(before.shape == after.shape == (1, 16), "example's tokens")
+        # the benchmark script: its tiny any4 model (g=128) has k = 64
+        # linears at g = 64 (kernel B) and down_proj at g = 128 (kernel A)
+        gemv.reset_launches()
+        bench, _ = run_cli(benchmark.main, [
+            "--tiny", "--profile", "--max-new-tokens", str(TINY_NEW_TOKENS)])
+        check(set(bench) == BENCH_KEYS, f"benchmark's fields {sorted(bench)}")
+        check(all(math.isfinite(bench[k]) and bench[k] > 0 for k in (
+            "baseline_tok_s", "any4_tok_s", "speedup")), "benchmark's rates")
+        for prof in (bench["profile_baseline"], bench["profile_quantized"]):
+            check(prof["totals"]["layers_profiled"] == 2
+                  and math.isfinite(prof["totals"]["sum_ms"]),
+                  "benchmark's profiles")
+        # per layer: 1 + 4 new_tokens forwards, 1 + 6 x 20 profile calls
+        calls = 2 * (1 + 4 * TINY_NEW_TOKENS + 1 + 6 * 20)
+        want = {"q4_lut_post": calls, "q4_lut_fused": 6 * calls}
+        got = {k: v for k, v in gemv.LAUNCHES.items() if v}
+        check(got == want, f"benchmark --tiny launches {got} != {want}")
+        a_launches += got["q4_lut_post"]
+        emit({"phase": "cli_scripts", "quantize": "--tiny --awq --calibrate "
+              "--group-size 64: checkpoint logits bit-equal on the card",
+              "calibrate_layers": len(acts), "example": lines,
+              "benchmark": {k: bench[k] for k in (
+                  "baseline_tok_s", "any4_tok_s", "speedup",
+                  "model_bytes_baseline", "model_bytes_quantized")},
+              "benchmark_launches": got})
+    emit({"phase": "cli_tools", "seconds": time.perf_counter() - t0})
+    return kxk, a_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
@@ -3481,8 +3713,9 @@ def main():
     emit({"phase": "attention_buckets_bit_equal",
           "passed": attention_buckets(kvc)})
     del timer
-    launches, qparams, cfg, (qtable, qtable_s, figures) = main_path(
+    launches, params, qparams, cfg, (qtable, qtable_s, figures) = main_path(
         args, gemv, llama, gen_mod, api, linear)
+    cfg1b = cfg
     attn_launches, paged_bf16 = serving_phase(qparams, cfg, gemv, kvc, teng,
                                               llama, gen_mod, linear)
     figures["quantize_embeddings_s"] = qtable_s
@@ -3490,7 +3723,9 @@ def main():
         qparams, qtable, cfg, {"main": figures, "serving": paged_bf16}, gemv,
         kvc, teng, llama, gen_mod, api, linear, fuse)
     launches["q4_lut_post"] += fused_launches["q4_lut_post"]
-    del qparams, qtable
+    # phase 4's any4 model waits on the host for the cli_tools phase
+    qparams = to_device(qparams, "cpu", linear)
+    del qtable
     torch.cuda.empty_cache()
     # each kernel's launches in the main path that carries it
     for fmt, names in (("any4_g64", ("q4_lut_fused",)),
@@ -3558,6 +3793,13 @@ def main():
     del mparams
     torch.cuda.empty_cache()
     launches["q4_lut_post"] += awq_opt(gemv, opt, api, linear, awq)
+    # the port's tools and scripts (phase 14), on phase 4's models
+    torch.cuda.empty_cache()
+    kxk, cli_launches = cli_tools(
+        to_device(params, "cuda", linear), to_device(qparams, "cuda", linear),
+        cfg1b, gemv, linear, llama, gen_mod, bw, peak)
+    launches["q4_lut_post"] += cli_launches
+    del params, qparams
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -3578,7 +3820,10 @@ def main():
                 "and 1024 tokens at b=1 and 4; generate at b=1 over the "
                 "AWQ-scaled, calibrated any4 1B model and the 2-layer nnq "
                 "model, and over the AWQ any4 Mixtral (2 layers); the AWQ "
-                "any4 OPT-125m's 64-token forward"
+                "any4 OPT-125m's 64-token forward; the cli_tools phase's "
+                "decode_tokens_per_s and profile_decode_components over "
+                "the any4 g=128 model and the benchmark script's tiny "
+                "any4 model"
                 if name == "q4_lut_post" else
                 "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
                 "over the mx4 (g=32) model"),
@@ -3595,6 +3840,7 @@ def main():
                                             "bound_by", "library_ms",
                                             "max_abs_err")}
                 for r in fused_rows}
+            kernels[-1]["kxk"] = kxk["q4_lut_post"]
             kernels[-1]["mixtral_shapes"] = {
                 f"{r['weight']}_{r['n']}x{r['k']}_m{r['m']}": {
                     key: r[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -3644,6 +3890,8 @@ def main():
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int_rows, name, INT_KERNELS[name][2],
                                        lut)
+        if name == "q4_int4_magic":
+            kernels[-1]["kxk"] = kxk[name]
     for name, (source, replaces, _, g) in INT8_KERNELS.items():
         summary = layer_summary(int8_rows, name)
         kernels.append({

@@ -11,7 +11,8 @@ import sys
 import pytest
 
 import any4_tpu_torch
-from any4_tpu_torch import calibrate, convert
+from any4_tpu_torch import calibrate, convert, utils
+from any4_tpu_torch.cli import microbenchmark
 from any4_tpu_torch.models import (checkpoint, generate, llama, loader,
                                    mixtral, opt)
 from any4_tpu_torch.quant import api, awq
@@ -84,6 +85,27 @@ def test_sources_import_no_jax():
     assert bad == []
 
 
+def test_sources_import_no_top_level_script():
+    """The port's scripts keep their own copies (``cli/common.py``'s
+    ``parse_kv_args``): no module of the port imports the JAX package's
+    top-level scripts."""
+    scripts = {os.path.splitext(f)[0] for f in os.listdir(REPO)
+               if f.endswith(".py")}
+    assert {"cli_eval", "cli_quantize", "bench", "example"} <= scripts
+    bad = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if n.split(".")[0] in scripts
+                    and n.split(".")[0] != "chip_smoke"]
+    assert bad == []
+
+
 @pytest.mark.parametrize("fn", [llama.init_params, api.quantize_model,
                                 generate.generate, checkpoint.load_params,
                                 convert.from_jax_params,
@@ -109,7 +131,11 @@ def test_sources_import_no_jax():
                                 loader.convert_torch_opt,
                                 loader.load_hf_torch_model,
                                 awq.run_awq, awq.apply_awq,
-                                calibrate.calibrate])
+                                calibrate.calibrate,
+                                utils.Timer.__init__,
+                                utils.device_memory_stats,
+                                microbenchmark.sweep,
+                                microbenchmark.sweep_operands])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
