@@ -282,13 +282,56 @@ Phases, each printing JSON lines:
     ``load_params(device="cuda")`` with the in-memory model's logits bit
     for bit; ``benchmark --tiny --profile --max-new-tokens 8``: its JSON
     fields and exact A and B launches.
-15. the script's wall time, the ``nvidia-smi`` name and power line again,
+15. evals (``any4_tpu_torch/evals``, ``cli/{eval,analyze,diff}.py``) on
+    phase 4's bf16 and any4 models, back on the card. (a) ``evals_ppl``:
+    ``harness.run_perplexity_tasks(..., synthetic=True, seqlen=2048,
+    max_chunks=4)`` with the chunked evaluator, then the stream one (its 8
+    windows over the harness's 2 pseudo-documents), each log-perplexity
+    within 1e-4 relative of the same evaluator over the dequantized
+    float32 model (``to_float32(..., dequantize=True)``, no kernel), and
+    each target token's log-prob in the 4 chunks within 0.2 nats of that
+    model's (``evals_ppl_tokens``); kernel A exactly 112 x
+    ``ceil(t / FUSED_M_MAX)`` a forward of t tokens (4 chunks x 4 calls of
+    512 rows x 112) and nothing else; ``seconds``,
+    ``tokens_scored_per_s`` (target tokens over seconds, ending in a
+    synchronize), peak memory and, from ``torch.profiler`` over one chunk,
+    the device's busy share, after one untimed chunk (the run's first
+    2048-token forward, timed apart). (b) ``evals_lm_protocol``:
+    ``TorchCausalLM(qparams, cfg, ByteTokenizer(), batch_size=8,
+    max_length=2048)``: 16 seeded ``loglikelihood`` requests of 1-2100
+    bytes (an empty context, an empty continuation, one truncated): with
+    float32 activations on the same quantized weights, batched within
+    1e-3 relative of one at a time; in bf16, batched within 5e-3 of one at
+    a time (bf16 logits move by an ulp with the batch's shape, and 16
+    random layers carry that to about 1e-3) and within 2e-2 of the
+    dequantized float32 model; ``loglikelihood_rolling`` of 4500 bytes (3
+    windows) within 2e-5 of its windows scored one by one;
+    ``generate_until`` with ``max_gen_toks=32`` giving ``generate``'s
+    greedy tokens exactly; ``local_mc`` and the builtin code tasks (64
+    tokens) run and give their fields (their accuracies on random weights
+    are printed, not held); kernel A's exact launches for each, the code
+    tasks' from each generation's prompt and token counts.
+    (c) ``evals_analyze``: ``analyze_model`` over the bf16 model's first 2
+    layers (14 weights; int4, nf4, any4 with kmeans_iters=10), each any4
+    ``w_mse`` at or below int4's; ``write_plots`` where matplotlib is
+    installed (a non-empty ``plots.pdf``); ``diff_models`` of those layers
+    against their pseudo-any4 copy (every row printed) and against
+    themselves (MSE 0). (d) ``evals_cli``: ``cli.eval --tiny --quantize
+    any4 --tasks synthetic --seqlen 128 --max-chunks 2 --lm-eval-tasks
+    local_mc --code-tasks builtin`` (kernel A for down_proj, B six times
+    as often for the k = 64 linears), ``cli.analyze --tiny`` and
+    ``cli.diff --tiny`` on the card: their files and JSON keys.
+16. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
     the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
     A also ``fused_shapes``, ``mixtral_shapes`` and ``kxk``, kernel C
     ``kxk``, ``flash_paged_decode`` ``mixtral_shape``; launches summed over
     the main paths that run the kernel, as ``launches_from`` lists them).
-16. ``{"ok": true, "device": {...}}`` as the last line.
+17. ``{"ok": true, "device": {...}}`` as the last line.
+
+``--phase evals`` runs phase 15 alone after the build, on phase 4's models
+made as there, and prints its lines and the ``nvidia-smi`` line, with no
+kernels line and no result.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -428,6 +471,27 @@ TINY_NEW_TOKENS = 8
 BENCH_KEYS = {"baseline_tok_s", "any4_tok_s", "speedup",
               "model_bytes_baseline", "model_bytes_quantized",
               "profile_baseline", "profile_quantized", "device"}
+# the evals phase: the synthetic perplexity run (window, chunks of the
+# chunked evaluator), the LM protocol's requests and tokens, the analysis
+# depth. Its bars against the dequantized float32 model: the
+# log-perplexity (relative) and each target token's log-prob (absolute,
+# nats); the LM protocol's: float32 activations batched against one at a
+# time (BATCH_BAR), bf16 batched against one at a time (BF16_BATCH_BAR),
+# bf16 against the float32 model (LL_F32_BAR), the rolling score against
+# its windows one by one (ROLL_BAR), all relative. Each sits 3-4x above
+# the worst of six or more full-width readings on an H100, LL_F32_BAR
+# 7.6x, as PERF.md sets out
+EVAL_SEQLEN, EVAL_CHUNKS = 2048, 4
+PPL_BAR, PPL_TOKEN_BAR = 1e-4, 0.2
+BATCH_BAR, BF16_BATCH_BAR, LL_F32_BAR, ROLL_BAR = 1e-3, 5e-3, 2e-2, 2e-5
+LL_BATCH, ROLLING_BYTES, GEN_TOKENS, CODE_TOKENS = 8, 4500, 32, 64
+# (context bytes, continuation bytes) of the 16 loglikelihood requests:
+# an empty context, an empty continuation, one truncated to max_length
+LL_LENGTHS = [(0, 3), (1, 1), (5, 8), (17, 2), (40, 20), (64, 5), (100, 1),
+              (200, 12), (333, 4), (511, 30), (700, 7), (1000, 2),
+              (1500, 9), (1990, 40), (2100, 6), (30, 0)]
+ANALYZE_LAYERS = 2
+EVAL_RESULTS = {"synthetic:wikitext-2", "lm-eval:local_mc", "code:builtin"}
 
 
 def emit(obj) -> None:
@@ -1628,21 +1692,27 @@ def prefill_chunks(llama, qparams, cfg, gen, tokens=1024, fwd=None):
     return out
 
 
-def main_path(args, gemv, llama, gen_mod, api, linear):
+def llama_1b_any4(args, llama, api):
+    """Phase 4's models: Llama-3.2-1B (``--layers`` cuts the depth), bf16
+    weights from ``init_params(seed=0)`` and their any4 g=128 copy; with
+    the host seconds of each."""
     cfg = llama.LlamaConfig.llama_3_2_1b()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
-    per_forward = cfg.num_hidden_layers * 7
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-
     t0 = time.perf_counter()
     qparams = api.quantize_model(params, fmt="any4", group_size=128,
                                  kmeans_iters=10)
     torch.cuda.synchronize()
-    quantize_s = time.perf_counter() - t0
+    return params, qparams, cfg, init_s, time.perf_counter() - t0
+
+
+def main_path(args, gemv, llama, gen_mod, api, linear):
+    params, qparams, cfg, init_s, quantize_s = llama_1b_any4(args, llama, api)
+    per_forward = cfg.num_hidden_layers * 7
     # quantize_model(..., quantize_embeddings=True) quantizes the table after
     # the linears, which keep their seeds, and the table with the learner's
     # default seed: so the table alone completes that model
@@ -3627,10 +3697,445 @@ def cli_tools(params, qparams, cfg, gemv, linear, llama, gen_mod, bw, peak):
     return kxk, a_launches
 
 
+def forward_launches(linear, per_forward, rows):
+    """Kernel A's launches in one forward over ``rows`` token rows: each of
+    ``per_forward`` linears once per ``FUSED_M_MAX`` rows."""
+    return per_forward * -(-rows // linear.FUSED_M_MAX)
+
+
+def score_launches(linear, per_forward, token_lists, batch_size):
+    """Kernel A's launches in ``TorchCausalLM._score_batch``: the lists
+    sorted by length, in batches of ``batch_size`` padded to their
+    longest."""
+    lens = sorted(len(t) for t in token_lists)
+    return sum(forward_launches(linear, per_forward,
+                                len(lens[i:i + batch_size])
+                                * lens[i:i + batch_size][-1])
+               for i in range(0, len(lens), batch_size))
+
+
+def only_kernel_a(gemv, want, what):
+    """Kernel A launched exactly ``want`` times since the last reset, and
+    no other kernel; returns its count."""
+    check_launches(gemv, {"q4_lut_post": want}, 1, what)
+    return gemv.LAUNCHES["q4_lut_post"]
+
+
+def device_seconds(fn):
+    """The CUDA kernels' summed time in one ``fn()`` under
+    ``torch.profiler``, and the three that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            per_kernel[ev.key] = (per_kernel.get(ev.key, 0.0)
+                                  + ev.self_device_time_total)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
+    return (sum(per_kernel.values()) / 1e6,
+            {k[:80]: v / 1e6 for k, v in top})
+
+
+def rel_gap(a, ref) -> float:
+    return abs(a - ref) / max(abs(ref), 1e-30)
+
+
+def evals_ppl(qparams, ref, cfg, cfg32, gemv, linear, log_dir):
+    """(a) of the evals phase: ``run_perplexity_tasks`` (synthetic, 2048
+    tokens a window) with each evaluator over the any4 model, against the
+    same over the dequantized float32 model; exact kernel A launches.
+    Returns kernel A's launches."""
+    from any4_tpu_torch.evals import datasets, harness, perplexity
+    per_forward = cfg.num_hidden_layers * 7
+    tokens = datasets.synthetic_tokens(cfg.vocab_size)
+    # the stream evaluator's windows over the harness's pseudo-documents
+    docs = np.array_split(tokens, max(len(tokens) // (4 * EVAL_SEQLEN), 1))
+    windows = [min(EVAL_SEQLEN, len(d) - 1 - s) for d in docs
+               for s in range(0, len(d) - 1, EVAL_SEQLEN)]
+    runs = {"chunked": ([EVAL_SEQLEN] * EVAL_CHUNKS,
+                        EVAL_CHUNKS * (EVAL_SEQLEN - 1)),
+            "stream": (windows, sum(windows))}
+    # the run's first 2048-token forward picks cuBLAS's algorithms and grows
+    # the allocator: it is timed apart, before the evaluators
+    _, first_s = seconds(lambda: perplexity.eval_perplexity_chunked(
+        qparams, cfg, tokens, seqlen=EVAL_SEQLEN, max_chunks=1))
+    a_launches = 0
+    for ev, (forwards, targets) in runs.items():
+        kw = dict(seqlen=EVAL_SEQLEN, max_chunks=EVAL_CHUNKS, synthetic=True,
+                  evaluator=ev)
+        d = os.path.join(log_dir, ev)
+        want = sum(forward_launches(linear, per_forward, t)
+                   for t in forwards)
+        torch.cuda.reset_peak_memory_stats()
+        gemv.reset_launches()
+        res, secs = seconds(lambda: harness.run_perplexity_tasks(
+            qparams, cfg, ["wikitext-2"], log_dir=d, **kw))
+        peak_mem = torch.cuda.max_memory_allocated()
+        a_launches += only_kernel_a(gemv, want, f"{ev} perplexity")
+        gemv.reset_launches()
+        ref_res, ref_secs = seconds(lambda: harness.run_perplexity_tasks(
+            ref, cfg32, ["wikitext-2"], **kw))
+        check_launches(gemv, {}, 1, "the dequantized float32 model")
+        (name, ppl), = res.items()
+        log_ppl, ref_log = math.log(ppl), math.log(ref_res[name])
+        gap = rel_gap(log_ppl, ref_log)
+        check(name == "synthetic:wikitext-2" and math.isfinite(log_ppl)
+              and gap <= PPL_BAR, f"{ev}: log-perplexity {log_ppl} vs the "
+              f"float32 model's {ref_log}: {gap} > {PPL_BAR} relative")
+        with open(os.path.join(d, "results.json")) as f:
+            logged = json.load(f)
+        check(set(logged) == {name} and logged[name]["result"] == ppl
+              and logged[name]["seqlen"] == EVAL_SEQLEN, "results.json")
+        row = {"phase": "evals_ppl", "evaluator": ev, "seqlen": EVAL_SEQLEN,
+               "forwards": len(forwards), "target_tokens": targets,
+               "seconds": secs, "tokens_scored_per_s": targets / secs,
+               "log_ppl": log_ppl, "ref_log_ppl_f32": ref_log,
+               "rel_gap": gap, "bar": PPL_BAR,
+               "launches_q4_lut_post": want,
+               "max_memory_allocated": peak_mem, "ref_seconds": ref_secs}
+        if ev == "chunked":
+            dev_s, top = device_seconds(
+                lambda: perplexity.eval_perplexity_chunked(
+                    qparams, cfg, tokens, seqlen=EVAL_SEQLEN, max_chunks=1))
+            row.update(first_chunk_s=first_s, device_s_per_chunk=dev_s,
+                       host_s_per_chunk=secs / EVAL_CHUNKS,
+                       busy_share=dev_s / (secs / EVAL_CHUNKS),
+                       top_kernels_s=top)
+        emit(row)
+    gaps, launches = token_logprob_gaps(qparams, ref, cfg, cfg32, tokens,
+                                        gemv, linear)
+    emit({"phase": "evals_ppl_tokens", **gaps, "bar": PPL_TOKEN_BAR})
+    check(gaps["max_abs_gap"] <= PPL_TOKEN_BAR,
+          f"per-token log-probs: largest gap {gaps['max_abs_gap']} > "
+          f"{PPL_TOKEN_BAR} nats")
+    return a_launches + launches
+
+
+def token_logprob_gaps(qparams, ref, cfg, cfg32, tokens, gemv, linear):
+    """Each target token's log-prob in the chunked evaluator's
+    EVAL_CHUNKS chunks under the any4 model and under the dequantized
+    float32 one (``perplexity.token_logprobs``): the gaps in nats, beside
+    the spread of the float32 model's log-probs. Returns them and kernel
+    A's launches, which must be exact."""
+    from any4_tpu_torch.evals import perplexity
+    from any4_tpu_torch.models import llama
+    per_forward = cfg.num_hidden_layers * 7
+    chunks = torch.from_numpy(tokens[:EVAL_CHUNKS * EVAL_SEQLEN].astype(
+        np.int64).reshape(EVAL_CHUNKS, 1, EVAL_SEQLEN)).cuda()
+    got, want = [], []
+    gemv.reset_launches()
+    for c in chunks:
+        got.append(perplexity.token_logprobs(
+            llama.forward(qparams, cfg, c)[0], c[:, 1:])[0])
+    launches = only_kernel_a(
+        gemv, EVAL_CHUNKS * forward_launches(linear, per_forward, EVAL_SEQLEN),
+        "per-token log-probs")
+    gemv.reset_launches()
+    for c in chunks:
+        want.append(perplexity.token_logprobs(
+            llama.forward(ref, cfg32, c)[0], c[:, 1:])[0])
+    check_launches(gemv, {}, 1, "the float32 model's per-token log-probs")
+    got, want = torch.cat(got), torch.cat(want)
+    gap = (got - want).abs()
+    return {"tokens": gap.numel(), "max_abs_gap": float(gap.max()),
+            "mean_abs_gap": float(gap.mean()),
+            "max_abs_gap_by_chunk": gap.amax(1).tolist(),
+            "ref_logprob_mean": float(want.mean()),
+            "ref_logprob_std": float(want.std())}, launches
+
+
+def evals_lm_protocol(qparams, ref, cfg, cfg32, gemv, linear, gen_mod,
+                      log_dir):
+    """(b) of the evals phase: ``TorchCausalLM`` over the any4 model with
+    the byte tokenizer; see the module docstring. Returns kernel A's
+    launches."""
+    from any4_tpu_torch.evals import code_eval, tasks_local
+    from any4_tpu_torch.evals.lm_eval_adapter import TorchCausalLM
+    per_forward = cfg.num_hidden_layers * 7
+    tok = tasks_local.ByteTokenizer()
+    lm = TorchCausalLM(qparams, cfg, tok, batch_size=LL_BATCH,
+                       max_length=EVAL_SEQLEN)
+    rng = np.random.default_rng(7)
+
+    def text(n):
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    def scored(reqs):
+        """The token lists ``loglikelihood`` scores for ``reqs``."""
+        return [((tok.encode(c) or [tok.bos_token_id])
+                 + tok.encode(x))[-EVAL_SEQLEN:] for c, x in reqs]
+
+    requests = [(text(c), " " + text(n - 1) if n else "")
+                for c, n in LL_LENGTHS]
+    lists = scored(requests)
+    want = score_launches(linear, per_forward, lists, LL_BATCH) + sum(
+        score_launches(linear, per_forward, [t], 1) for t in lists)
+    gemv.reset_launches()
+    batched, ll_s = seconds(lambda: lm.loglikelihood(requests))
+    singles = [lm.loglikelihood([r])[0] for r in requests]
+    a = only_kernel_a(gemv, want, "loglikelihood")
+    # the same quantized weights with float32 activations (kernel A still
+    # rounds x to bf16): bf16 logits move by an ulp with the batch's shape
+    # (cuBLAS's head and attention), which 16 random bf16 layers carry to
+    # about 1e-3 of a request's score; float32 ones hold the padding and
+    # the batching to the bar
+    lm32 = TorchCausalLM(to_float32(qparams, linear), cfg32, tok,
+                         batch_size=LL_BATCH, max_length=EVAL_SEQLEN)
+    gemv.reset_launches()
+    batched32 = lm32.loglikelihood(requests)
+    singles32 = [lm32.loglikelihood([r])[0] for r in requests]
+    a += only_kernel_a(gemv, want, "loglikelihood, float32 activations")
+    del lm32
+    ref_lm = TorchCausalLM(ref, cfg32, tok, batch_size=LL_BATCH,
+                           max_length=EVAL_SEQLEN)
+    gemv.reset_launches()
+    f32 = ref_lm.loglikelihood(requests)
+    check_launches(gemv, {}, 1, "the float32 model's loglikelihood")
+    check(batched[-1] == singles[-1] == batched32[-1] == (0.0, True),
+          "the empty continuation scores (0.0, True)")
+
+    def gap(xs, ys):
+        return [rel_gap(x[0], y[0]) for x, y in zip(xs, ys)]
+
+    gaps = {"bf16_batched_vs_single": gap(batched, singles),
+            "f32_act_batched_vs_single": gap(batched32, singles32),
+            "bf16_vs_dense_f32": gap(batched, f32)}
+    worst = {k: max(v) for k, v in gaps.items()}
+    check(all(math.isfinite(b[0]) and b[0] <= 0 for b in batched)
+          and worst["f32_act_batched_vs_single"] <= BATCH_BAR
+          and worst["bf16_batched_vs_single"] <= BF16_BATCH_BAR
+          and worst["bf16_vs_dense_f32"] <= LL_F32_BAR,
+          f"loglikelihood gaps {worst}: float32 activations batched vs one "
+          f"at a time within {BATCH_BAR}, bf16 within {BF16_BATCH_BAR}, "
+          f"bf16 vs the float32 model within {LL_F32_BAR}")
+
+    long_text = text(ROLLING_BYTES)
+    ids = tok.encode(long_text)
+    windows = [w for w in (ids[s:s + EVAL_SEQLEN] for s in range(
+        0, len(ids) - 1, EVAL_SEQLEN - 1)) if len(w) >= 2]
+    gemv.reset_launches()
+    [rolled], roll_s = seconds(
+        lambda: lm.loglikelihood_rolling([(long_text,)]))
+    one_by_one = sum(float(lm._score_batch([w])[0][0].sum())
+                     for w in windows)
+    a += only_kernel_a(gemv, score_launches(
+        linear, per_forward, windows, LL_BATCH) + sum(
+        score_launches(linear, per_forward, [w], 1) for w in windows),
+        "loglikelihood_rolling")
+    roll_gap = rel_gap(rolled, one_by_one)
+    check(len(windows) == 3 and math.isfinite(rolled)
+          and roll_gap <= ROLL_BAR,
+          f"rolling {rolled} vs its windows one by one {one_by_one}")
+
+    prompt = text(64)
+    pids = tok.encode(prompt)
+    gemv.reset_launches()
+    [gen_text], gen_s = seconds(lambda: lm.generate_until(
+        [(prompt, {"until": [], "max_gen_toks": GEN_TOKENS})]))
+    toks = lm.greedy_tokens(pids, GEN_TOKENS)
+    ref_tokens = gen_mod.generate(
+        qparams, cfg, torch.tensor([pids], device="cuda"),
+        max_new_tokens=GEN_TOKENS)[0, len(pids):].tolist()
+    # greedy_tokens stops before the byte tokenizer's eos
+    cut = ref_tokens.index(tok.eos_token_id) \
+        if tok.eos_token_id in ref_tokens else GEN_TOKENS
+    steps = min(len(toks), GEN_TOKENS - 1)
+    a += only_kernel_a(gemv, 2 * (forward_launches(
+        linear, per_forward, len(pids)) + per_forward * steps)
+        + forward_launches(linear, per_forward, len(pids))
+        + per_forward * (GEN_TOKENS - 1), "generate_until and generate")
+    check(toks == ref_tokens[:cut] and gen_text == tok.decode(toks),
+          f"generate_until's tokens {toks} != generate's {ref_tokens}")
+
+    gemv.reset_launches()
+    mc, mc_s = seconds(lambda: tasks_local.run_local_task(lm, "local_mc"))
+    mc_lists = scored([(ex["context"], c)
+                       for ex in tasks_local.BUILTIN_MC_EXAMPLES
+                       for c in ex["choices"]])
+    a += only_kernel_a(gemv, score_launches(linear, per_forward, mc_lists,
+                                            LL_BATCH), "local_mc")
+    # each code problem's generation: its prompt's and its greedy tokens'
+    # counts give its prefill and decode steps
+    gens, greedy = [], lm.greedy_tokens
+
+    def recorded(ids, max_new, until=()):
+        toks = greedy(ids, max_new, until)
+        gens.append((len(ids), max_new, len(toks)))
+        return toks
+
+    lm.greedy_tokens = recorded
+    gemv.reset_launches()
+    code, code_s = seconds(lambda: code_eval.run_code_tasks(
+        lm, ["builtin"], max_gen_toks=CODE_TOKENS, log_dir=log_dir))
+    del lm.greedy_tokens
+    code_launches = sum(forward_launches(linear, per_forward, p)
+                        + per_forward * min(n, max_new - 1)
+                        for p, max_new, n in gens)
+    check(len(gens) == 4, f"code tasks: {len(gens)} generations, not 4")
+    a += only_kernel_a(gemv, code_launches, "code tasks")
+    check(set(mc) == {"acc", "acc_norm", "n"} and mc["n"] == 6
+          and set(code) == {"builtin"}
+          and set(code["builtin"]) == {"pass@1", "n_problems"}
+          and code["builtin"]["n_problems"] == 4
+          and os.path.exists(os.path.join(log_dir, "code_builtin.json")),
+          f"local_mc {mc}, code {code}")
+    emit({"phase": "evals_lm_protocol", "batch_size": LL_BATCH,
+          "max_length": EVAL_SEQLEN, "requests": len(requests),
+          "request_tokens": [len(t) for t in lists],
+          "loglikelihood_s": ll_s, "max_rel_gaps": worst,
+          "rel_gaps": gaps, "bar_f32_act_batched": BATCH_BAR,
+          "bar_bf16_batched": BF16_BATCH_BAR, "bar_vs_f32": LL_F32_BAR,
+          "loglikelihood": [b[0] for b in batched],
+          "rolling": {"bytes": ROLLING_BYTES, "windows": len(windows),
+                      "total": rolled, "windows_one_by_one": one_by_one,
+                      "rel_gap": roll_gap, "bar": ROLL_BAR,
+                      "seconds": roll_s},
+          "generate_until": {"max_gen_toks": GEN_TOKENS,
+                             "tokens": len(toks), "seconds": gen_s,
+                             "equals_generate": True},
+          "local_mc": mc, "local_mc_s": mc_s, "code": code["builtin"],
+          "code_max_gen_toks": CODE_TOKENS, "code_s": code_s,
+          "code_generations": [{"prompt": p, "max_new": m, "tokens": n}
+                               for p, m, n in gens],
+          "code_launches_q4_lut_post": code_launches,
+          "launches_q4_lut_post": a,
+          "note": "accuracies of random weights mean nothing"})
+    return a
+
+
+def evals_analyze(params, cfg, gemv, api, log_dir, plots):
+    """(c) of the evals phase: ``analyze_model`` and ``diff_models`` over
+    the bf16 model's first ANALYZE_LAYERS layers; ``write_plots`` where
+    matplotlib is installed (``plots``)."""
+    from any4_tpu_torch.evals import analyze
+    cut = {**params, "layers": params["layers"][:ANALYZE_LAYERS]}
+    cfg_cut = dataclasses.replace(cfg, num_hidden_layers=ANALYZE_LAYERS)
+    rows, an_s = seconds(lambda: analyze.analyze_model(
+        cut, fmts=["int4", "nf4", "any4"], group_size=128,
+        out_dir=log_dir))
+    check(len(rows) == 7 * ANALYZE_LAYERS
+          and os.path.exists(os.path.join(log_dir, "stats.csv")),
+          f"analyze_model rows {len(rows)}")
+    for r in rows:
+        check(r["any4_w_mse"] <= r["int4_w_mse"],
+              f"{r['layer']}: any4 w_mse {r['any4_w_mse']} > int4's "
+              f"{r['int4_w_mse']}")
+    pdf = None
+    if plots:
+        path = analyze.write_plots(cut, rows, log_dir)
+        pdf = os.path.getsize(path)
+        check(pdf > 0, "plots.pdf is empty")
+    pseudo = api.quantize_model(cut, fmt="any4", group_size=128, pseudo=True,
+                                kmeans_iters=10)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    gemv.reset_launches()
+    diff, diff_s = seconds(lambda: analyze.diff_models(
+        cut, pseudo, cfg_cut, ids, out_dir=log_dir))
+    same = analyze.diff_models(cut, cut, cfg_cut, ids)
+    check_launches(gemv, {}, 1, "diff_models over dense weights")
+    check(len(diff) == 7 * ANALYZE_LAYERS + 1 and diff[-1]["layer"] ==
+          "logits" and all(math.isfinite(r["mse"]) for r in diff),
+          "diff_models rows")
+    check(all(r["mse"] == 0.0 for r in same),
+          "a model against itself gives MSE 0")
+    emit({"phase": "evals_analyze", "layers": ANALYZE_LAYERS,
+          "weights": len(rows), "analyze_s": an_s, "diff_s": diff_s,
+          "plots_pdf_bytes": pdf if plots else
+          "not run: matplotlib is not installed",
+          "w_mse": {r["layer"]: {f: r[f"{f}_w_mse"] for f in
+                                 ("int4", "nf4", "any4")} for r in rows},
+          "y_cossim": {r["layer"]: {f: r[f"{f}_y_cossim"] for f in
+                                    ("int4", "nf4", "any4")} for r in rows},
+          "diff": diff})
+
+
+def evals_cli(gemv, log_dir, plots):
+    """(d) of the evals phase: the eval, analyze and diff scripts on their
+    tiny models on the card. Returns the eval script's launches."""
+    from any4_tpu_torch.cli import analyze as analyze_cli
+    from any4_tpu_torch.cli import diff as diff_cli
+    from any4_tpu_torch.cli import eval as eval_cli
+    d = os.path.join(log_dir, "eval")
+    gemv.reset_launches()
+    (results, _), eval_s = seconds(lambda: run_cli(eval_cli.main, [
+        "--tiny", "--quantize", "any4", "--tasks", "synthetic", "--seqlen",
+        "128", "--max-chunks", "2", "--lm-eval-tasks", "local_mc",
+        "--code-tasks", "builtin", "--log-dir", d]))
+    launches = {k: v for k, v in gemv.LAUNCHES.items() if v}
+    # the tiny any4 model at g=128: the k = 64 linears take g = 64
+    # (kernel B), down_proj (k = 128) kernel A
+    check(set(launches) == {"q4_lut_post", "q4_lut_fused"}
+          and launches["q4_lut_fused"] == 6 * launches["q4_lut_post"],
+          f"eval --tiny launches {launches}")
+    with open(os.path.join(d, "results.json")) as f:
+        logged = json.load(f)
+    with open(os.path.join(d, "args.json")) as f:
+        args = json.load(f)
+    check(set(results) == set(logged) == EVAL_RESULTS
+          and args["cpu"] is False and args["quantize"] == "any4"
+          and math.isfinite(results["synthetic:wikitext-2"])
+          and os.path.exists(os.path.join(d, "command_line.txt"))
+          and os.path.exists(os.path.join(d, "code_builtin.json")),
+          f"eval --tiny results {sorted(results)}, logged {sorted(logged)}")
+    an_dir = os.path.join(log_dir, "analyze")
+    rows, _ = run_cli(analyze_cli.main, ["--tiny", "--log-dir", an_dir]
+                      + ([] if plots else ["--no-plots"]))
+    check(len(rows) == 15 and os.path.exists(os.path.join(an_dir,
+                                                          "stats.csv"))
+          and os.path.exists(os.path.join(an_dir, "plots.pdf")) == plots,
+          "analyze --tiny")
+    diff_dir = os.path.join(log_dir, "diff")
+    diff, _ = run_cli(diff_cli.main, ["--tiny", "--log-dir", diff_dir])
+    check(len(diff) == 15 and os.path.exists(os.path.join(diff_dir,
+                                                          "diffs.csv")),
+          "diff --tiny")
+    emit({"phase": "evals_cli", "eval": results, "eval_s": eval_s,
+          "eval_launches": launches, "analyze_rows": len(rows),
+          "analyze_plots": plots, "diff_rows": len(diff),
+          "diff_logits": diff[-1]})
+    return launches
+
+
+def evals_phase(params, qparams, cfg, gemv, linear, gen_mod, api):
+    """Phase 15: the evals on phase 4's bf16 and any4 models, on the card;
+    see the module docstring. Returns kernel A's and B's launches."""
+    import importlib.util
+    import tempfile
+    t0 = time.perf_counter()
+    plots = importlib.util.find_spec("matplotlib") is not None
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = to_float32(qparams, linear, dequantize=True)
+    with tempfile.TemporaryDirectory() as d:
+        a = evals_ppl(qparams, ref, cfg, cfg32, gemv, linear,
+                      os.path.join(d, "ppl"))
+        a += evals_lm_protocol(qparams, ref, cfg, cfg32, gemv, linear,
+                               gen_mod, d)
+        del ref
+        torch.cuda.empty_cache()
+        evals_analyze(params, cfg, gemv, api, os.path.join(d, "analyze"),
+                      plots)
+        cli = evals_cli(gemv, os.path.join(d, "cli"), plots)
+    emit({"phase": "evals", "seconds": time.perf_counter() - t0,
+          "launches_q4_lut_post": a + cli["q4_lut_post"],
+          "launches_q4_lut_fused": cli["q4_lut_fused"]})
+    return {"q4_lut_post": a + cli["q4_lut_post"],
+            "q4_lut_fused": cli["q4_lut_fused"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the 1B model's depth (default: all 16)")
+    ap.add_argument("--phase", choices=["evals"], default=None,
+                    help="run only this phase, on phase 4's models, after "
+                         "the build; prints no kernels line and no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3660,6 +4165,14 @@ def main():
           "build_s": build_s, "libraries": sorted(libs.values()),
           "bandwidth_bytes_per_s": bw, "bf16_flops_per_s": peak,
           "peaks_from": f"NVIDIA data sheet, {peak_name} (SXM unless PCIe)"})
+    if args.phase == "evals":
+        params, qparams, cfg, _, _ = llama_1b_any4(args, llama, api)
+        launches = evals_phase(params, qparams, cfg, gemv, linear, gen_mod,
+                               api)
+        emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,
+              "layers": cfg.num_hidden_layers, "launches": launches})
+        print(smi, flush=True)
+        return
     for source, keep in ((SOURCE, "post_mma"), (W4A8_SOURCE, "a8_mma")):
         emit({"phase": "ptxas", "source": source, "kernels": ptxas_summary(
             build.PTXAS_REPORTS.get(os.path.basename(source), ""), keep)})
@@ -3793,12 +4306,18 @@ def main():
     del mparams
     torch.cuda.empty_cache()
     launches["q4_lut_post"] += awq_opt(gemv, opt, api, linear, awq)
-    # the port's tools and scripts (phase 14), on phase 4's models
+    # the port's tools and scripts (phase 14), then the evals (phase 15), on
+    # phase 4's models, back on the card
     torch.cuda.empty_cache()
-    kxk, cli_launches = cli_tools(
-        to_device(params, "cuda", linear), to_device(qparams, "cuda", linear),
-        cfg1b, gemv, linear, llama, gen_mod, bw, peak)
+    params = to_device(params, "cuda", linear)
+    qparams = to_device(qparams, "cuda", linear)
+    kxk, cli_launches = cli_tools(params, qparams, cfg1b, gemv, linear, llama,
+                                  gen_mod, bw, peak)
     launches["q4_lut_post"] += cli_launches
+    torch.cuda.empty_cache()
+    for name, count in evals_phase(params, qparams, cfg1b, gemv, linear,
+                                   gen_mod, api).items():
+        launches[name] += count
     del params, qparams
 
     kernels = []
@@ -3823,10 +4342,14 @@ def main():
                 "any4 OPT-125m's 64-token forward; the cli_tools phase's "
                 "decode_tokens_per_s and profile_decode_components over "
                 "the any4 g=128 model and the benchmark script's tiny "
-                "any4 model"
+                "any4 model; evals: the any4 g=128 model's chunked and "
+                "stream perplexity (2048-token windows), the LM protocol's "
+                "loglikelihood, rolling, generate_until, local_mc and code "
+                "tasks, and the eval script's tiny any4 model"
                 if name == "q4_lut_post" else
                 "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
-                "over the mx4 (g=32) model"),
+                "over the mx4 (g=32) model; evals: the eval script's tiny "
+                "any4 model (its k = 64 linears)"),
             "group_size": spec["group_size"]})
         if name == "q4_lut_post":
             kernels[-1]["by_m"] = {m: layer_summary(

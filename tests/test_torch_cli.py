@@ -12,11 +12,20 @@ against the JAX package's scripts and file formats.
   through JAX's ``save_awq``, and JAX's ``load_awq`` reads the port's dump;
 - ``calibrate --tiny`` writes the ``.npz`` JAX's ``load_calibration`` reads,
   under the names JAX's ``quantize_model`` looks sample weights up by;
-- ``parse_kv_args`` is ``cli_eval.parse_kv_args``.
+- ``parse_kv_args`` is ``cli_eval.parse_kv_args``;
+- ``eval --tiny`` gives ``cli_eval.py``'s result names and log files, which
+  ``cli_process_logs.py`` reads; a checkpoint it saves loads back with the
+  same perplexity; ``analyze --tiny`` writes the JAX analyzer's CSV
+  columns and plots, ``diff --tiny`` one row a linear and the logits;
+- ``calibrate --dataset`` loads its tokens through ``evals.datasets``,
+  which raises ``DatasetUnavailable`` where Hugging Face's ``datasets``
+  cannot load the task.
 """
 import contextlib
+import csv
 import io
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +34,18 @@ import pytest
 import torch
 
 import cli_eval
+import cli_process_logs
 from any4_tpu import calibrate as jcal
 from any4_tpu.models import checkpoint as jcheckpoint
 from any4_tpu.models import llama as jllama
 from any4_tpu.quant import api as japi
 from any4_tpu.quant import awq as jawq
+from any4_tpu_torch.cli import analyze as analyze_cli
+from any4_tpu_torch.cli import diff as diff_cli
+from any4_tpu_torch.cli import eval as eval_cli
 from any4_tpu_torch.cli import (benchmark, calibrate, common, example,
                                 microbenchmark, quantize)
+from any4_tpu_torch.evals import datasets
 from any4_tpu_torch.models import checkpoint, generate, llama
 from any4_tpu_torch.ops import linear as tlin
 from any4_tpu_torch.quant import api, awq
@@ -236,6 +250,9 @@ _SCRIPTS = {
     "quantize": (quantize.main, ["--tiny", "--output", "unused"]),
     "calibrate": (calibrate.main, ["--tiny", "--output", "unused.npz"]),
     "example": (example.main, []),
+    "eval": (eval_cli.main, ["--tiny", "--log-dir", "unused"]),
+    "analyze": (analyze_cli.main, ["--tiny", "--log-dir", "unused"]),
+    "diff": (diff_cli.main, ["--tiny", "--log-dir", "unused"]),
 }
 
 
@@ -248,11 +265,96 @@ def test_scripts_need_a_gpu_without_cpu_flag(name):
         main(argv)
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 12"):
         _run(quantize.main, ["--cpu", "--tiny", "--fmt", "int4",
                              "--row-parallel-shards", "2",
                              "--output", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    # --dataset goes through evals.datasets: where Hugging Face's datasets
+    # cannot load the task it raises DatasetUnavailable (the import is made
+    # to fail here, so that nothing reaches for the network)
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    with pytest.raises(datasets.DatasetUnavailable, match="wikitext-2"):
         calibrate.main(["--cpu", "--tiny", "--dataset", "wikitext-2",
                         "--output", str(tmp_path / "a.npz")])
+
+
+# cli_eval.py's result names for these tasks
+EVAL_RESULTS = {"synthetic:wikitext-2", "lm-eval:local_mc", "code:builtin"}
+
+
+def test_eval_script_logs(tmp_path):
+    d = tmp_path / "logs" / "t"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = eval_cli.main([
+            "--cpu", "--tiny", "--quantize", "int4", "--tasks", "synthetic",
+            "--seqlen", "64", "--max-chunks", "2", "--lm-eval-tasks",
+            "local_mc", "--code-tasks", "builtin", "--log-dir", str(d)])
+    assert set(results) == EVAL_RESULTS
+    printed = out.getvalue()
+    assert json.loads(printed[printed.index("{\n"):]) == results
+    assert 1 < results["synthetic:wikitext-2"] < 2048 * 10
+    assert results["lm-eval:local_mc"]["n"] == 6
+    assert results["code:builtin"]["n_problems"] == 4
+    with open(d / "results.json") as f:
+        logged = json.load(f)
+    assert set(logged) == EVAL_RESULTS
+    assert logged["synthetic:wikitext-2"]["seqlen"] == 64
+    with open(d / "args.json") as f:
+        args = json.load(f)
+    assert args["quantize"] == "int4" and args["cpu"] is True
+    assert (d / "command_line.txt").read_text().startswith("python ")
+    assert (d / "code_builtin.json").exists()
+    cli_process_logs.main([str(tmp_path / "logs"), "--output",
+                           str(tmp_path / "all.csv")])
+    with open(tmp_path / "all.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert {r["task"] for r in rows} == EVAL_RESULTS
+
+
+def test_eval_script_checkpoint_round_trip(tmp_path):
+    """``--calibrate --save-quantized``, then ``--load-quantized``: the same
+    perplexity."""
+    base = ["--cpu", "--tiny", "--tasks", "synthetic", "--seqlen", "32",
+            "--max-chunks", "2"]
+    q = str(tmp_path / "q")
+    saved, _ = _run(eval_cli.main, base + [
+        "--quantize", "any4", "--quantize-args", "kmeans_iters=2",
+        "--calibrate", "--save-quantized", q,
+        "--log-dir", str(tmp_path / "a")])
+    loaded, _ = _run(eval_cli.main, base + [
+        "--load-quantized", q, "--log-dir", str(tmp_path / "b")])
+    assert saved == loaded and set(saved) == {"synthetic:wikitext-2"}
+    assert jcheckpoint.load_params(q)[1].vocab_size == 2048
+
+
+def test_analyze_script(tmp_path):
+    acts, _ = _run(calibrate.main, [
+        "--cpu", "--tiny", "--output", str(tmp_path / "acts.npz")])
+    rows, _ = _run(analyze_cli.main, [
+        "--cpu", "--tiny", "--formats", "int4,nf4", "--group-size", "32",
+        "--calibration", str(tmp_path / "acts.npz"),
+        "--log-dir", str(tmp_path / "an")])
+    with open(tmp_path / "an" / "stats.csv") as f:
+        header = next(csv.reader(f))
+    # cli_analyze.py's columns for these formats
+    assert header == ["layer", "shape", "mean", "std", "min", "max",
+                      "entropy"] + [f"{f}_{m}" for f in ("int4", "nf4")
+                                    for m in ("w_mse", "y_mse", "y_cossim")]
+    assert len(rows) == 15 and rows[-1]["layer"] == "lm_head"
+    pdf = (tmp_path / "an" / "plots.pdf").read_bytes()
+    assert pdf.startswith(b"%PDF") and len(pdf) > 10000
+    _run(analyze_cli.main, ["--cpu", "--tiny", "--formats", "int4",
+                            "--no-plots", "--log-dir", str(tmp_path / "np")])
+    assert not (tmp_path / "np" / "plots.pdf").exists()
+
+
+def test_diff_script(tmp_path):
+    rows, line = _run(diff_cli.main, [
+        "--cpu", "--tiny", "--quantize", "int4", "--group-size", "32",
+        "--prompt-tokens", "16", "--log-dir", str(tmp_path)])
+    assert len(rows) == 2 * 7 + 1 and line.startswith("logits: mse ")
+    assert all(0.5 < r["cossim"] <= 1 + 1e-6 for r in rows)
+    with open(tmp_path / "diffs.csv") as f:
+        assert next(csv.reader(f)) == ["layer", "mse", "cossim"]
