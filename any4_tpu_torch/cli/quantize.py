@@ -9,6 +9,13 @@ after an AWQ scale search and activation calibration.
 
 The calibration and AWQ tokens are the checkpoint tokenizer's encoding of
 the built-in calibration prompt, or 128 seeded random ids without one.
+
+``--cpu --fmt int4`` without AWQ or calibration takes the host path where
+the native data plane (:mod:`any4_tpu_torch.native`) builds: the linear
+weights are quantized and packed as float32 numpy arrays, in C++, with the
+torch path's codes. On the card every format is quantized there.
+``--row-parallel-shards N`` packs the row-parallel weights in N k segments
+for tensor parallelism (:mod:`any4_tpu_torch.parallel.tp`).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import time
 import torch
 
 from .. import calibrate as cal
+from .. import native
 from ..models import checkpoint
 from ..quant import api, awq
 from . import common
@@ -47,16 +55,22 @@ def main(argv=None):
                         "int_zeros=True for rounded-integer zero points, "
                         "scale_only=True for symmetric)")
     p.add_argument("--row-parallel-shards", type=int, default=1,
-                   help="pack k as N shards for row-parallel TP (not "
-                        "ported: only 1)")
+                   help="pack k as N shards for row-parallel TP")
     p.add_argument("--output", required=True)
     common.add_device_arg(p)
     args = p.parse_args(argv)
     dev = common.device(args)
 
-    # the native host-side data plane (int4 packing in C++) is not ported
-    print("native data plane: off")
+    on = native.available()
+    print(f"native data plane: "
+          f"{f'on ({native.num_threads()} threads)' if on else 'off'}")
     cfg, params = common.model(args, dev, vocab=1024)
+    size = api.model_size_bytes(params)
+    # on the host, int4 (which needs no forward first) goes through C++
+    if (dev == "cpu" and args.fmt == "int4" and on and not args.awq
+            and not args.calibrate and not args.load_awq):
+        print("quantizing host-side through the native data plane")
+        params = _to_host(params)
     tok = common.tokenizer(None if args.tiny else args.model_dir)
     if tok is not None:
         ids = torch.tensor([tok(cal.default_prompt)["input_ids"]],
@@ -95,11 +109,23 @@ def main(argv=None):
         sample_weight=sample_weight, progress=True,
         row_parallel_shards=args.row_parallel_shards, device=dev, **kw)
     print(f"quantized in {time.time() - t0:.1f}s; "
-          f"{api.model_size_bytes(params) / 1e6:.1f} MB -> "
+          f"{size / 1e6:.1f} MB -> "
           f"{api.model_size_bytes(qparams) / 1e6:.1f} MB")
     checkpoint.save_params(args.output, qparams, cfg)
     print(f"saved to {args.output}")
     return qparams, cfg
+
+
+def _to_host(tree):
+    """``tree`` (on the CPU) with the linear weights that ``quantize_model``
+    quantizes by default as float32 numpy arrays, which it quantizes on the
+    host."""
+    out = api._copy_tree(tree)
+    for name, leaf, setter in api._walk(out):
+        if api.default_layer_filter(name, leaf) \
+                and name.split(".")[-1] not in api.DEFAULT_SKIP:
+            setter(leaf.detach().float().numpy())
+    return out
 
 
 if __name__ == "__main__":

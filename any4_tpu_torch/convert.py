@@ -25,6 +25,13 @@ zeros for the row-scale formats (``int8r``/``w8a8r``/``any4q8r``), and
 int8p's nibble planes (:func:`int8p_groups_from_jax`). Each format name
 selects its layout from an explicit table: ``int8t`` and ``w8a8t`` end in
 ``t`` but have no LUT.
+
+A weight with ``row_shards = S > 1`` holds S k segments, each padded on its
+own, in both packages: the TPU layout's along its k axis (axis 1 of the
+row, pair and quad layouts, axis 0 of the transposed and grouped ones; the
+row-scale ``[k, n]`` is cut unpadded), the port's along axis 1. It is
+carried segment by segment; the group arrays are the same per-segment
+``[S * padded_k(k/S) / g, n]`` in both. ``int8p`` has no row shards.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ import numpy as np
 import torch
 
 from .ops import packing
-from .ops.linear import (FMTS, ROWSCALE_FMTS, TRANSPOSED_LUT_FMTS,
-                         QuantizedTensor)
+from .ops.linear import (FMTS, GROUPED_FMTS, ROWSCALE_FMTS,
+                         TRANSPOSED_LUT_FMTS, QuantizedTensor)
 
 QT_FIELDS = ("packed", "scales", "zeros", "lut")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -72,12 +79,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _check_fmt(fmt: str, row_shards: int) -> None:
-    if row_shards != 1:
-        raise NotImplementedError(
-            "row_shards != 1 weights are not ported yet (ROADMAP queue 1, "
-            "item 12)")
     if fmt not in FMTS:
         raise ValueError(f"unsupported fmt {fmt!r}")
+    if row_shards < 1 or (fmt == "int8p" and row_shards != 1):
+        raise ValueError(f"{fmt} takes no row_shards={row_shards}")
 
 
 # format -> (unpack, pack) of its TPU layout, besides the 4-bit planar one
@@ -99,6 +104,26 @@ _TPU_LAYOUTS = {
     "int8p": (packing.unpack_int8_planes, packing.pack_int8_planes),
 }
 _PLANAR = (packing.unpack_int4, packing.pack_int4)
+# formats whose TPU layout carries k on axis 0
+_K_AXIS0 = TRANSPOSED_LUT_FMTS + ("int8t", "w8a8t") + GROUPED_FMTS \
+    + ROWSCALE_FMTS
+
+
+def _tpu_codes(fmt: str, packed: np.ndarray, k: int, shards: int):
+    """The codes ``[n, k]`` of a TPU-layout ``packed``, segment by
+    segment."""
+    unpack = _TPU_LAYOUTS.get(fmt, _PLANAR)[0]
+    ks = k // shards
+    axis = 0 if fmt in _K_AXIS0 else 1
+    return np.concatenate([unpack(p, ks)[:, :ks] for p in packing.segments(
+        np.asarray(packed), shards, axis=axis)], axis=1)
+
+
+def _tpu_packed(fmt: str, codes: np.ndarray, shards: int) -> np.ndarray:
+    """Codes ``[n, k]`` in the TPU layout of ``fmt``, segment by segment."""
+    pack = _TPU_LAYOUTS.get(fmt, _PLANAR)[1]
+    return np.concatenate([pack(c) for c in packing.segments(codes, shards)],
+                          axis=0 if fmt in _K_AXIS0 else 1)
 
 
 def int8p_groups_from_jax(s4: np.ndarray, z4: np.ndarray, k: int,
@@ -140,15 +165,17 @@ def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
     """A JAX ``QuantizedTensor`` (as a dict of numpy fields) in the port's
     layout."""
     fmt = d["fmt"]
-    _check_fmt(fmt, int(d.get("row_shards", 1)))
+    shards = int(d.get("row_shards", 1))
+    _check_fmt(fmt, shards)
     n, k = (int(s) for s in d["shape"])
     lut = d.get("lut")
     lut = None if lut is None else np.asarray(lut, np.float32)
     if fmt in TRANSPOSED_LUT_FMTS:
         lut = lut.T                                   # [16, n|1] -> [n|1, 16]
+    # packed on the target device: the int64 words of pack_codes are the
+    # bulk of a checkpoint's load time on the host
     codes = torch.from_numpy(
-        _TPU_LAYOUTS.get(fmt, _PLANAR)[0](np.asarray(d["packed"]), k)[:, :k]
-        .copy())
+        _tpu_codes(fmt, d["packed"], k, shards).copy()).to(device)
     pack = packing.pack_codes8 if codes.dtype == torch.int8 \
         else packing.pack_codes
     scales = np.asarray(d["scales"], np.float32)
@@ -158,22 +185,26 @@ def qt_from_jax(d: dict, device="cuda") -> QuantizedTensor:
                                               int(d["group_size"]))
     f32 = (lambda a: tensor_from_numpy(np.asarray(a, np.float32), device))
     return QuantizedTensor(
-        pack(codes).to(device),
+        pack(codes, shards),
         f32(scales), f32(zeros), None if lut is None else f32(lut),
         fmt, int(d["group_size"]), (n, k),
-        torch_dtype(d.get("dtype", "bfloat16")), 1)
+        torch_dtype(d.get("dtype", "bfloat16")), shards)
 
 
 def qt_to_jax(qt: QuantizedTensor) -> dict:
     """The port's ``QuantizedTensor`` as the JAX package's fields (numpy),
     in the TPU layout its format names."""
-    _check_fmt(qt.fmt, qt.row_shards)
+    shards = qt.row_shards
+    _check_fmt(qt.fmt, shards)
     n, k = qt.shape
     packed = qt.packed.detach().cpu()
-    codes = (packed[:, :k] if packed.dtype == torch.int8
-             else packing.unpack_codes(packed, k)).numpy()
+    if packed.dtype == torch.int8:
+        codes = torch.cat([p[:, :k // shards]
+                           for p in packing.segments(packed, shards)], dim=1)
+    else:
+        codes = packing.unpack_codes(packed, k, shards)
     lut = None if qt.lut is None else qt.lut.detach().cpu().float().numpy()
-    packed = _TPU_LAYOUTS.get(qt.fmt, _PLANAR)[1](codes)
+    packed = _tpu_packed(qt.fmt, codes.numpy(), shards)
     if qt.fmt in TRANSPOSED_LUT_FMTS:
         lut = np.ascontiguousarray(lut.T)             # [16, n|1]
     scales = qt.scales.detach().cpu().numpy()
@@ -183,7 +214,7 @@ def qt_to_jax(qt: QuantizedTensor) -> dict:
     return {"packed": packed, "scales": scales, "zeros": zeros,
             "lut": lut, "fmt": qt.fmt, "group_size": qt.group_size,
             "shape": (n, k), "dtype": dtype_name(qt.dtype),
-            "row_shards": 1}
+            "row_shards": shards}
 
 
 def from_jax_params(tree: Any, device="cuda") -> Any:

@@ -38,7 +38,8 @@ def save_params(path: str, params: Dict, cfg=None) -> None:
             qt_meta[name] = {
                 "fmt": leaf["fmt"], "group_size": leaf["group_size"],
                 "shape": list(leaf["shape"]), "dtype": leaf["dtype"],
-                "has_lut": leaf["lut"] is not None, "row_shards": 1,
+                "has_lut": leaf["lut"] is not None,
+                "row_shards": leaf["row_shards"],
             }
         elif leaf is not None:
             put(name, leaf, "bfloat16" if leaf.dtype == np.uint16

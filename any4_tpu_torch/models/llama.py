@@ -24,6 +24,15 @@ writes **in place** (the JAX package returns an updated copy from
 weight's dotted name (``layers.{i}.q_proj``, ...) at the JAX package's
 sites, as per-channel ``(sum |x|, sum x, count)`` in f32 (:func:`_capture`);
 a :class:`Capture` store made with ``raw=True`` also keeps the rows.
+
+``tp_group`` (tensor parallelism, :mod:`any4_tpu_torch.parallel.tp`): the
+forward runs on one rank's shards with the rank's head counts
+(``tp.local_config``), and the partial outputs of the row-parallel
+``o_proj`` and ``down_proj`` are summed over the group's ranks by
+``torch.distributed.all_reduce`` (:func:`row_parallel`), where the JAX
+package runs ``lax.psum`` over its mesh axis. The partials are summed in
+float32 and the sum cast to the model's dtype once, as the unsharded
+weight's output is rounded once; the JAX package sums bf16 partials.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import linear as lin
 
@@ -189,17 +199,42 @@ def qkv(layer: Dict, cfg: LlamaConfig, x: torch.Tensor, **kw):
             out[..., (nq + nkv) * hd:])
 
 
+def tp_all_reduce(x: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``tp_group`` (partial outputs of
+    a row-parallel layer), in place; ``x`` itself without a group."""
+    if tp_group is not None:
+        x = x.contiguous()
+        dist.all_reduce(x, group=tp_group)
+    return x
+
+
+def row_parallel(x: torch.Tensor, w, bias=None, tp_group=None,
+                 **kw) -> torch.Tensor:
+    """``linear(x, w, bias)`` of a row-parallel projection. Under
+    ``tp_group`` ``w`` and ``x`` are this rank's k slice: the product gives
+    its partial sums in float32 (``out_dtype``), the ranks' partials are
+    summed in float32, and the sum is cast to x's dtype once, as the
+    unsharded weight's output is; rounding each partial first would round
+    twice."""
+    if tp_group is None:
+        return lin.linear(x, w, bias, **kw)
+    return tp_all_reduce(lin.linear(x, w, bias, out_dtype=torch.float32,
+                                    **kw), tp_group).to(x.dtype)
+
+
 def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
               cos: torch.Tensor, sin: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]],
               cache_pos: Optional[int], mask: Optional[torch.Tensor],
-              capture: Optional[dict] = None, prefix: str = "", **kw):
+              capture: Optional[dict] = None, prefix: str = "",
+              tp_group=None, **kw):
     """GQA attention. Returns ``(out, kv_cache)``.
 
     ``kv_cache`` is ``(k_cache, v_cache)``, each ``[b, max_len, n_kv, hd]``,
     written in place at ``cache_pos`` (``None``: prefill writes ``[0, t)``).
     ``capture`` records the q/k/v input (under the three names, also when
-    ``qkv_proj`` is fused) and o_proj's, prefixed by ``prefix``.
+    ``qkv_proj`` is fused) and o_proj's, prefixed by ``prefix``;
+    ``tp_group`` sums o_proj's output over the group (:func:`row_parallel`).
     """
     b, t, _ = x.shape
     hd = cfg.head_dim_
@@ -239,7 +274,8 @@ def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
     out = out.reshape(b, t, nq * hd)
     if capture is not None:
         _capture(capture, f"{prefix}o_proj", out)
-    out = lin.linear(out, layer["o_proj"], layer.get("o_bias"), **kw)
+    out = row_parallel(out, layer["o_proj"], layer.get("o_bias"), tp_group,
+                       **kw)
     return out, kv_cache
 
 
@@ -252,7 +288,7 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(layer: Dict, x: torch.Tensor, act: str = "silu",
-        capture: Optional[dict] = None, prefix: str = "",
+        capture: Optional[dict] = None, prefix: str = "", tp_group=None,
         **kw) -> torch.Tensor:
     if capture is not None:
         _capture(capture, f"{prefix}gate_proj", x)
@@ -267,7 +303,7 @@ def mlp(layer: Dict, x: torch.Tensor, act: str = "silu",
     h = _act(g.float(), act).to(x.dtype) * u
     if capture is not None:
         _capture(capture, f"{prefix}down_proj", h)
-    return lin.linear(h, layer["down_proj"], **kw)
+    return row_parallel(h, layer["down_proj"], None, tp_group, **kw)
 
 
 def _sliding_mask(cfg, positions, s, mask):
@@ -282,11 +318,12 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
             kv_caches: Optional[list] = None,
             cache_pos: Optional[int] = None,
             mask: Optional[torch.Tensor] = None,
-            capture: Optional[dict] = None, **kw):
+            capture: Optional[dict] = None, tp_group=None, **kw):
     """Run the decoder. Returns ``(logits [b, t, vocab], kv_caches)``;
     ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`. ``capture``
     (a dict, or a :class:`Capture`) accumulates every linear's input
-    statistics (:func:`_capture`)."""
+    statistics (:func:`_capture`); ``tp_group`` runs one rank's shards (the
+    module docstring)."""
     b, t = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -307,7 +344,7 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
 
     eps, off = cfg.rms_norm_eps, cfg.rms_norm_offset
     for i, layer in enumerate(params["layers"]):
-        cap = dict(capture=capture, prefix=f"layers.{i}.")
+        cap = dict(capture=capture, prefix=f"layers.{i}.", tp_group=tp_group)
         h = rms_norm(x, layer["input_layernorm"], eps, off)
         attn_out, _ = attention(
             layer, cfg, h, cos, sin,

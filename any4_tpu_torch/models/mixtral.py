@@ -13,6 +13,15 @@ stays dense, as ``quantize_model`` leaves it.
 Routing follows the JAX package: the top k of the router logits in f32,
 the lower index first among equal logits (a stable descending sort, as
 ``jax.lax.top_k`` orders ties), and a softmax over those k in f32.
+
+Under tensor parallelism (``tp_group``) each expert's ``w1``/``w3`` are
+column- and ``w2`` row-parallel on its FFN dim, the router is replicated
+(so every rank routes alike and takes the same sparse branch), and one
+all-reduce of the f32 combine sums the ranks' partials. Stacked experts
+are refused there: ``moe_w13``/``moe_w2`` are split by no rule, so the
+reduction would count every expert once a rank (the JAX package's
+``tp.shard_params`` leaves them replicated and its ``moe_ffn`` still sums
+them over the mesh axis).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ops import linear as lin
 from . import llama
@@ -91,7 +101,7 @@ def route(layer: Dict, cfg: MixtralConfig, x: torch.Tensor):
 
 def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
             dispatch: str = "auto", capture: Optional[dict] = None,
-            prefix: str = "", **kw) -> torch.Tensor:
+            prefix: str = "", tp_group=None, **kw) -> torch.Tensor:
     """Top-k routed expert FFN (HF semantics: softmax over the top-k router
     logits); ``kw`` goes to :func:`~any4_tpu_torch.ops.linear.linear`.
 
@@ -110,8 +120,14 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
     ``capture`` (per-expert layouts only, as in the JAX package) records
     the shared w1/w3 input as ``{prefix}moe`` and each expert's w2 input
     over every token as ``{prefix}experts.{e}.w2``, so it forces dense
-    dispatch.
+    dispatch. ``tp_group``: the module docstring.
     """
+    if "moe_w13" in layer and tp_group is not None \
+            and dist.get_world_size(tp_group) > 1:
+        raise ValueError(
+            "stacked experts (moe_w13/moe_w2) cannot run tensor-parallel: "
+            "they are not sharded, and the all-reduce would count every "
+            "expert once a rank; use the per-expert layout")
     b, t, d = x.shape
     topi, gate = route(layer, cfg, x)
     E = cfg.num_local_experts
@@ -155,7 +171,7 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
         ye = lin.linear(h, expert["w2"], **kw).float()
         weight = torch.where(topi == e, gate, 0.0).sum(dim=-1)   # [b, t]
         out = out + ye * weight[..., None]
-    return out.to(x.dtype)
+    return llama.tp_all_reduce(out, tp_group).to(x.dtype)
 
 
 def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
@@ -163,11 +179,11 @@ def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
             kv_caches: Optional[list] = None,
             cache_pos: Optional[int] = None,
             mask: Optional[torch.Tensor] = None,
-            capture: Optional[dict] = None, **kw):
+            capture: Optional[dict] = None, tp_group=None, **kw):
     """Run the decoder. Returns ``(logits [b, t, vocab], kv_caches)``; the
     caches are written in place. ``kw`` goes to
-    :func:`~any4_tpu_torch.ops.linear.linear`; ``capture`` as in
-    :func:`.llama.forward` and :func:`moe_ffn`."""
+    :func:`~any4_tpu_torch.ops.linear.linear`; ``capture`` and
+    ``tp_group`` as in :func:`.llama.forward` and :func:`moe_ffn`."""
     b, t = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -182,7 +198,7 @@ def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
 
     eps = cfg.rms_norm_eps
     for i, layer in enumerate(params["layers"]):
-        cap = dict(capture=capture, prefix=f"layers.{i}.")
+        cap = dict(capture=capture, prefix=f"layers.{i}.", tp_group=tp_group)
         h = llama.rms_norm(x, layer["input_layernorm"], eps)
         attn_out, _ = llama.attention(
             layer, cfg, h, cos, sin,

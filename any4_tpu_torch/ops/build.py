@@ -8,6 +8,11 @@ it is. Nothing is compiled when the package is imported.
 The compiler is ``$CUDA_HOME/bin/nvcc`` (``/usr/local/cuda`` by default) or
 the first ``nvcc`` on ``PATH``. A missing compiler or a failed build raises:
 there is no fallback.
+
+Every build writes a file private to its process and thread and renames it
+into place (:func:`compile_into`), so processes that start on a cold
+``_build/`` at once (the ranks of a tensor-parallel run) each load a whole
+library, whichever finishes first.
 """
 from __future__ import annotations
 
@@ -79,27 +84,40 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
+def compile_into(out: str, cmd: list) -> subprocess.CompletedProcess:
+    """Run the compiler command ``cmd`` with ``-o`` a file private to this
+    process and thread, and on success rename it to ``out`` (atomic on one
+    file system: a reader sees no library or a whole one). Returns the
+    finished process; a failed build leaves ``out`` as it was."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        proc = subprocess.run([*cmd, "-o", tmp], capture_output=True,
+                              text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        return proc
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def compile_source(source: str, verbose: bool = False) -> str:
     """Compile ``csrc/<source>`` unless its library exists; returns its
-    path. Safe to call from several processes: each writes a private file
-    and renames it into place."""
+    path. Safe to call from several processes (:func:`compile_into`)."""
     out = library_path(source)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, os.path.join(CSRC_DIR, source)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = compile_into(out, cmd)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
                            f"{proc.stderr}")
     if verbose and (proc.stdout or proc.stderr):
         PTXAS_REPORTS[source] = proc.stdout + proc.stderr
         print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
     return out
 
 

@@ -47,6 +47,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import gemv, packing, quant
@@ -116,6 +117,12 @@ class QuantizedTensor:
               package keeps ``any4t``'s as ``[16, n]``.
     Reconstruction: ``lut[row, code] * scale + zero``, ``(code - 8) * scale
     + zero`` without a LUT, ``q * scale + zero`` for int8 codes ``q``.
+
+    ``row_shards = S > 1``: ``packed`` and the group arrays hold S k
+    segments of ``k/S``, each padded on its own (:mod:`.packing`), so that
+    row-parallel tensor parallelism gives each rank whole segments
+    (:mod:`any4_tpu_torch.parallel.tp`); a row-scale weight's ``[1, n]``
+    scales and zeros serve every segment.
     """
     packed: torch.Tensor
     scales: torch.Tensor
@@ -160,10 +167,25 @@ def _kernel_fmt(fmt: str, lut: Optional[torch.Tensor] = None) -> str:
 def _kernel_group(w: "QuantizedTensor") -> int:
     """The group size the kernels get: a row-scale weight's one group is
     its padded row, ``padded_k(k)`` (a multiple of 128; the padded codes
-    are 0, so the dot does not move)."""
+    are 0, so the dot does not move), all its segments when it is
+    row-sharded."""
     if w.fmt in ROWSCALE_FMTS:
-        return packing.padded_k(w.shape[1])
+        return w.packed.shape[1]
     return w.group_size
+
+
+def _shard_align_x(x: torch.Tensor, w: "QuantizedTensor") -> torch.Tensor:
+    """``x [..., k]`` laid out as a row-sharded weight's codes are: cut at
+    the segment boundaries and each segment zero-padded to
+    ``padded_k(k/S)``, so that the unsharded S-segment weight runs on the
+    full x. Unchanged for ``row_shards == 1``."""
+    S = w.row_shards
+    if S == 1:
+        return x
+    kl = w.shape[1] // S
+    xs = x.reshape(*x.shape[:-1], S, kl)
+    xs = torch.nn.functional.pad(xs, (0, packing.padded_k(kl) - kl))
+    return xs.reshape(*x.shape[:-1], S * xs.shape[-1])
 
 
 def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
@@ -178,6 +200,16 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
     points) apply to the formats the JAX package takes them for, after its
     renames. The row-scale formats ignore ``group_size``: their group is
     the row.
+
+    ``row_shards`` packs k as that many segments, each padded on its own,
+    for row-parallel tensor parallelism; the numbers are those of the whole
+    row (groups, LUTs and row scales are learned over all of k). ``int8p``
+    takes none, as in the JAX package.
+
+    A numpy ``w`` is quantized on the host: ``int4``/``int4p`` without
+    ``scale_only`` or ``int_zeros``, at ``k % group_size == 0``, through the
+    C++ data plane (:mod:`any4_tpu_torch.native`) where a compiler is found,
+    with the torch path's bits; every other case as a CPU tensor.
     """
     from ..quant import anyq  # anyq imports this package's ops
 
@@ -185,12 +217,14 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
     if layout not in (None, "row", "transposed"):
         raise ValueError(f"layout must be None/'row'/'transposed', got "
                          f"{layout!r}")
-    if row_shards != 1:
-        raise NotImplementedError(
-            "row_shards != 1 (row-parallel packing) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
     _check_fmt(fmt)
+    host = w if isinstance(w, np.ndarray) else None
+    if host is not None:
+        w = torch.from_numpy(np.ascontiguousarray(host))
     n, k = w.shape
+    if row_shards < 1 or k % row_shards:
+        raise ValueError(f"k={k} is not divisible by row_shards="
+                         f"{row_shards}")
     if group_size <= 0 or group_size > k:
         group_size = k      # whole-row grouping for a layer narrower than g
     if fmt in ("int8", "w8a8", "any4q8") and layout != "row" \
@@ -207,16 +241,17 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
     if symmetric and fmt not in _SCALE_ONLY_FMTS:
         raise ValueError(f"scale_only does not apply to {fmt!r}")
     if fmt in INT_FMTS:
-        return _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros)
+        return _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros,
+                             row_shards, host)
     if fmt in INT8_FMTS:
         return _quantize_int8(w, fmt, group_size, symmetric, int_zeros,
-                              kwargs)
+                              kwargs, row_shards)
     if fmt == "mx4":
         codes, exps = quant.mx4_quantize(w, group_size)
         scales = quant.mx4_scales(exps)
         lut = torch.as_tensor(get_table("mx4"), device=w.device)[None, :]
         return _packed(codes, scales, torch.zeros_like(scales), lut, fmt,
-                       group_size, w.dtype)
+                       group_size, w.dtype, row_shards)
     base = fmt[:-1] if fmt in TRANSPOSED_LUT_FMTS else fmt
     if group_size % 128 == 0 and (fmt != base or layout != "row"):
         fmt = base + "t"
@@ -231,26 +266,30 @@ def quantize_tensor(w: torch.Tensor, fmt: str = "any4", group_size: int = 128,
         zeros = torch.zeros_like(scales)
         lut = torch.as_tensor(get_table(base), device=w.device)[None, :]
     return _packed(codes, scales, zeros, lut.contiguous(), fmt, group_size,
-                   w.dtype)
+                   w.dtype, row_shards)
 
 
-def _packed(codes, scales, zeros, lut, fmt, group_size, dtype):
+def _packed(codes, scales, zeros, lut, fmt, group_size, dtype, row_shards=1):
     """Codes (uint8 4-bit or int8) in the Hopper layout of their width and
-    the group arrays padded and transposed to ``[kp/g, n]``."""
+    the group arrays padded and transposed to ``[kp/g, n]``, each of
+    ``row_shards`` k segments on its own."""
     n, k = codes.shape
-    scales = packing.pad_groups(scales, k, group_size)
-    zeros = packing.pad_groups(zeros, k, group_size)
+    scales, zeros = packing.pad_group_arrays(scales, zeros, k, group_size,
+                                             row_shards)
     pack = packing.pack_codes8 if codes.dtype == torch.int8 \
         else packing.pack_codes
-    return QuantizedTensor(pack(codes), scales.t().contiguous(),
+    return QuantizedTensor(pack(codes, row_shards), scales.t().contiguous(),
                            zeros.t().contiguous(), lut, fmt, group_size,
-                           (n, k), dtype, 1)
+                           (n, k), dtype, row_shards)
 
 
-def _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros):
+def _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros,
+                  row_shards=1, host=None):
     """``int4``/``int4p``/``w4a8``: uniform group quantization, no LUT. The
-    format checks and the int4 -> int4p rename are the JAX package's."""
-    n = w.shape[0]
+    format checks and the int4 -> int4p rename are the JAX package's;
+    ``host`` (the numpy weight) takes the C++ data plane where
+    :func:`quantize_tensor` says."""
+    n, k = w.shape
     if fmt == "int4" and layout != "row" and group_size % 128 == 0 \
             and n % 2 == 0:
         fmt = "int4p"       # the JAX default: pair-packed magic-number int4
@@ -261,9 +300,23 @@ def _quantize_int(w, fmt, group_size, layout, symmetric, int_zeros):
         raise ValueError(f"int4p pair packing needs an even n, got {n}")
     if fmt == "w4a8" and n % 4:
         raise ValueError(f"w4a8 quad packing requires n % 4 == 0, got {n}")
+    if host is not None and fmt != "w4a8" and k % group_size == 0 \
+            and not symmetric and not int_zeros:
+        from .. import native
+        if native.available():
+            codes, scales, zeros = native.group_quantize(
+                np.asarray(host, np.float32), 4, group_size)
+            scales, zeros = packing.pad_group_arrays(
+                torch.from_numpy(scales), torch.from_numpy(zeros), k,
+                group_size, row_shards)
+            return QuantizedTensor(
+                torch.from_numpy(native.pack_int4(codes, row_shards)),
+                scales.t().contiguous(), zeros.t().contiguous(), None, fmt,
+                group_size, (n, k), w.dtype, row_shards)
     codes, scales, zeros = quant.group_quantize(
         w, 4, group_size, symmetric=symmetric, int_zeros=int_zeros)
-    return _packed(codes, scales, zeros, None, fmt, group_size, w.dtype)
+    return _packed(codes, scales, zeros, None, fmt, group_size, w.dtype,
+                   row_shards)
 
 
 def snap_lut8(lutc: torch.Tensor):
@@ -276,7 +329,8 @@ def snap_lut8(lutc: torch.Tensor):
     return torch.clamp(torch.round(quant.div(lutc, sr)), -127.0, 127.0), sr
 
 
-def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs):
+def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs,
+                   row_shards=1):
     """The int8-weight formats: centered int8 group codes
     (:func:`~.quant.int8_quantize`), or for ``any4q8``/``any4q8g``/
     ``any4q8r`` the any4 LUT snapped to an int8 grid (:func:`snap_lut8`),
@@ -297,6 +351,8 @@ def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs):
         raise ValueError(f"{fmt} quad packing requires n % 4 == 0, got {n}")
     if fmt == "int8p" and k % 128:
         raise ValueError(f"int8p requires k a multiple of 128, got {k}")
+    if fmt == "int8p" and row_shards != 1:
+        raise ValueError("int8p does not support row_shards")
     if fmt not in ("any4q8", "any4q8g", "any4q8r"):
         q, scales, zeros = quant.int8_quantize(
             w, group_size, symmetric=symmetric, int_zeros=int_zeros)
@@ -309,19 +365,32 @@ def _quantize_int8(w, fmt, group_size, symmetric, int_zeros, kwargs):
         q = torch.gather(lut8, 1, codes.long()).to(torch.int8)
         scales = scales * sr
     if rowscale:
-        return QuantizedTensor(packing.pack_codes8(q),
+        return QuantizedTensor(packing.pack_codes8(q, row_shards),
                                scales.t().contiguous(),
                                zeros.t().contiguous(), None, fmt, k, (n, k),
-                               w.dtype, 1)
-    return _packed(q, scales, zeros, None, fmt, group_size, w.dtype)
+                               w.dtype, row_shards)
+    return _packed(q, scales, zeros, None, fmt, group_size, w.dtype,
+                   row_shards)
 
 
 def dequantize_tensor(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
     """Reconstruct the dense weight ``[n, k]``: ``lut[code] * s + z``,
     ``(code - 8) * s + z`` without a LUT, or ``q * s + z`` for int8 codes,
     in f32, a multiply and then an add, cast to ``dtype`` (default: the
-    weight's)."""
+    weight's); a row-sharded weight segment by segment."""
     n, k = qt.shape
+    if qt.row_shards > 1:
+        S, ks = qt.row_shards, k // qt.row_shards
+        if qt.fmt in ROWSCALE_FMTS:    # one row scale for every segment
+            groups = [(qt.scales, qt.zeros)] * S
+        else:
+            groups = zip(packing.segments(qt.scales, S, axis=0),
+                         packing.segments(qt.zeros, S, axis=0))
+        return torch.cat([dequantize_tensor(replace(
+            qt, packed=p, scales=s, zeros=z, shape=(n, ks), row_shards=1,
+            group_size=ks if qt.fmt in ROWSCALE_FMTS else qt.group_size),
+            dtype) for p, (s, z) in zip(packing.segments(qt.packed, S),
+                                        groups)], dim=1)
     if qt.packed.dtype == torch.int8:
         q = qt.packed.float()
         kp = q.shape[1]
@@ -372,7 +441,8 @@ def embed(w, ids: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
            fused_m_max: int = FUSED_M_MAX,
-           use_gather: bool = True) -> torch.Tensor:
+           use_gather: bool = True,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y = x @ W^T + bias`` where ``w`` is dense ``[n, k]`` or a
     :class:`QuantizedTensor`.
 
@@ -390,17 +460,23 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     ``fused_m_max=0`` dequantizes and runs a plain matmul.
     ``use_gather=False`` takes the select-LUT kernel for the row-layout
     4-bit formats.
+
+    ``out_dtype`` (default: x's dtype) is the dtype of ``y``; float32 gives
+    the kernels' float32 sums (and a dense matmul's, on the card) without
+    the rounding to x's dtype.
     """
     m = x.numel() // x.shape[-1]
+    out_dtype = out_dtype or x.dtype
     if not isinstance(w, QuantizedTensor):
-        y = torch.matmul(x, w.to(x.dtype).t())
+        y = _matmul(x, w.to(x.dtype), out_dtype)
     elif w.fmt in GROUPED_FMTS and m > _XLA_GROUPED_M_MAX:
-        y = torch.matmul(x, dequantize_tensor(w, dtype=x.dtype).t())
+        y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
     elif w.fmt in ACT_INT8_FMTS:
-        y = _act_int8_linear(x, w, fused_m_max)
+        y = _act_int8_linear(_shard_align_x(x, w), w, fused_m_max, out_dtype)
     elif w.fmt == "int8g":
-        y = gemv.quantized_matmul(x, w.packed, w.scales, w.zeros,
-                                  group_size=w.group_size, out_dtype=x.dtype,
+        y = gemv.quantized_matmul(_shard_align_x(x, w), w.packed, w.scales,
+                                  w.zeros,
+                                  group_size=w.group_size, out_dtype=out_dtype,
                                   fmt="int8g")
     elif fused_m_max > 0:
         kfmt = _kernel_fmt(w.fmt, w.lut)
@@ -408,24 +484,38 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
         # JAX's int8r multiplies bf16 x but sums x as it comes; the kernel
         # sums bf16 x, so float32 or float16 x gets the difference below
         fix = w.fmt == "int8r" and x.dtype != torch.bfloat16
-        out_dtype = torch.float32 if fix else x.dtype
+        kernel_dtype = torch.float32 if fix else out_dtype
 
         def mm(xc):
             return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
                                          w.lut, group_size=g,
-                                         out_dtype=out_dtype, fmt=kfmt,
+                                         out_dtype=kernel_dtype, fmt=kfmt,
                                          use_gather=use_gather)
 
-        y = _chunked(mm, x, m, fused_m_max, fused_m_max, w.shape[0])
+        y = _chunked(mm, _shard_align_x(x, w), m, fused_m_max, fused_m_max,
+                     w.shape[0])
         if fix:
             xf = x.float()
             dx = (xf - xf.to(torch.bfloat16).float()).sum(-1, keepdim=True)
-            y = (y + dx * w.zeros[0]).to(x.dtype)
+            y = (y + dx * w.zeros[0]).to(out_dtype)
     else:
-        y = torch.matmul(x, dequantize_tensor(w, dtype=x.dtype).t())
+        y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _matmul(x, w, out_dtype):
+    """``x @ w^T`` for ``w [n, k]`` in x's dtype, as ``out_dtype``: on the
+    card a bf16/f16 product gives its float32 sums directly (``torch.mm``'s
+    ``out_dtype``), elsewhere the product is cast."""
+    if out_dtype == x.dtype:
+        return torch.matmul(x, w.t())
+    if x.is_cuda and out_dtype == torch.float32 \
+            and x.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=out_dtype)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x, w.t()).to(out_dtype)
 
 
 def _chunked(mm, x, m, one_call_max, tile, n):
@@ -438,7 +528,7 @@ def _chunked(mm, x, m, one_call_max, tile, n):
     return y.reshape(*x.shape[:-1], n)
 
 
-def _act_int8_linear(x, w, fused_m_max):
+def _act_int8_linear(x, w, fused_m_max, out_dtype):
     m = x.numel() // x.shape[-1]
     kfmt = _kernel_fmt(w.fmt)
     g = _kernel_group(w)
@@ -449,9 +539,9 @@ def _act_int8_linear(x, w, fused_m_max):
                                      out_dtype=out_dtype, fmt=kfmt)
 
     if m <= gemv.FUSED_ACT_M_MAX and w.fmt not in GROUPED_FMTS:
-        return mm(x, x.dtype)
+        return mm(x, out_dtype)
     xq, sx = quantize_activations(x)
     tile = _int8_m_tile(w.shape[1])
     y = _chunked(lambda xc: mm(xc, torch.float32), xq, m,
                  max(fused_m_max, tile), tile, w.shape[0])
-    return (y * sx).to(x.dtype)
+    return (y * sx).to(out_dtype)

@@ -37,6 +37,14 @@ matrix unit.
 ``kp`` is the same padded length as the TPU layouts', so the group scales
 and zeros ``[kp/g, n]`` carry across unchanged.
 
+**Row shards.** ``shards = S > 1`` packs the k axis as S contiguous
+segments of ``k/S``, each padded on its own to ``padded_k(k/S)``, in the
+codes and in the group arrays, as the JAX package's ``pack_int4(codes,
+shards)`` and ``pad_group_arrays`` do. A weight packed so is S row-shard
+weights side by side: the slice of segments ``[s, s + S/tp)`` is itself a
+weight of ``k/tp`` columns, which row-parallel tensor parallelism gives to
+one rank.
+
 **TPU layouts** (numpy only; the CUDA kernels never read them):
 
 - :func:`unpack_int4` / :func:`pack_int4`: ``any4_tpu`` planar row layout
@@ -86,9 +94,25 @@ def padded_k(k: int) -> int:
 # The Hopper layout (torch)
 # ---------------------------------------------------------------------------
 
-def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+def segments(x, shards: int, axis: int = -1) -> list:
+    """``x`` cut into ``shards`` equal contiguous pieces along ``axis`` (the
+    k segments of a row-sharded weight)."""
+    k = x.shape[axis]
+    if shards < 1 or k % shards:
+        raise ValueError(f"k={k} is not divisible by shards={shards}")
+    per = k // shards
+    if isinstance(x, np.ndarray):
+        return np.split(x, shards, axis=axis)
+    return list(torch.split(x, per, dim=axis))
+
+
+def pack_codes(codes: torch.Tensor, shards: int = 1) -> torch.Tensor:
     """Codes ``[n, k]`` (values 0..15) -> int32 words ``[n, kp/8]`` with
-    8 consecutive k per word, nibble ``j`` = ``k % 8``."""
+    8 consecutive k per word, nibble ``j`` = ``k % 8``; with ``shards > 1``
+    each k segment is packed and padded on its own, side by side."""
+    if shards > 1:
+        return torch.cat([pack_codes(c) for c in segments(codes, shards)],
+                         dim=1)
     n, k = codes.shape
     kp = padded_k(k)
     c = torch.zeros((n, kp), dtype=torch.int64, device=codes.device)
@@ -100,8 +124,12 @@ def pack_codes(codes: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32)
 
 
-def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
+def unpack_codes(packed: torch.Tensor, k: int,
+                 shards: int = 1) -> torch.Tensor:
     """Inverse of :func:`pack_codes`; returns uint8 codes ``[n, k]``."""
+    if shards > 1:
+        return torch.cat([unpack_codes(p, k // shards)
+                          for p in segments(packed, shards)], dim=1)
     n, kw = packed.shape
     shifts = 4 * torch.arange(CODES_PER_WORD, device=packed.device,
                               dtype=torch.int32)
@@ -109,9 +137,13 @@ def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
     return c.reshape(n, kw * CODES_PER_WORD)[:, :k].to(torch.uint8)
 
 
-def pack_codes8(q: torch.Tensor) -> torch.Tensor:
-    """Centered int8 codes ``[n, k]`` -> int8 ``[n, kp]``, zero-padded. The
-    codes of a row are read back as ``packed[:, :k]``."""
+def pack_codes8(q: torch.Tensor, shards: int = 1) -> torch.Tensor:
+    """Centered int8 codes ``[n, k]`` -> int8 ``[n, kp]``, zero-padded (each
+    of ``shards`` k segments on its own). The codes of an unsharded row are
+    read back as ``packed[:, :k]``."""
+    if shards > 1:
+        return torch.cat([pack_codes8(c) for c in segments(q, shards)],
+                         dim=1)
     n, k = q.shape
     out = torch.zeros((n, padded_k(k)), dtype=torch.int8, device=q.device)
     out[:, :k] = q
@@ -130,12 +162,14 @@ def pad_axis(x: torch.Tensor, axis: int, target: int,
     return torch.nn.functional.pad(x, widths, value=value)
 
 
-def pad_group_arrays(scales: torch.Tensor, zeros, k: int, group_size: int):
+def pad_group_arrays(scales: torch.Tensor, zeros, k: int, group_size: int,
+                     shards: int = 1):
     """Zero-pad per-group ``[n, k/g]`` scales and zeros (or None) to cover
-    ``padded_k(k)``, so that padded weights reconstruct to 0."""
-    gp = padded_k(k) // group_size
-    return (pad_axis(scales, 1, gp),
-            None if zeros is None else pad_axis(zeros, 1, gp))
+    ``padded_k(k)``, so that padded weights reconstruct to 0; with ``shards
+    > 1`` each k segment's groups, as :func:`pad_groups`."""
+    return (pad_groups(scales, k, group_size, shards),
+            None if zeros is None else pad_groups(zeros, k, group_size,
+                                                  shards))
 
 
 def transposed_layout(fmt: str, group_size: int) -> bool:
@@ -144,8 +178,18 @@ def transposed_layout(fmt: str, group_size: int) -> bool:
     return fmt in ("any4", "nf4", "fp4", "mx4") and group_size % LANES == 0
 
 
-def pad_groups(a: torch.Tensor, k: int, group_size: int) -> torch.Tensor:
-    """Zero-pad per-group arrays ``[n, k/g]`` to cover ``padded_k(k)``."""
+def pad_groups(a: torch.Tensor, k: int, group_size: int,
+               shards: int = 1) -> torch.Tensor:
+    """Zero-pad per-group arrays ``[n, k/g]`` to cover ``padded_k(k)``.
+    With ``shards > 1`` segment ``s`` takes the groups ``[s * G, (s + 1) *
+    G)``, ``G = (k / g) // shards``, padded to ``padded_k(k / shards) / g``:
+    the JAX package's ``pad_group_arrays``, whose cut and per-segment group
+    count these are also where ``g`` does not divide ``k / shards``."""
+    if shards > 1:
+        per = a.shape[1] // shards
+        return torch.cat([pad_groups(a[:, s * per:(s + 1) * per],
+                                     k // shards, group_size)
+                          for s in range(shards)], dim=1)
     gp = padded_k(k) // group_size
     if a.shape[1] == gp:
         return a

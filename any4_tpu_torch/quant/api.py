@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..ops import linear as lin
@@ -25,6 +26,9 @@ DEFAULT_LINEAR_KEYS = (
     "w1", "w2", "w3", "w13", "moe_w13", "moe_w2", "wq", "wk", "wv", "wo",
 )
 DEFAULT_SKIP = ("lm_head",)
+# leaves whose input (k) dim is split under tensor parallelism: with
+# ``row_parallel_shards`` these pack k as independently padded segments
+ROW_PARALLEL_KEYS = ("o_proj", "down_proj", "fc2", "w2", "wo", "out_proj")
 LEARNED_FMTS = ("any4", "any4t", "anyq", "any4q8", "any4q8g", "any4q8r")
 _LEARNER_KWARGS = ("sample_weight", "init", "keep_outliers",
                    "scale_sample_weight", "abs_weight_sample_weight",
@@ -57,7 +61,7 @@ def _copy_tree(tree):
 
 
 def default_layer_filter(name: str, leaf: Any) -> bool:
-    return (isinstance(leaf, torch.Tensor) and leaf.ndim == 2
+    return (isinstance(leaf, (torch.Tensor, np.ndarray)) and leaf.ndim == 2
             and name.split(".")[-1] in DEFAULT_LINEAR_KEYS)
 
 
@@ -93,6 +97,13 @@ def quantize_model(
       :func:`~any4_tpu_torch.ops.linear.quantize_tensor`.
     - If a layer runs out of device memory while clustering, it is retried
       once with a chunk budget 16 times smaller.
+    - ``row_parallel_shards``: the leaves of :data:`ROW_PARALLEL_KEYS` pack
+      k as that many independently padded segments, so that row-parallel
+      tensor parallelism gives each rank whole segments
+      (:mod:`any4_tpu_torch.parallel.tp`).
+    - A numpy leaf is quantized on the host
+      (:func:`~any4_tpu_torch.ops.linear.quantize_tensor`) when ``device``
+      is the CPU, and moved to ``device`` otherwise.
     - ``quantize_embeddings``: also quantize every ``embed_tokens`` table in
       the row layout, to ``fmt`` (``True``) or to the format named
       (``"anyq"``: any4, ``"intq"``: int4), one of
@@ -109,9 +120,6 @@ def quantize_model(
             raise ValueError(f"quantize_embeddings needs a row-gatherable "
                              f"packing, one of {lin.EMBED_FMTS}; got "
                              f"{efmt!r}")
-    if row_parallel_shards != 1:
-        raise NotImplementedError(
-            "row_parallel_shards is not ported yet (ROADMAP queue 1, item 12)")
     if isinstance(skip_modules, str):
         skip_modules = [s.strip() for s in skip_modules.split(",")]
     f = {"anyq": "any4", "intq": "int4"}.get(fmt, fmt)
@@ -136,7 +144,13 @@ def quantize_model(
         else:
             for k in _LEARNER_KWARGS:
                 kw.pop(k, None)
-        w = leaf.to(device)
+        if isinstance(leaf, np.ndarray):
+            w = (leaf if torch.device(device).type == "cpu"
+                 else torch.from_numpy(leaf).to(device))
+        else:
+            w = leaf.to(device)
+        kw["row_shards"] = (row_parallel_shards if name.split(".")[-1]
+                            in ROW_PARALLEL_KEYS else 1)
         try:
             qt = lin.quantize_tensor(w, f, group_size, **kw)
         except torch.OutOfMemoryError:
@@ -151,7 +165,7 @@ def quantize_model(
                 w, f, group_size, **{**kw, "row_chunk": max(1, rows // 16)})
         if progress:
             print(f"  quantized {name} {tuple(leaf.shape)} -> {qt.fmt}")
-        setter(lin.dequantize_tensor(qt, dtype=leaf.dtype) if pseudo else qt)
+        setter(lin.dequantize_tensor(qt, dtype=qt.dtype) if pseudo else qt)
     if efmt is not None:
         ekw = ({k: v for k, v in kwargs.items() if k in _EMBED_KWARGS}
                if efmt == "any4" else {})

@@ -27,8 +27,18 @@ runs on every slot, so a burst never waits for the host to read the routed
 set. Sparse and dense dispatch give the same bits, so the tokens are those
 of the JAX engine's ``auto`` dispatch.
 
-Not ported: tensor parallelism (``mesh``/``param_spec``), which raises
-``NotImplementedError`` naming its ROADMAP item.
+Tensor parallelism: pass ``mesh`` and ``param_spec`` (from
+:func:`..parallel.tp.shard_params`, whose shards are ``params``) and every
+rank of the mesh's tp group runs its own engine on the same requests, as
+one. The forwards take the rank's head counts (``tp.local_config``), the KV
+pools hold its kv heads, and the partial outputs of o/down (and of the
+MoE combine) are summed by ``torch.distributed.all_reduce`` inside the
+prefill, the decode step and the burst (``tp_group``), where the JAX
+package runs ``psum`` under ``shard_map``. The logits come out whole on
+every rank, so every rank samples the same tokens and schedules alike;
+that is checked, not assumed: each read of sampled tokens all-reduces
+them over the group first and raises if a rank disagrees. A dp > 1 mesh
+makes dp independent replicas, each its own tp group.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import llama, mixtral
 from ..models.generate import _check_device, _model_forward
@@ -54,19 +65,21 @@ class Request:
     done: bool = False
 
 
-def _ffn(layer, cfg, h):
+def _ffn(layer, cfg, h, tp_group=None):
     """One decode-step layer's dense MLP, or its routed MoE FFN with dense
     dispatch (see the module docstring)."""
     if mixtral.is_moe(layer):
-        return mixtral.moe_ffn(layer, cfg, h, dispatch="dense")
-    return llama.mlp(layer, h, act=cfg.hidden_act)
+        return mixtral.moe_ffn(layer, cfg, h, dispatch="dense",
+                               tp_group=tp_group)
+    return llama.mlp(layer, h, act=cfg.hidden_act, tp_group=tp_group)
 
 
 def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
-                  table_row, page_size, kv_layout="paged"):
+                  table_row, page_size, kv_layout="paged", tp_group=None):
     """Run one bucket-padded prompt ``[1, L]`` and write its first
     ``true_len`` positions of KV into the pools, in place. Returns the last
-    real position's logits ``[vocab]``."""
+    real position's logits ``[vocab]``. ``tp_group``: one rank's shards
+    (the module docstring)."""
     dev = prompt.device
     L = prompt.shape[1]
     pos = torch.arange(L, device=dev)
@@ -77,7 +90,7 @@ def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
     caches = llama.init_kv_caches(cfg, 1, L, device=dev)
     logits, caches = _model_forward(params)(
         params, cfg, prompt, positions=pos[None, :], kv_caches=caches,
-        cache_pos=None, mask=mask)
+        cache_pos=None, mask=mask, tp_group=tp_group)
     page_ids = table_row[pos // page_size]
     offsets = pos % page_size
     if kv_layout != "contig":
@@ -96,7 +109,7 @@ def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
 
 
 def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
-                 page_size, kv_layout="paged"):
+                 page_size, kv_layout="paged", tp_group=None):
     """One decode step for all slots; writes each slot's new K/V into the
     pools in place.
 
@@ -141,22 +154,23 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
                    scale=attn_scale, softcap=softcap,
                    window=(cfg.sliding_window if cfg.is_sliding(li)
                            else None))
-        out = lin.linear(out.to(x.dtype).reshape(b, 1, nq * hd),
-                         layer["o_proj"], layer.get("o_bias"))
+        out = llama.row_parallel(out.to(x.dtype).reshape(b, 1, nq * hd),
+                                 layer["o_proj"], layer.get("o_bias"),
+                                 tp_group)
         if cfg.sandwich_norms:  # gemma2: norm attn/ffn outputs, then add
             out = llama.rms_norm(out, layer["post_attention_layernorm"],
                                  eps, off)
             x = x + out
             h = llama.rms_norm(x, layer["pre_feedforward_layernorm"],
                                eps, off)
-            m = _ffn(layer, cfg, h)
+            m = _ffn(layer, cfg, h, tp_group)
             x = x + llama.rms_norm(m, layer["post_feedforward_layernorm"],
                                    eps, off)
         else:
             x = x + out
             h = llama.rms_norm(x, layer["post_attention_layernorm"], eps,
                                off)
-            x = x + _ffn(layer, cfg, h)
+            x = x + _ffn(layer, cfg, h, tp_group)
 
     logits = llama.head(params, llama.rms_norm(x, params["norm"], eps, off))
     if cfg.final_logit_softcapping is not None:  # gemma2
@@ -166,7 +180,8 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
 
 
 def _decode_burst_impl(params, cfg, tokens, seq_lens, tables, k_pages,
-                       v_pages, page_size, n_steps, kv_layout="paged"):
+                       v_pages, page_size, n_steps, kv_layout="paged",
+                       tp_group=None):
     """``n_steps`` greedy decode steps for all slots, each feeding its
     on-device argmax to the next; page tables are fixed for the burst (the
     scheduler reserves ``n_steps`` positions per slot). Returns
@@ -176,7 +191,7 @@ def _decode_burst_impl(params, cfg, tokens, seq_lens, tables, k_pages,
     for _ in range(n_steps):
         logits = _decode_impl(params, cfg, tokens, seq_lens, tables,
                               k_pages, v_pages, page_size,
-                              kv_layout=kv_layout)
+                              kv_layout=kv_layout, tp_group=tp_group)
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         seq_lens = seq_lens + 1
         out.append(tokens)
@@ -200,17 +215,25 @@ class Engine:
         of the KV pool (attention without a page table); "paged" keeps the
         free-list allocator and page-table attention. The pools and the
         decode state live on ``device``, where ``params`` must already
-        be."""
+        be. ``mesh`` and ``param_spec``: tensor parallelism (the module
+        docstring); ``cfg`` stays the whole model's."""
         if kv_layout not in ("contig", "paged"):
             raise ValueError(f"kv_layout must be 'contig' or 'paged', got "
                              f"{kv_layout!r}")
-        if mesh is not None or param_spec is not None:
-            raise NotImplementedError(
-                "the tensor-parallel engine is not ported yet (ROADMAP queue "
-                "1, item 12)")
+        if (mesh is None) != (param_spec is None):
+            raise ValueError("the tensor-parallel engine needs mesh and the "
+                             "param_spec of tp.shard_params together")
         self.device = _check_device(params, device)
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_group = None
+        self._cfg_run = cfg         # the config the forwards run with
+        if mesh is not None:
+            from ..parallel import tp
+            tp.check_shards(params, param_spec)
+            self._cfg_run = tp.local_config(cfg, mesh.tp)
+            self.tp_group = mesh.tp_group if mesh.tp > 1 else None
         self.page_size = page_size
         self.kv_layout = kv_layout
         if kv_layout == "contig":
@@ -223,8 +246,8 @@ class Engine:
         self.max_slots = max_slots
         num_pages = num_pages or (max_slots * self.pps +
                                   (0 if kv_layout == "contig" else 1))
-        self.cache = kvc.PagedKVCache.create(cfg, num_pages, page_size,
-                                             quantize=kv_quantize,
+        self.cache = kvc.PagedKVCache.create(self._cfg_run, num_pages,
+                                             page_size, quantize=kv_quantize,
                                              device=self.device)
         self.alloc = kvc.PageAllocator(num_pages, max_slots, self.pps,
                                        contiguous=kv_layout == "contig")
@@ -256,6 +279,22 @@ class Engine:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
+        """Sampled tokens on the host. Under tensor parallelism they are
+        first all-reduced over the tp group (the maximum of ``toks`` and of
+        ``-toks`` in one call), and a rank whose tokens differ from the
+        group's raises: every rank must schedule the same way."""
+        if self.tp_group is None:
+            return toks.cpu().numpy()
+        t = toks.to(torch.int64)
+        both = torch.stack([t, -t])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.tp_group)
+        mine, hi, neg_lo = torch.stack([t, both[0], both[1]]).cpu().numpy()
+        if (hi != mine).any() or (-neg_lo != mine).any():
+            raise RuntimeError("tensor-parallel ranks sampled different "
+                               "tokens")
+        return mine
 
     # ----------------------------------------------------------- requests
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -310,17 +349,18 @@ class Engine:
             padded = np.zeros(L, np.int32)
             padded[:t] = req.prompt
             last_logits = _prefill_impl(
-                self.params, self.cfg, self._upload(padded[None]),
+                self.params, self._cfg_run, self._upload(padded[None]),
                 min(t, L), self.cache.k_pages, self.cache.v_pages,
                 self._upload(self.alloc.table[i]), self.page_size,
-                kv_layout=self.kv_layout)
+                kv_layout=self.kv_layout, tp_group=self.tp_group)
             newly.append((i, req, self.sample_fn(last_logits[None])))
             self.slots[i] = req
             self.seq_lens[i] = t
         if newly:
             # one host read for the whole admission wave
-            vals = torch.cat([torch.as_tensor(tok, device=self.device)
-                              .reshape(-1) for _, _, tok in newly]).cpu()
+            vals = self._read_tokens(torch.cat([
+                torch.as_tensor(tok, device=self.device).reshape(-1)
+                for _, _, tok in newly]))
             for (i, req, _), v in zip(newly, vals.tolist()):
                 req.out_tokens.append(int(v))
                 self.tokens[i] = int(v)
@@ -365,13 +405,14 @@ class Engine:
         if not active:
             return 0
         logits = _decode_impl(
-            self.params, self.cfg, self._upload(self.tokens),
+            self.params, self._cfg_run, self._upload(self.tokens),
             self._upload(self.seq_lens), self._ctx_table(2),
             self.cache.k_pages, self.cache.v_pages, self.page_size,
-            kv_layout=self.kv_layout)
+            kv_layout=self.kv_layout, tp_group=self.tp_group)
         self.decode_steps += 1
         self._host_dirty = True   # single-step path keeps host-side state
-        next_tokens = torch.as_tensor(self.sample_fn(logits)).cpu().numpy()
+        next_tokens = self._read_tokens(
+            torch.as_tensor(self.sample_fn(logits), device=self.device))
         for i in active:
             req = self.slots[i]
             self.seq_lens[i] += 1
@@ -417,10 +458,10 @@ class Engine:
             # steady state: chain off the previous burst's device carry
             d_tokens, d_lens = self._d_tokens, self._d_seq_lens
         toks, last, lens = _decode_burst_impl(
-            self.params, self.cfg, d_tokens, d_lens,
+            self.params, self._cfg_run, d_tokens, d_lens,
             self._ctx_table(n + lookahead + 1),
             self.cache.k_pages, self.cache.v_pages, self.page_size, n,
-            kv_layout=self.kv_layout)
+            kv_layout=self.kv_layout, tp_group=self.tp_group)
         self.decode_steps += n
         self._d_tokens, self._d_seq_lens = last, lens
         self._host_dirty = False
@@ -431,7 +472,7 @@ class Engine:
         device) and do the bookkeeping. Slots retired since dispatch
         (pipelined mode) are skipped: their speculative tokens are
         discarded."""
-        toks = toks.cpu().numpy()
+        toks = self._read_tokens(toks)
         for i, req in live:
             if self.slots[i] is not req:
                 continue      # retired while this burst was in flight

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port (``any4_tpu_torch``) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--phase evals|tensor_parallel]
 
 Phases, each printing JSON lines:
 
@@ -138,7 +138,8 @@ Phases, each printing JSON lines:
    for bit at m = 1, 4 and 130: the decode body and the block body), and
    any4q8's LUT snap on the card against the CPU's (equal).
 8. any4 at g=64, int4, w4a8 and int8 at g=64 main paths: the 1B model at
-   full width and depth (``--layers`` cuts it) quantized by
+   full width and depth (int4, w4a8 and int8 g=64 at 4 layers,
+   ``MAIN_DEPTHS``; ``--layers`` cuts every one) quantized by
    ``quantize_model(fmt="any4", group_size=64, kmeans_iters=10)``,
    ``quantize_model(fmt="int8", group_size=64)`` or
    ``quantize_model(fmt=..., group_size=128)``; every one of the 112
@@ -167,7 +168,8 @@ Phases, each printing JSON lines:
    (within 2e-2 * max).
 9. int8, w8a8 and any4q8 main paths (slice 4), as in 8: the 96 k = 2048
    linears are ``int8q``/``w8a8q``/``any4q8`` and the 16 down_projs
-   ``int8g``/``w8a8g``/``any4q8g`` (any4q8 with kmeans_iters=10). int8's
+   ``int8g``/``w8a8g``/``any4q8g`` (any4q8 with kmeans_iters=10; int8 and
+   w8a8 at 4 layers, any4q8 at 2, ``MAIN_DEPTHS``). int8's
    prefill logits are held as int4's, w8a8's and any4q8's linears as
    w4a8's. Launches per forward: at m <= 64, 112 ``int8_post``, or 96
    ``w8a8_fused`` + 16 ``w8a8``; at 64 < m <= 128, 112 ``int8_post`` or 112
@@ -321,17 +323,80 @@ Phases, each printing JSON lines:
     local_mc --code-tasks builtin`` (kernel A for down_proj, B six times
     as often for the k = 64 linears), ``cli.analyze --tiny`` and
     ``cli.diff --tiny`` on the card: their files and JSON keys.
-16. the script's wall time, the ``nvidia-smi`` name and power line again,
+16. tensor_parallel (``parallel/tp.py``): first kernel A at every rank's
+    weight shape of the paths below that no earlier phase holds
+    (``TP_SHAPES``: the 1B's q/k/v/o/gate/up/down at tp=2, its k/v and
+    o_proj (k = 512, one 1024 segment) at tp=4, Mixtral's k/v and w1/w3/w2
+    at tp=2) at m = 1, 8 and 64, against its plain version (bf16 output
+    within 1e-2 * max, float32 within 1e-4), timed as in the Mixtral-shape
+    phase (``kernel_a_tp_shapes`` rows); each attention kernel at 4 and 2
+    kv heads (a rank's at tp=2 and 4; ``split_len`` changes with h) at b=1
+    and 8, ctx 2048, against its plain version as in phase 3
+    (``attention_tp_heads`` rows); a dense bf16 product's float32 output
+    (``torch.mm``'s ``out_dtype``, as a dense row-parallel weight gives its
+    partial) within 1e-5 * max of the float32 product. Then ranks spawned
+    on the one card
+    (``torch.multiprocessing``, spawn start method, gloo: NCCL refuses two
+    ranks on one device, and gloo all-reduces CUDA tensors; dp stays 1,
+    since gloo has no CUDA ``all_gather``), after the build. The parent
+    quantizes the any4 g=128 1B (full width, ``--layers`` cuts the depth)
+    once with ``row_parallel_shards=2`` and once with ``=4``, with
+    PyTorch's deterministic kernels (k-means' sums in a fixed order, so
+    every run holds the same checkpoint and its gaps repeat; ``--phase
+    tp_sums`` reads other draws), saves each through ``models/checkpoint``
+    (every rank loads that one checkpoint) and runs the
+    unsharded reference: the S-segment weights on the full x
+    (``linear._shard_align_x``). Each rank loads the checkpoint, takes its
+    shards (``tp.shard_params``) and runs ``tp.make_tp_forward``: a 64-token
+    prompt's logits within 2e-2 * max of the reference's in bf16 and with
+    float32 activations (kernel A rounds x to bf16, so an f32 sum order
+    moves a rounding), and within 1e-4 * max over the rank's dequantized
+    float32 shards (the same f32 path on both sides: only the sum order
+    differs), kernel A exactly 112 times a forward, at tp=2 and tp=4
+    (tp=4: o_proj's k = 512 padded to a 1024 segment). At tp=2 also 32 greedy tokens (the prompt's forward with the
+    tp group, then 31 cached steps), equal to ``generate``'s on the
+    unsharded model or split at a near-tie by ``tests/test_torch_engine.py``
+    's QUANT_TIE rule, their teacher-forced logits within 2e-2 * max; each
+    rank's host ms a decode step, device ms a step (``torch.profiler``) and
+    all-reduce ms a step (32 all-reduces, timed between synchronizes): two
+    ranks share one card, so these are no scaling figures; the TP
+    ``Engine`` (8 slots, phase 5's 12 prompts, 32 tokens each, ``run(burst=
+    1)``) in each pool (paged and contig, bf16 and int8): equal tokens on
+    every rank
+    (the engine checks each read), exact launches (A 112 a forward, the
+    attention kernel 16 a step), the teacher-forced decode logits of its
+    ``_decode_impl`` within 2e-2 (bf16 pools) and 5e-2 (int8) * max of the
+    single engine's. Then the 2-layer Mixtral-8x7B (any4, w2 and o_proj in
+    2 segments, ``torch.save``'d once) at tp=2: ``make_tp_forward(forward_fn=
+    mixtral.forward)`` in sparse dispatch over one token (2 experts a
+    layer) and in dense dispatch over the 64-token prompt, bf16 logits and
+    float32-activation logits (each routed as the unsharded run) within
+    2e-2 and the dequantized float32 weights' logits within 1e-4 * max of
+    the unsharded forward's, kernel A's launches equal to its (20 and 56);
+    stacked experts at tp=2 raise ``ValueError``. ``tensor_parallel``,
+    ``tensor_parallel_mixtral`` and ``tensor_parallel_summary`` rows.
+17. native (``any4_tpu_torch/native``): ``available()`` on the card's host;
+    ``group_quantize`` and ``pack_int4`` bit for bit against the torch
+    functions on the card at 8192x2048 and 14336x4096, each timed beside
+    the torch CPU path on the same numpy array; ``cli.quantize --cpu --fmt
+    int4 --tiny`` takes the host path and gives the device path's codes
+    for the same weights.
+18. the script's wall time, the ``nvidia-smi`` name and power line again,
     then the line ``{"kernels": [...]}``, one entry per kernel (fourteen;
     the ten linear kernels, all on the tensor cores, also ``by_m``; kernel
-    A also ``fused_shapes``, ``mixtral_shapes`` and ``kxk``, kernel C
-    ``kxk``, ``flash_paged_decode`` ``mixtral_shape``; launches summed over
+    A also ``fused_shapes``, ``mixtral_shapes``, ``tp_shapes`` and ``kxk``,
+    kernel C ``kxk``, each attention kernel ``tp_heads`` and
+    ``flash_paged_decode`` ``mixtral_shape``; launches summed over
     the main paths that run the kernel, as ``launches_from`` lists them).
-17. ``{"ok": true, "device": {...}}`` as the last line.
+19. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--phase evals`` runs phase 15 alone after the build, on phase 4's models
-made as there, and prints its lines and the ``nvidia-smi`` line, with no
-kernels line and no result.
+made as there, and ``--phase tensor_parallel`` phases 16 and 17; each
+prints its lines and the ``nvidia-smi`` line, with no kernels line and no
+result. ``--phase tp_sums`` (run in no other way) reads the spread of the
+1B's TP logits gap from the unsharded run over 3 checkpoints a tp size,
+with the ranks' partial sums in float32 (the port's) and in bf16 (the JAX
+package's ``psum``): ``tp_sums`` rows.
 
 Any failed check raises, and the script exits non-zero before the last line.
 Without a CUDA device it exits 1 and prints no result.
@@ -492,6 +557,41 @@ LL_LENGTHS = [(0, 3), (1, 1), (5, 8), (17, 2), (40, 20), (64, 5), (100, 1),
               (1500, 9), (1990, 40), (2100, 6), (30, 0)]
 ANALYZE_LAYERS = 2
 EVAL_RESULTS = {"synthetic:wikitext-2", "lm-eval:local_mc", "code:builtin"}
+# the tensor_parallel phase: the tp sizes the 1B runs at (each with its
+# weights packed in as many row segments), greedy tokens at tp=2, decode
+# steps timed; its bars against the unsharded run (bf16 logits, float32
+# activations), the engine's (bf16 pools, int8 pools), the tie rule's share
+# of max|logit| (tests/test_torch_engine.py), the TP engine's pools, and
+# how long the ranks may take
+TP_SIZES, TP_NEW_TOKENS, TP_TIMED_STEPS = (2, 4), 32, 8
+TP_BAR, TP_F32_BAR = 2e-2, 1e-4
+ENGINE_BARS = {False: 2e-2, True: 5e-2}
+QUANT_TIE = 1e-2
+TP_POOLS = (("paged", False), ("paged", True), ("contig", False),
+            ("contig", True))
+TP_TIMEOUT_S = 900
+# kernel A at every rank's weight shape on the tensor-parallel paths that
+# no earlier phase holds (n, k): the 1B's at tp=2 and 4 (o_proj's k = 512
+# padded to one 1024 segment), Mixtral-8x7B's at tp=2; at TP_MS rows
+TP_SHAPES = {"q_tp2": (1024, 2048), "kv_tp2": (256, 2048),
+             "o_tp2": (2048, 1024), "gate_up_tp2": (4096, 2048),
+             "down_tp2": (2048, 4096), "kv_tp4": (128, 2048),
+             "o_tp4": (2048, 512), "mixtral_kv_tp2": (512, 4096),
+             "mixtral_w1_w3_tp2": (7168, 4096),
+             "mixtral_w2_tp2": (4096, 7168)}
+TP_MS = (1, 8, 64)
+# the attention kernels at a rank's kv heads: 4 at tp=2, 2 at tp=4
+TP_HEADS = (4, 2)
+# the tp_sums phase: checkpoints quantized a tp size, each read twice in
+# each partial-sum dtype
+TP_SUM_CHECKPOINTS = 3
+# main paths cut in depth to keep the whole run well inside its limit (the
+# kernels meet every 1B shape in the kernel phases and the full-depth
+# paths of phases 4, 5, 8 and 9b); any4q8 runs w8a8's kernels
+MAIN_DEPTHS = {"int8_g64": 4, "int4": 4, "w4a8": 4, "int8": 4, "w8a8": 4,
+               "any4q8": 2}
+# the native phase: the 1B's gate/up and Mixtral-8x7B's w1/w3 shapes
+NATIVE_SHAPES = ((8192, 2048), (14336, 4096))
 
 
 def emit(obj) -> None:
@@ -2071,8 +2171,8 @@ def int_main_path(args, fmt, gemv, llama, gen_mod, api, linear, layers=None):
     g = qkw["group_size"]
     cfg = llama.LlamaConfig.llama_3_2_1b()
     if layers or args.layers:
-        cfg = dataclasses.replace(cfg,
-                                  num_hidden_layers=layers or args.layers)
+        cfg = dataclasses.replace(cfg, num_hidden_layers=min(
+            n for n in (layers, args.layers) if n))
     per_forward = cfg.num_hidden_layers * 7
     params = llama.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2422,17 +2522,22 @@ def serve(teng, qparams, cfg, prompts, layout, q8, run_kw):
     return [done[u] for u in uids], e, time.perf_counter() - t0
 
 
-def teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32, layout, q8,
-                   gen, t=120, forced=3):
-    """Max over 3 positions of |logits - ref| / max|ref|: the engine's
-    ``_decode_impl`` over its pool (bf16 or int8) after its
-    ``_prefill_impl``, against ``decode_step`` over a dense float32 cache
-    after ``prefill``, on the same forced tokens, float32 activations."""
-    vocab = cfg32.vocab_size
+def forced_inputs(vocab, gen, t=120, forced=3):
+    """A ``t``-token prompt ``[1, t]`` and ``forced`` tokens to decode after
+    it, drawn from ``gen``."""
     prompt = torch.randint(0, vocab, (1, t), generator=gen, device="cuda",
                            dtype=torch.int32)
     toks = torch.randint(0, vocab, (forced,), generator=gen, device="cuda",
                          dtype=torch.int32)
+    return prompt, toks
+
+
+def engine_forced(teng, kvc, params32, cfg32, layout, q8, prompt, toks,
+                  tp_group=None):
+    """The engine's ``_decode_impl`` logits ``[forced, vocab]`` over its
+    pool (bf16 or int8) after its ``_prefill_impl`` of ``prompt``, on the
+    forced ``toks``; ``cfg32``/``params32`` a rank's under ``tp_group``."""
+    t, forced = prompt.shape[1], toks.shape[0]
     pps = 8                                       # 128 positions >= bucket
     pages = pps + (0 if layout == "contig" else 1)
     cache = kvc.PagedKVCache.create(cfg32, pages, PAGE_SIZE,
@@ -2444,18 +2549,34 @@ def teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32, layout, q8,
     padded = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
     padded[:, :t] = prompt
     teng._prefill_impl(params32, cfg32, padded, t, cache.k_pages,
-                       cache.v_pages, table[0], PAGE_SIZE, kv_layout=layout)
+                       cache.v_pages, table[0], PAGE_SIZE, kv_layout=layout,
+                       tp_group=tp_group)
+    out = []
+    for i in range(forced):
+        out.append(teng._decode_impl(
+            params32, cfg32, toks[i:i + 1],
+            torch.tensor([t + i], dtype=torch.int32, device="cuda"), table,
+            cache.k_pages, cache.v_pages, PAGE_SIZE, kv_layout=layout,
+            tp_group=tp_group)[0])
+    return torch.stack(out)
+
+
+def teacher_forced(teng, kvc, gen_mod, llama, params32, cfg32, layout, q8,
+                   gen, t=120, forced=3):
+    """Max over 3 positions of |logits - ref| / max|ref|: the engine's
+    ``_decode_impl`` over its pool (bf16 or int8) after its
+    ``_prefill_impl`` (:func:`engine_forced`), against ``decode_step`` over
+    a dense float32 cache after ``prefill``, on the same forced tokens,
+    float32 activations."""
+    prompt, toks = forced_inputs(cfg32.vocab_size, gen, t, forced)
+    got = engine_forced(teng, kvc, params32, cfg32, layout, q8, prompt, toks)
     caches = llama.init_kv_caches(cfg32, 1, t + forced, device="cuda")
     gen_mod.prefill(params32, cfg32, prompt.long(), caches)
     errs = []
     for i in range(forced):
-        tok = toks[i:i + 1]
-        got = teng._decode_impl(
-            params32, cfg32, tok, torch.tensor([t + i], dtype=torch.int32,
-                                               device="cuda"),
-            table, cache.k_pages, cache.v_pages, PAGE_SIZE, kv_layout=layout)
-        ref, _ = gen_mod.decode_step(params32, cfg32, tok, t + i, caches)
-        errs.append(rel_err(got, ref))
+        ref, _ = gen_mod.decode_step(params32, cfg32, toks[i:i + 1], t + i,
+                                     caches)
+        errs.append(rel_err(got[i:i + 1], ref))
     return max(errs)
 
 
@@ -3379,18 +3500,20 @@ def plain_by_rows(plain, x, args, out, rows=16384):
               out) for i in range(0, n, rows)], dim=1)
 
 
-def kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak):
-    """Kernel A (g=128, per-row LUT) at :data:`MIXTRAL_SHAPES`, m in
-    :data:`MIXTRAL_MS`: held against its plain version (run over blocks of
+def kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak,
+                            shapes=MIXTRAL_SHAPES, ms=MIXTRAL_MS,
+                            phase="kernel_mixtral_shapes", seed=17):
+    """Kernel A (g=128, per-row LUT) at ``shapes`` (Mixtral's by default),
+    m in ``ms``: held against its plain version (run over blocks of
     rows; bf16 output within 1e-2 * max, float32 within 1e-4 * max), with
     its launch plan, and timed as in the kernel phase beside a bf16
     ``torch.matmul`` on the dequantized weight and the bytes bound. Each
     shape is launched once before it is timed."""
     rows = []
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wrapper, plain = gemv.q4_lut_post, gemv.q4_lut_post_plain
-    for name, (n, k) in MIXTRAL_SHAPES.items():
+    for name, (n, k) in shapes.items():
         codes = torch.randint(0, 16, (n, k), generator=gen, device="cuda",
                               dtype=torch.uint8)
         lut = torch.sort(torch.rand((n, 16), generator=gen, device="cuda"),
@@ -3404,7 +3527,7 @@ def kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak):
         del codes
         w_bf16 = linear.dequantize_tensor(qt, torch.bfloat16)
         args = (qt.packed, qt.scales, qt.zeros, qt.lut, 128)
-        for m in MIXTRAL_MS:
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             errs, abs_err = {}, {}
@@ -3427,7 +3550,7 @@ def kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak):
             t0 = time.perf_counter()
             plain_by_rows(plain, x, args, torch.bfloat16)
             torch.cuda.synchronize()
-            row = {"phase": "kernel_mixtral_shapes", "name": "q4_lut_post",
+            row = {"phase": phase, "name": "q4_lut_post",
                    "weight": name, "n": n, "k": k, "m": m,
                    "group_size": 128, "rel_err": errs,
                    "plan": {"token_tiles": tn, "groups_per_split": per,
@@ -3485,6 +3608,71 @@ def attention_mixtral_shape(kvc, timer, bw):
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit(row)
     return row
+
+
+def attention_tp_heads(kvc, timer, bw):
+    """Each attention kernel at a tensor-parallel rank's kv heads
+    (:data:`TP_HEADS`: 4 at tp=2, 2 at tp=4; the 1B's rep 4 and head_dim
+    64), where ``split_len(b, h)`` changes with h: at b=1 and 8, ctx 2048,
+    held against its plain version (bf16 pools within 1e-2 * max, int8
+    within 2e-2; float32 q and pools within 1e-4 at b=8) and timed
+    against SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for name, (layout, q8, _) in ATTN_KERNELS.items():
+        pool_dtype = torch.int8 if q8 else torch.bfloat16
+        tol = 2e-2 if q8 else 1e-2
+        for h in TP_HEADS:
+            fn, plain, args = attn_inputs(
+                kvc, name, *ATTN_TIMED, gen,
+                torch.int8 if q8 else torch.float32, torch.float32, h=h)
+            f32 = rel_err(fn(*args), plain(*args))
+            check(f32 <= 1e-4, f"{name} at {h} kv heads, float32: {f32} > "
+                  f"1e-4 of max")
+            for b, ctx in ATTN_CASES[:2]:
+                fn, plain, args = attn_inputs(kvc, name, b, ctx, gen,
+                                              pool_dtype, torch.bfloat16,
+                                              h=h)
+                y, ref = fn(*args), plain(*args)
+                err = float((y.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                check(bool(torch.isfinite(y).all()) and err <= tol * scale,
+                      f"{name} at {h} kv heads, b={b} ctx={ctx}: |kernel - "
+                      f"plain| {err} > {tol} * {scale}")
+                bound, by, nbytes, flops = attn_bound(name, args, bw)
+                split = kvc.split_len(b, h)
+                row = {"phase": "attention_tp_heads", "name": name, "b": b,
+                       "ctx": ctx, "h": h, "rep": ATTN_REP,
+                       "d": ATTN_HEAD_DIM, "page_size": PAGE_SIZE,
+                       "S": split, "splits": -(-ctx // split),
+                       "pool": str(pool_dtype), "q": "torch.bfloat16",
+                       "ms": timer(lambda: fn(*args)),
+                       "plain_ms": timer(lambda: plain(*args), reps=3),
+                       "library_ms": timer(sdpa_yardstick(kvc, args)),
+                       "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                       "flops": flops, "max_abs_err": err,
+                       "rel_err": err / scale, "bar": tol}
+                if (b, ctx) == ATTN_TIMED:
+                    row["f32_rel_err"] = f32
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                emit(row)
+                rows.append(row)
+                del args
+    return rows
+
+
+def tp_kernel_checks(gemv, packing, linear, kvc, bw, peak):
+    """Kernel A at :data:`TP_SHAPES` and the attention kernels at
+    :data:`TP_HEADS` (the tensor-parallel paths' shapes), each against its
+    plain version; returns both phases' rows."""
+    timer = Timer()
+    rows = kernel_a_mixtral_shapes(gemv, packing, linear, timer, bw, peak,
+                                   shapes=TP_SHAPES, ms=TP_MS,
+                                   phase="kernel_a_tp_shapes", seed=23)
+    attn = attention_tp_heads(kvc, timer, bw)
+    del timer
+    torch.cuda.empty_cache()
+    return rows, attn
 
 
 def run_cli(main, argv):
@@ -4129,18 +4317,783 @@ def evals_phase(params, qparams, cfg, gemv, linear, gen_mod, api):
             "q4_lut_fused": cli["q4_lut_fused"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: tensor parallelism (parallel/tp.py), ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+def tp_greedy(llama, gen_mod, tp, mesh, local, specs, cfg, prompt, new):
+    """Greedy decode of ``new`` tokens on one rank: the prompt's forward
+    with the tp group writing the rank's caches, then ``new - 1`` steps of
+    ``make_tp_forward(with_cache=True)``. Returns ``(tokens [1, t + new],
+    host ms a decode step, the step function, the caches)``, the clock
+    ending in a synchronize."""
+    cfg_local = tp.local_config(cfg, mesh.tp)
+    t = prompt.shape[1]
+    # room for the step costs' 2 x TP_TIMED_STEPS steps after the tokens
+    caches = llama.init_kv_caches(cfg_local, 1,
+                                  t + new + 2 * TP_TIMED_STEPS,
+                                  device="cuda")
+    step = tp.make_tp_forward(cfg, mesh, specs, with_cache=True)
+    logits, caches = llama.forward(
+        local, cfg_local, prompt.long(), kv_caches=caches, cache_pos=None,
+        mask=gen_mod._prefill_mask(t, caches[0][0].shape[1], prompt.device),
+        tp_group=mesh.tp_group)
+    tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+    toks = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(new - 1):
+        logits, caches = step(local, tok, t + i, caches)
+        tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    return (torch.cat([prompt, torch.stack(toks, dim=1)], dim=1), ms, step,
+            caches)
+
+
+def tp_step_costs(step, local, caches, pos, tok, dist):
+    """Device ms a decode step (``torch.profiler``'s kernel time over
+    ``TP_TIMED_STEPS`` steps) and all-reduce ms a step (the host clock
+    around each ``all_reduce``, between synchronizes, in as many more
+    steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(TP_TIMED_STEPS):
+            step(local, tok, pos + i, caches)
+        torch.cuda.synchronize()
+    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA) / 1e3
+    spent = []
+    orig = dist.all_reduce
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        for i in range(TP_TIMED_STEPS):
+            step(local, tok, pos + i, caches)
+    finally:
+        dist.all_reduce = orig
+    return (device_ms / TP_TIMED_STEPS,
+            sum(spent) * 1e3 / TP_TIMED_STEPS, len(spent) // TP_TIMED_STEPS)
+
+
+def tp_rank_llama(job, mesh, mods):
+    """One rank's share of the 1B model: the prompt's logits (bf16, float32
+    activations, and float32 over the rank's dequantized shards) with kernel
+    A's launches; at tp=2 also the greedy
+    tokens, the teacher-forced logits along the unsharded run's tokens, the
+    step costs, and the TP engine in each pool of TP_POOLS (its tokens,
+    launches and teacher-forced decode logits)."""
+    llama, gen_mod, tp, gemv, kvc, teng, linear, ckpt, dist = mods
+    t0 = time.perf_counter()
+    params, cfg = ckpt.load_params(job["checkpoint"], device="cuda")
+    local, specs = tp.shard_params(params, mesh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"load_shard_s": time.perf_counter() - t0}
+    per_forward = cfg.num_hidden_layers * 7
+    prompt = job["prompt"].cuda()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    local32 = to_float32(local, linear)
+    gemv.reset_launches()
+    out["logits_bf16"] = tp.make_tp_forward(cfg, mesh, specs)(
+        local, prompt).float().cpu()
+    out["launches_forward"] = dict(gemv.LAUNCHES)
+    out["logits_f32"] = tp.make_tp_forward(cfg32, mesh, specs)(
+        local32, prompt).cpu()
+    deq = to_float32(local, linear, dequantize=True)
+    out["logits_deq32"] = tp.make_tp_forward(cfg32, mesh, tp.param_specs(
+        deq))(deq, prompt).cpu()
+    del deq
+    torch.cuda.empty_cache()
+    if "ref_tokens" not in job:
+        return out
+    gemv.reset_launches()
+    tokens, ms, step, caches = tp_greedy(llama, gen_mod, tp, mesh, local,
+                                         specs, cfg, prompt, TP_NEW_TOKENS)
+    out["launches_generate"] = dict(gemv.LAUNCHES)
+    out["tokens"] = tokens.cpu()
+    out["host_ms_per_token"] = ms
+    out["device_ms_per_step"], out["all_reduce_ms_per_step"], \
+        out["all_reduces_per_step"] = tp_step_costs(
+            step, local, caches, tokens.shape[1] - 1, tokens[:, -1], dist)
+    ref = job["ref_tokens"].cuda()
+    t = prompt.shape[1]
+    out["forced_logits"] = tp.make_tp_forward(cfg, mesh, specs)(
+        local, ref[:, :-1])[0, t - 1:].float().cpu()
+    prompts = serve_prompts(cfg)
+    cfg32_local = tp.local_config(cfg32, mesh.tp)
+    for layout, q8 in TP_POOLS:
+        key = f"{layout}_{'int8' if q8 else 'bf16'}"
+        e = teng.Engine(local, cfg, max_slots=SERVE_SLOTS,
+                        max_ctx=SERVE_MAX_CTX, page_size=PAGE_SIZE,
+                        kv_quantize=q8, kv_layout=layout, mesh=mesh,
+                        param_spec=specs, device="cuda")
+        uids = [e.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        gemv.reset_launches()
+        kvc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = {r.uid: r.out_tokens for r in e.run(burst=1)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks = sum(-(-e._bucket(len(p)) // linear.FUSED_M_MAX)
+                     for p in prompts)
+        out[f"engine_{key}"] = {
+            "tokens": [done[u] for u in uids], "wall_s": wall,
+            "decode_steps": e.decode_steps, "prefill_chunks": chunks,
+            "launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
+            "want_linear": per_forward * (e.decode_steps + chunks),
+            "want_attention": cfg.num_hidden_layers * e.decode_steps,
+            "forced_logits": engine_forced(
+                teng, kvc, local32, cfg32_local, layout, q8,
+                job["forced_prompt"].cuda(), job["forced_toks"].cuda(),
+                mesh.tp_group).float().cpu()}
+        del e
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_mixtral(job, mesh, mods):
+    """One rank's share of the 2-layer Mixtral-8x7B: for each dispatch, the
+    prompt's logits in bf16 (with kernel A's launches) and with float32
+    activations, each routed as the unsharded run routed (:func:`routing`
+    replaying its record), and in float32 over the rank's dequantized
+    shards, routed by the rank's own router."""
+    llama, gen_mod, tp, gemv, kvc, teng, linear, ckpt, dist = mods
+    from any4_tpu_torch.models import mixtral
+    params = to_device(torch.load(job["weights"], weights_only=False),
+                       "cuda", linear)
+    cfg = job["cfg"]
+    local, specs = tp.shard_params(params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    fwd = tp.make_tp_forward(cfg, mesh, specs, forward_fn=mixtral.forward)
+    fwd32 = tp.make_tp_forward(cfg32, mesh, specs,
+                               forward_fn=mixtral.forward)
+    local32 = to_float32(local, linear)
+    deq32 = to_float32(local, linear, dequantize=True)
+    fwd_deq = tp.make_tp_forward(cfg32, mesh, tp.param_specs(deq32),
+                                 forward_fn=mixtral.forward)
+    out = {}
+    for dispatch, records in job["routing"].items():
+        prompt = job["ids"][dispatch].cuda()
+        replay = {k: [(lg.cuda(), ti.cuda()) for lg, ti in rec]
+                  for k, rec in records.items()}
+        with moe_dispatch(mixtral, dispatch):
+            with routing(mixtral, replay=replay["bf16"]) as calls:
+                gemv.reset_launches()
+                lg = fwd(local, prompt)
+                launches = dict(gemv.LAUNCHES)
+            with routing(mixtral, replay=replay["f32"]) as calls32:
+                lg32 = fwd32(local32, prompt)
+            deq = fwd_deq(deq32, prompt)
+        out[dispatch] = {"logits_bf16": lg.float().cpu(),
+                         "logits_f32": lg32.cpu(), "logits_deq32": deq.cpu(),
+                         "launches": launches,
+                         "routing_flips": sum(f for f, _, _ in calls)
+                         + sum(f for f, _, _ in calls32)}
+    del deq32
+    torch.cuda.empty_cache()
+    # stacked experts (a tiny dense model) are refused at tp > 1
+    from any4_tpu_torch.models import fuse
+    tiny = mixtral.MixtralConfig.tiny()
+    stacked, _ = tp.shard_params(fuse.stack_experts(mixtral.init_params(
+        tiny, seed=0, device="cuda")), mesh)
+    try:
+        mixtral.forward(stacked, tp.local_config(tiny, mesh.tp),
+                        prompt % tiny.vocab_size, tp_group=mesh.tp_group)
+        out["stacked_raised"] = None
+    except ValueError as e:
+        out["stacked_raised"] = str(e)
+    return out
+
+
+def tp_rank_sums(job, mesh, mods):
+    """One rank's 1B logits over each checkpoint of ``job``, read twice
+    with float32 partial sums (``llama.row_parallel``) and twice with bf16
+    partials (each rank's product rounded to bf16 and all-reduced in bf16,
+    as the JAX package's ``psum`` sums them): a list, one
+    ``{"float32": [a, b], "bf16": [a, b]}`` a checkpoint."""
+    llama, gen_mod, tp, gemv, kvc, teng, linear, ckpt, dist = mods
+    prompt = job["prompt"].cuda()
+    f32_sum = llama.row_parallel
+
+    def bf16_sum(x, w, bias=None, tp_group=None, **kw):
+        return llama.tp_all_reduce(linear.linear(x, w, bias, **kw), tp_group)
+
+    out = []
+    for path in job["checkpoints"]:
+        params, cfg = ckpt.load_params(path, device="cuda")
+        local, specs = tp.shard_params(params, mesh)
+        del params
+        fwd = tp.make_tp_forward(cfg, mesh, specs)
+        got = {}
+        for mode, fn in (("float32", f32_sum), ("bf16", bf16_sum)):
+            llama.row_parallel = fn
+            try:
+                got[mode] = [fwd(local, prompt).float().cpu()
+                             for _ in range(2)]
+            finally:
+                llama.row_parallel = f32_sum
+        out.append(got)
+        del local
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, world, address, job_path, results):
+    """The body of one spawned rank: join the gloo world at ``address``,
+    run the jobs of ``job_path`` on the tp mesh over every rank, save
+    ``{"rank"}`` and each job's result beside the jobs (``torch.save``) and
+    put ``{"rank", "path"}`` (or ``{"rank", "error"}``) on ``results``."""
+    import traceback
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import torch.distributed as dist
+        from any4_tpu_torch.models import checkpoint as ckpt
+        from any4_tpu_torch.models import generate as gen_mod, llama
+        from any4_tpu_torch.ops import gemv, linear
+        from any4_tpu_torch.parallel import distributed, tp
+        from any4_tpu_torch.serving import engine as teng, kv_cache as kvc
+        mods = (llama, gen_mod, tp, gemv, kvc, teng, linear, ckpt, dist)
+        check(distributed.initialize(address, world, rank, backend="gloo"),
+              "joined the gloo world")
+        mesh = tp.make_mesh(dp=1, tp=world, device="cuda")
+        jobs = torch.load(job_path, weights_only=False)
+        out = {"rank": rank}
+        for key, fn in (("llama", tp_rank_llama),
+                        ("mixtral", tp_rank_mixtral), ("sums", tp_rank_sums)):
+            if key in jobs:
+                out[key] = fn(jobs[key], mesh, mods)
+        dist.barrier()
+        dist.destroy_process_group()
+        path = f"{job_path}.rank{rank}"
+        torch.save(out, path)
+        results.put({"rank": rank, "path": path})
+    except BaseException:        # the parent raises it: a rank's failure
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def run_ranks(world, jobs, work):
+    """Spawn ``world`` ranks on the card (gloo, a free localhost port), each
+    running :func:`tp_rank` on ``jobs``; returns their results by rank.
+    Raises if a rank fails or the ranks do not finish within TP_TIMEOUT_S;
+    every rank is stopped either way."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    path = os.path.join(work, f"jobs_tp{world}.pt")
+    torch.save(jobs, path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank, args=(r, world, address, path,
+                                               results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = {}
+        deadline = time.perf_counter() + TP_TIMEOUT_S
+        while len(got) < world:
+            try:
+                out = results.get(
+                    timeout=max(deadline - time.perf_counter(), 1))
+            except queue.Empty:
+                late = sorted(set(range(world)) - set(got))
+                raise RuntimeError(f"tp={world}: ranks {late} did not "
+                                   f"finish in {TP_TIMEOUT_S} s") from None
+            check("error" not in out,
+                  f"tp={world} rank {out['rank']} failed:\n"
+                  f"{out.get('error')}")
+            got[out["rank"]] = torch.load(out["path"], weights_only=False)
+        for p in procs:
+            p.join(timeout=60)
+        return [got[r] for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def tie_split(tokens, ref_tokens, ref_logits, t):
+    """The QUANT_TIE rule of ``tests/test_torch_engine.py``: the position of
+    the first token where ``tokens`` leave ``ref_tokens`` (None if they
+    never do), which must be where the reference's two best logits lie
+    within QUANT_TIE of max|logit| and the token taken one of those near
+    the top. Raises otherwise."""
+    new, ref_new = tokens[0, t:].tolist(), ref_tokens[0, t:].tolist()
+    for j, (a, b) in enumerate(zip(new, ref_new)):
+        if a == b:
+            continue
+        lg = ref_logits[j]
+        tie = QUANT_TIE * float(lg.abs().max())
+        top2 = torch.topk(lg, 2).values
+        check(float(top2[0] - top2[1]) < tie and float(lg[a]) >= float(
+            top2[0]) - tie, f"TP greedy token {j} ({a}) differs from the "
+            f"unsharded run's ({b}) outside a near-tie")
+        return j
+    return None
+
+
+def tensor_parallel_phase(args, loader, checkpoint, llama, mixtral, gen_mod,
+                          api, linear, gemv, kvc, teng):
+    """Phase 16; see the module docstring. Returns kernel A's launches and
+    each attention kernel's in the ranks' main paths (rank 0's)."""
+    import tempfile
+    phase0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    per_forward = cfg.num_hidden_layers * 7
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    forced_prompt, forced_toks = forced_inputs(
+        cfg.vocab_size, torch.Generator(device="cuda").manual_seed(6))
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    launches = {"q4_lut_post": 0, **{k: 0 for k in ATTN_KERNELS}}
+    rows, fails = {}, []
+    # a dense bf16 row-parallel partial (o_proj's rank shape at tp=2):
+    # float32 sums from torch.mm's out_dtype, the weight not cast
+    dgen = torch.Generator(device="cuda").manual_seed(24)
+    x, w = (torch.randn(shape, generator=dgen, device="cuda")
+            .to(torch.bfloat16) for shape in ((PROMPT_LEN, 1024),
+                                              (2048, 1024)))
+    y = linear.linear(x, w, out_dtype=torch.float32)
+    dense_err = rel_err(y, x.float() @ w.float().t())
+    check(y.dtype == torch.float32 and dense_err <= 1e-5,
+          f"dense bf16 linear with float32 output: {y.dtype}, {dense_err} "
+          f"of max from the float32 product")
+    del x, w, y
+    with tempfile.TemporaryDirectory() as work:
+        for world in TP_SIZES:
+            t0 = time.perf_counter()
+            # deterministic sums: every run holds the same checkpoint, so
+            # its gaps to the unsharded run repeat (tp_sums draws others)
+            with deterministic():
+                q = api.quantize_model(params, fmt="any4", group_size=128,
+                                       kmeans_iters=10,
+                                       row_parallel_shards=world)
+            torch.cuda.synchronize()
+            quantize_s = time.perf_counter() - t0
+            layer = q["layers"][0]
+            check(layer["o_proj"].row_shards == world
+                  and layer["down_proj"].row_shards == world
+                  and layer["q_proj"].row_shards == 1
+                  and all(v.fmt == "any4t" for v in layer.values()
+                          if isinstance(v, linear.QuantizedTensor)),
+                  f"row_parallel_shards={world}: o/down in {world} segments")
+            t0 = time.perf_counter()
+            path = os.path.join(work, f"llama_any4_S{world}")
+            checkpoint.save_params(path, q, cfg)
+            save_s = time.perf_counter() - t0
+            # the unsharded reference: the S-segment weights on the full x
+            gemv.reset_launches()
+            ref = llama.forward(q, cfg, prompt)[0].float()
+            check(gemv.LAUNCHES["q4_lut_post"] == per_forward,
+                  f"unsharded S={world} forward: kernel A "
+                  f"{dict(gemv.LAUNCHES)}")
+            ref32 = llama.forward(to_float32(q, linear), cfg32, prompt)[0]
+            deq32 = llama.forward(to_float32(q, linear, dequantize=True),
+                                  cfg32, prompt)[0]
+            job = {"checkpoint": path, "prompt": prompt.cpu()}
+            if world == 2:
+                ref_tokens = gen_mod.generate(q, cfg, prompt,
+                                              max_new_tokens=TP_NEW_TOKENS)
+                ref_forced = llama.forward(
+                    q, cfg, ref_tokens[:, :-1])[0][0, PROMPT_LEN - 1:].float()
+                engine_refs = {
+                    f"{layout}_{'int8' if q8 else 'bf16'}": engine_forced(
+                        teng, kvc, to_float32(q, linear), cfg32, layout, q8,
+                        forced_prompt, forced_toks).float()
+                    for layout, q8 in TP_POOLS}
+                job.update(ref_tokens=ref_tokens.cpu(),
+                           forced_prompt=forced_prompt.cpu(),
+                           forced_toks=forced_toks.cpu())
+            del q
+            torch.cuda.empty_cache()
+            jobs = {"llama": job}
+            if world == 2:
+                jobs["mixtral"], mref = mixtral_tp_reference(
+                    loader, mixtral, api, linear, gemv, work)
+            t0 = time.perf_counter()
+            ranks = run_ranks(world, jobs, work)
+            ranks_s = time.perf_counter() - t0
+            row = {"phase": "tensor_parallel", "model": "llama_3_2_1b",
+                   "tp": world, "ranks_on_one_card": world,
+                   "layers": cfg.num_hidden_layers, "fmt": "any4",
+                   "group_size": 128, "row_parallel_shards": world,
+                   "quantize_s": quantize_s, "checkpoint_save_s": save_s,
+                   "ranks_s": ranks_s,
+                   "bars": {"bf16": TP_BAR, "f32_activations": TP_BAR,
+                            "dequantized_f32": TP_F32_BAR}}
+            for r in ranks:
+                out = r["llama"]
+                errs = {"rel_err_bf16": rel_err(out["logits_bf16"],
+                                                ref.cpu()),
+                        "rel_err_f32": rel_err(out["logits_f32"],
+                                               ref32.cpu()),
+                        "rel_err_dequantized_f32": rel_err(
+                            out["logits_deq32"], deq32.cpu())}
+                hold(fails, errs["rel_err_bf16"] <= TP_BAR
+                     and errs["rel_err_f32"] <= TP_BAR
+                     and errs["rel_err_dequantized_f32"] <= TP_F32_BAR,
+                     f"tp={world} rank {r['rank']}: logits {errs} of max "
+                     f"from the unsharded forward")
+                hold(fails, out["launches_forward"]["q4_lut_post"]
+                     == per_forward and sum(out["launches_forward"].values())
+                     == per_forward, f"tp={world} rank {r['rank']}: "
+                     f"launches {out['launches_forward']} a forward")
+                hold(fails, torch.equal(out["logits_bf16"],
+                                        ranks[0]["llama"]["logits_bf16"]),
+                     "every rank has the same logits")
+                row.setdefault("ranks", []).append({
+                    "rank": r["rank"], **errs,
+                    "load_shard_s": out["load_shard_s"],
+                    "launches_forward": out["launches_forward"]})
+            launches["q4_lut_post"] += per_forward
+            if world == 2:
+                tp2_checks(row, ranks, ref_tokens, ref_forced, engine_refs,
+                           cfg, per_forward, launches, fails)
+                rows["mixtral"] = mixtral_tp_checks(ranks, mref, fails)
+                launches["q4_lut_post"] += \
+                    rows["mixtral"]["launches_per_rank"]
+            emit(row)
+            if world == 2:
+                emit({"phase": "tensor_parallel_mixtral", "tp": 2,
+                      "layers": MIXTRAL_LAYERS, **rows["mixtral"]})
+            del deq32
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "tensor_parallel_summary",
+          "note": "the ranks share one card, so their times are no scaling "
+                  "figures: they show the all-reduce's cost over gloo",
+          "dense_bf16_float32_partial_rel_err": dense_err,
+          "phase_s": time.perf_counter() - phase0, "failed": fails})
+    check(not fails, "; ".join(fails))
+    return launches
+
+
+def tp_sums_phase(args, checkpoint, llama, api):
+    """``--phase tp_sums``: the spread of the 1B's tensor-parallel logits
+    gap from the unsharded run, with float32 against bf16 partial sums. At
+    each tp size, TP_SUM_CHECKPOINTS checkpoints quantized as phase 16
+    quantizes (k-means on the card is not deterministic, so each is a
+    draw), each with its unsharded reference, and the ranks' logits over
+    phase 16's prompt read twice in each sum (:func:`tp_rank_sums`).
+    Holds nothing but that every rank reads alike; ``tp_sums`` rows."""
+    import tempfile
+    cfg = llama.LlamaConfig.llama_3_2_1b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as work:
+        for world in TP_SIZES:
+            paths, refs = [], []
+            for i in range(TP_SUM_CHECKPOINTS):
+                q = api.quantize_model(params, fmt="any4", group_size=128,
+                                       kmeans_iters=10,
+                                       row_parallel_shards=world)
+                paths.append(os.path.join(work, f"llama_any4_S{world}_{i}"))
+                checkpoint.save_params(paths[-1], q, cfg)
+                refs.append(llama.forward(q, cfg, prompt)[0].float().cpu())
+                del q
+                torch.cuda.empty_cache()
+            ranks = run_ranks(world, {"sums": {"checkpoints": paths,
+                                               "prompt": prompt.cpu()}},
+                              work)
+            errs = {"float32": [], "bf16": []}
+            repeat_equal = ranks_equal = True
+            for i, ref in enumerate(refs):
+                for mode in errs:
+                    a, b = ranks[0]["sums"][i][mode]
+                    repeat_equal &= torch.equal(a, b)
+                    ranks_equal &= all(torch.equal(r["sums"][i][mode][1], a)
+                                       for r in ranks)
+                    errs[mode].append(rel_err(a, ref))
+            emit({"phase": "tp_sums", "tp": world,
+                  "layers": cfg.num_hidden_layers,
+                  "checkpoints": TP_SUM_CHECKPOINTS, "rel_err": errs,
+                  "spread": {m: [min(v), max(v)] for m, v in errs.items()},
+                  "repeat_reads_equal": repeat_equal,
+                  "ranks_equal": ranks_equal, "bar": TP_BAR})
+            check(ranks_equal, f"tp={world}: every rank reads alike")
+    del params
+    torch.cuda.empty_cache()
+
+
+def hold(fails, cond, msg):
+    """A check whose failure is recorded in ``fails`` (raised after the
+    phase's rows are printed, so one run shows every figure)."""
+    if not cond:
+        fails.append(msg)
+
+
+def tp2_checks(row, ranks, ref_tokens, ref_forced, engine_refs, cfg,
+               per_forward, launches, fails):
+    """The tp=2 rows' checks: greedy tokens (the unsharded run's, or split
+    at a near-tie), their teacher-forced logits, exact launches, the step
+    costs, and the TP engine (equal tokens on every rank, exact launches,
+    teacher-forced decode logits within the engine's bars of the single
+    engine's)."""
+    t = PROMPT_LEN
+    for r in ranks:
+        out = r["llama"]
+        hold(fails, torch.equal(out["tokens"], ranks[0]["llama"]["tokens"]),
+             "every rank takes the same greedy tokens")
+        want = per_forward * TP_NEW_TOKENS
+        hold(fails, out["launches_generate"]["q4_lut_post"] == want
+             and sum(out["launches_generate"].values()) == want,
+             f"rank {r['rank']}: greedy decode launches "
+             f"{out['launches_generate']} != {want}")
+        forced = rel_err(out["forced_logits"], ref_forced.cpu())
+        hold(fails, forced <= TP_BAR, f"rank {r['rank']}: teacher-forced "
+             f"logits {forced} of max from the unsharded run's")
+        try:
+            split = tie_split(out["tokens"], ref_tokens.cpu(),
+                              ref_forced.cpu(), t)
+        except RuntimeError as e:
+            fails.append(str(e))
+            split = "outside a near-tie"
+        info = row["ranks"][r["rank"]]
+        info.update(
+            greedy_tokens=TP_NEW_TOKENS, greedy_split_at=split,
+            teacher_forced_rel_err=forced,
+            host_ms_per_token=out["host_ms_per_token"],
+            device_ms_per_step=out["device_ms_per_step"],
+            all_reduce_ms_per_step=out["all_reduce_ms_per_step"],
+            all_reduces_per_step=out["all_reduces_per_step"])
+        hold(fails, out["all_reduces_per_step"] == 2 * cfg.num_hidden_layers,
+             "two all-reduces a layer a step")
+        for layout, q8 in TP_POOLS:
+            key = f"{layout}_{'int8' if q8 else 'bf16'}"
+            eng = out[f"engine_{key}"]
+            name = next(n for n, (lay, q, _) in ATTN_KERNELS.items()
+                        if lay == layout and q == q8)
+            hold(fails, eng["tokens"] == ranks[0]["llama"][f"engine_{key}"]
+                 ["tokens"], f"TP engine {key}: ranks' tokens differ")
+            hold(fails, all(len(x) == SERVE_NEW_TOKENS for x in eng["tokens"]),
+                 f"TP engine {key}: {SERVE_NEW_TOKENS} tokens a request")
+            got = eng["launches"]
+            hold(fails, got["q4_lut_post"] == eng["want_linear"]
+                 and got[name] == eng["want_attention"]
+                 and sum(got.values()) == eng["want_linear"]
+                 + eng["want_attention"], f"TP engine {key}: launches "
+                 f"{got}, want A {eng['want_linear']}, {name} "
+                 f"{eng['want_attention']}")
+            bar = ENGINE_BARS[q8]
+            err = rel_err(eng["forced_logits"], engine_refs[key].cpu())
+            hold(fails, err <= bar, f"TP engine {key}: teacher-forced "
+                 f"logits {err} > {bar} of max from the single engine's")
+            info[f"engine_{key}"] = {
+                "kernel": name, "wall_s": eng["wall_s"],
+                "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / eng["wall_s"],
+                "decode_steps": eng["decode_steps"],
+                "prefill_chunks": eng["prefill_chunks"],
+                "launches": got, "teacher_forced_rel_err": err,
+                "teacher_forced_bar": bar}
+            if r["rank"] == 0:
+                launches["q4_lut_post"] += eng["want_linear"]
+                launches[name] += eng["want_attention"]
+    launches["q4_lut_post"] += per_forward * TP_NEW_TOKENS
+
+
+def mixtral_tp_reference(loader, mixtral, api, linear, gemv, work):
+    """The 2-layer Mixtral-8x7B quantized to any4 g=128 with w2 and o_proj
+    in 2 row segments, saved for the ranks (``torch.save``: the same bytes
+    in every rank); its unsharded forward in sparse dispatch over one
+    token (2 experts a layer run) and in dense dispatch over a 64-token
+    prompt, in bf16 and with float32 activations (the routing recorded)
+    and over the dequantized float32 weights. Returns the ranks' job and
+    the references."""
+    cfg = mixtral_config(loader)
+    params = mixtral.init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    q = api.quantize_model(params, fmt="any4", group_size=128,
+                           kmeans_iters=10, row_parallel_shards=2)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    check(q["layers"][0]["experts"][0]["w2"].row_shards == 2,
+          "Mixtral w2 in 2 row segments")
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda", dtype=torch.int32)
+    ids = {"sparse": prompt[:, :1], "dense": prompt}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    q32, deq32 = to_float32(q, linear), to_float32(q, linear, dequantize=True)
+    ref, records = {}, {}
+    for dispatch, prompt in ids.items():
+        rec, rec32 = [], []
+        with moe_dispatch(mixtral, dispatch):
+            with routing(mixtral, record=rec):
+                gemv.reset_launches()
+                lg = mixtral.forward(q, cfg, prompt)[0].float()
+                launches = gemv.LAUNCHES["q4_lut_post"]
+            with routing(mixtral, record=rec32):
+                lg32 = mixtral.forward(q32, cfg32, prompt)[0]
+            deq = mixtral.forward(deq32, cfg32, prompt)[0]
+        records[dispatch] = {k: [(a.cpu(), b.cpu()) for a, b in r]
+                             for k, r in (("bf16", rec), ("f32", rec32))}
+        ref[dispatch] = (lg.cpu(), lg32.cpu(), deq.cpu(), launches)
+    del q32, deq32
+    path = os.path.join(work, "mixtral_any4_S2.pt")
+    torch.save(to_device(q, "cpu", linear), path)
+    del q
+    torch.cuda.empty_cache()
+    return ({"weights": path, "cfg": cfg, "routing": records,
+             "ids": {k: v.cpu() for k, v in ids.items()}},
+            {"ref": ref, "quantize_s": quantize_s})
+
+
+def mixtral_tp_checks(ranks, mref, fails):
+    """Each rank's Mixtral logits against the unsharded forward's, in each
+    dispatch: bf16 and float32 activations (routed as the unsharded run)
+    within TP_BAR, the dequantized float32 weights within TP_F32_BAR;
+    kernel A's launches a rank equal the unsharded forward's; stacked
+    experts refused."""
+    out = {"quantize_s": mref["quantize_s"], "ranks": [],
+           "bars": {"bf16": TP_BAR, "f32_activations": TP_BAR,
+                    "dequantized_f32": TP_F32_BAR}}
+    for r in ranks:
+        mine = {"rank": r["rank"]}
+        for dispatch, (lg, lg32, deq, want) in mref["ref"].items():
+            got = r["mixtral"][dispatch]
+            bf = rel_err(got["logits_bf16"], lg)
+            f32 = rel_err(got["logits_f32"], lg32)
+            d32 = rel_err(got["logits_deq32"], deq)
+            hold(fails, bf <= TP_BAR and f32 <= TP_BAR and d32 <= TP_F32_BAR,
+                 f"Mixtral tp=2 rank {r['rank']} {dispatch}: logits {bf} "
+                 f"(bf16), {f32} (float32 activations), {d32} (dequantized "
+                 f"float32) of max from the unsharded run")
+            hold(fails, got["launches"]["q4_lut_post"] == want and sum(
+                got["launches"].values()) == want, f"Mixtral tp=2 "
+                f"{dispatch}: launches {got['launches']} != {want}")
+            mine[dispatch] = {"rel_err_bf16": bf, "rel_err_f32": f32,
+                              "rel_err_dequantized_f32": d32,
+                              "launches": want,
+                              "routing_flips": got["routing_flips"]}
+        hold(fails, r["mixtral"]["stacked_raised"] is not None
+             and "stacked experts" in r["mixtral"]["stacked_raised"],
+             "stacked experts at tp=2 raise ValueError")
+        out["ranks"].append(mine)
+    out["launches_per_rank"] = sum(v[3] for v in mref["ref"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the native host data plane
+# ---------------------------------------------------------------------------
+
+def native_phase(native, quant, packing, api, linear):
+    """``native.available()`` on the card's host; the native pack and
+    ``group_quantize`` bit for bit against the torch functions on the card
+    at NATIVE_SHAPES, each timed beside the torch CPU path on the same
+    numpy array (``torch.from_numpy``, ``group_quantize``, ``pack_codes``:
+    what the host path ran without the C++); ``cli.quantize --cpu --fmt
+    int4 --tiny`` on the host path with the device path's codes for the
+    same weights."""
+    from any4_tpu_torch.cli import quantize as quantize_cli
+    from any4_tpu_torch.models import llama
+    import tempfile
+    check(native.available(), "the native data plane builds on the card's "
+          "host")
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n, k in NATIVE_SHAPES:
+        w = torch.randn((n, k), generator=gen, device="cuda")
+        host = w.cpu().numpy()
+        t0 = time.perf_counter()
+        c0, s0, z0 = native.group_quantize(host, 4, 128)
+        gq_s = time.perf_counter() - t0
+        c1, s1, z1 = quant.group_quantize(w, 4, 128)
+        t0 = time.perf_counter()
+        p0 = native.pack_int4(c0)
+        pack_s = time.perf_counter() - t0
+        p1 = packing.pack_codes(c1)
+        t0 = time.perf_counter()
+        c2, _, _ = quant.group_quantize(torch.from_numpy(host), 4, 128)
+        packing.pack_codes(c2)
+        torch_cpu_s = time.perf_counter() - t0
+        same = {"codes": np.array_equal(c0, c1.cpu().numpy()),
+                "scales": np.array_equal(s0, s1.cpu().numpy()),
+                "zeros": np.array_equal(z0, z1.cpu().numpy()),
+                "packed": np.array_equal(p0, p1.cpu().numpy())}
+        check(all(same.values()), f"native vs torch on the card at {n}x{k}: "
+              f"{same}")
+        rows.append({"n": n, "k": k, "bit_equal": same,
+                     "group_quantize_s": gq_s, "pack_s": pack_s,
+                     "native_s": gq_s + pack_s,
+                     "torch_cpu_s": torch_cpu_s,
+                     "torch_cpu_threads": torch.get_num_threads()})
+        del w, c1, s1, z1, p1
+    with tempfile.TemporaryDirectory() as d:
+        (host, cfg), lines = run_cli(quantize_cli.main, [
+            "--cpu", "--tiny", "--fmt", "int4", "--output", d])
+    check(f"native data plane: on ({native.num_threads()} threads)" in lines
+          and "quantizing host-side through the native data plane" in lines,
+          f"cli.quantize --fmt int4 takes the host path: {lines[:3]}")
+    dev = api.quantize_model(to_device(llama.init_params(
+        cfg, seed=0, device="cpu"), "cuda", linear), fmt="int4")
+    n_same = 0
+    for i, layer in enumerate(dev["layers"]):
+        for name, qt in layer.items():
+            if isinstance(qt, linear.QuantizedTensor):
+                got = host["layers"][i][name]
+                check(got.fmt == qt.fmt and all(
+                    torch.equal(getattr(got, f), getattr(qt, f).cpu())
+                    for f in ("packed", "scales", "zeros")),
+                      f"cli.quantize host path {name}: the device path's "
+                      f"codes")
+                n_same += 1
+    emit({"phase": "native", "threads": native.num_threads(),
+          "shapes": rows, "cli_quantize_host_path_weights_equal": n_same})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the 1B model's depth (default: all 16)")
-    ap.add_argument("--phase", choices=["evals"], default=None,
-                    help="run only this phase, on phase 4's models, after "
-                         "the build; prints no kernels line and no result")
+    ap.add_argument("--phase", choices=["evals", "tensor_parallel",
+                                        "tp_sums"],
+                    default=None,
+                    help="run only this phase after the build (evals on "
+                         "phase 4's models; tensor_parallel with its kernel "
+                         "checks and the native phase; tp_sums, the spread "
+                         "of the TP logits gap, runs in no other way); "
+                         "prints no kernels line and no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from any4_tpu_torch import native
+    from any4_tpu_torch.models import checkpoint
     from any4_tpu_torch.models import fuse, generate as gen_mod, llama
     from any4_tpu_torch.models import loader, mixtral, opt
     from any4_tpu_torch.ops import build, gemv, linear, packing, quant
@@ -4171,6 +5124,21 @@ def main():
                                api)
         emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,
               "layers": cfg.num_hidden_layers, "launches": launches})
+        print(smi, flush=True)
+        return
+    if args.phase == "tp_sums":
+        tp_sums_phase(args, checkpoint, llama, api)
+        emit({"phase": "wall", "wall_s": time.perf_counter() - wall0})
+        print(smi, flush=True)
+        return
+    if args.phase == "tensor_parallel":
+        tp_kernel_checks(gemv, packing, linear, kvc, bw, peak)
+        launches = tensor_parallel_phase(args, loader, checkpoint, llama,
+                                         mixtral, gen_mod, api, linear, gemv,
+                                         kvc, teng)
+        native_phase(native, quant, packing, api, linear)
+        emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,
+              "launches": launches})
         print(smi, flush=True)
         return
     for source, keep in ((SOURCE, "post_mma"), (W4A8_SOURCE, "a8_mma")):
@@ -4240,7 +5208,8 @@ def main():
     qparams = to_device(qparams, "cpu", linear)
     del qtable
     torch.cuda.empty_cache()
-    # each kernel's launches in the main path that carries it
+    # each kernel's launches in the main path that carries it, at the
+    # depths of MAIN_DEPTHS
     for fmt, names in (("any4_g64", ("q4_lut_fused",)),
                        ("int8_g64", ("int8_fused",)),
                        ("int4", ("q4_int4_magic",)),
@@ -4248,7 +5217,7 @@ def main():
                        ("int8", ("int8_post",)),
                        ("w8a8", ("w8a8", "w8a8_fused")), ("any4q8", ())):
         got, qf, cfg = int_main_path(args, fmt, gemv, llama, gen_mod, api,
-                                     linear)
+                                     linear, layers=MAIN_DEPTHS.get(fmt))
         launches.update({k: got[k] for k in names})
         if fmt != "any4q8":
             int_serving(teng, gemv, kvc, linear, qf, cfg, fmt,
@@ -4260,8 +5229,8 @@ def main():
     launches["q4_lut_fused"] += mx4_path(args, gemv, llama, gen_mod, api,
                                          linear)["q4_lut_fused"]
     torch.cuda.empty_cache()
-    # the row-scale formats at 2 layers: the full depth goes to the paths
-    # above
+    # the row-scale formats at 2 layers: their kernels run more layers in
+    # the paths above
     for fmt, names in (("int8r", ("int8_post",)),
                        ("w8a8r", ("w8a8", "w8a8_fused")),
                        ("any4q8r", ("w8a8", "w8a8_fused"))):
@@ -4319,6 +5288,17 @@ def main():
                                    gen_mod, api).items():
         launches[name] += count
     del params, qparams
+    # tensor parallelism (phase 16: the kernels at its shapes, then the
+    # ranks) and the native data plane (phase 17)
+    torch.cuda.empty_cache()
+    tp_rows, tp_attn = tp_kernel_checks(gemv, packing, linear, kvc, bw, peak)
+    tp_launches = tensor_parallel_phase(args, loader, checkpoint, llama,
+                                        mixtral, gen_mod, api, linear, gemv,
+                                        kvc, teng)
+    launches["q4_lut_post"] += tp_launches.pop("q4_lut_post")
+    for name, count in tp_launches.items():
+        attn_launches[name] += count
+    native_phase(native, quant, packing, api, linear)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -4345,7 +5325,11 @@ def main():
                 "any4 model; evals: the any4 g=128 model's chunked and "
                 "stream perplexity (2048-token windows), the LM protocol's "
                 "loglikelihood, rolling, generate_until, local_mc and code "
-                "tasks, and the eval script's tiny any4 model"
+                "tasks, and the eval script's tiny any4 model; rank 0's "
+                "tensor-parallel paths: the 1B's forward at tp=2 and 4, its "
+                "32 greedy tokens and TP engine runs (paged and contig, "
+                "bf16 and int8 pools) at tp=2, and the 2-layer Mixtral's "
+                "sparse and dense forwards at tp=2"
                 if name == "q4_lut_post" else
                 "generate at b=1 and 4 over the any4 g=64 model and at b=1 "
                 "over the mx4 (g=32) model; evals: the eval script's tiny "
@@ -4364,12 +5348,14 @@ def main():
                                             "max_abs_err")}
                 for r in fused_rows}
             kernels[-1]["kxk"] = kxk["q4_lut_post"]
-            kernels[-1]["mixtral_shapes"] = {
-                f"{r['weight']}_{r['n']}x{r['k']}_m{r['m']}": {
-                    key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms",
-                                            "max_abs_err")}
-                for r in mixtral_rows}
+            for key, shape_rows in (("mixtral_shapes", mixtral_rows),
+                                    ("tp_shapes", tp_rows)):
+                kernels[-1][key] = {
+                    f"{r['weight']}_{r['n']}x{r['k']}_m{r['m']}": {
+                        k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err")}
+                    for r in shape_rows}
         else:
             kernels[-1]["by_m"] = by_m(rows, name, spec["ms"])
     for name, (layout, q8, replaces) in ATTN_KERNELS.items():
@@ -4388,7 +5374,14 @@ def main():
                          f"the engine's run(burst=1) in the {layout} "
                          f"{'int8' if q8 else 'bf16'} combination"
                          + (" and the Mixtral engine's" if name ==
-                            "flash_paged_decode" else ""))})
+                            "flash_paged_decode" else "")
+                         + (" and rank 0's TP engine at tp=2" if
+                            (layout, q8) in TP_POOLS else ""))})
+        kernels[-1]["tp_heads"] = {
+            f"h{r['h']}_b{r['b']}_ctx{r['ctx']}": {
+                k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "max_abs_err")}
+            for r in tp_attn if r["name"] == name}
         if name == "flash_paged_decode":
             kernels[-1]["mixtral_shape"] = {
                 k: attn_mixtral[k] for k in (
@@ -4409,7 +5402,7 @@ def main():
                               if lut == "ramp" else
                               f"generate at b=1 and 4 over the "
                               f"{'int4' if name == 'q4_int4_magic' else 'w4a8'}"
-                              f" model")})
+                              f" model (4 layers)")})
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int_rows, name, INT_KERNELS[name][2],
                                        lut)
@@ -4427,12 +5420,13 @@ def main():
                          f" g={g}"),
             "launches_from": (
                 "generate at b=1 and 4 over the "
-                + {"int8_fused": "int8 g=64 model",
-                   "int8_post": "int8 model and the 2-layer int8r model",
-                   "w8a8": "w8a8 model and the 2-layer w8a8r and any4q8r "
-                           "models",
-                   "w8a8_fused": "w8a8 model and the 2-layer w8a8r and "
-                                 "any4q8r models"}[name])})
+                + {"int8_fused": "int8 g=64 model (4 layers)",
+                   "int8_post": "4-layer int8 model and the 2-layer int8r "
+                                "model",
+                   "w8a8": "4-layer w8a8 model and the 2-layer w8a8r and "
+                           "any4q8r models",
+                   "w8a8_fused": "4-layer w8a8 model and the 2-layer w8a8r "
+                                 "and any4q8r models"}[name])})
         if name in gemv.POST_KERNELS:
             kernels[-1]["by_m"] = by_m(int8_rows, name, INT8_KERNELS[name][2])
     emit({"phase": "wall", "wall_s": time.perf_counter() - wall0,

@@ -266,10 +266,15 @@ def test_scripts_need_a_gpu_without_cpu_flag(name):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _run(quantize.main, ["--cpu", "--tiny", "--fmt", "int4",
-                             "--row-parallel-shards", "2",
-                             "--output", str(tmp_path)])
+    # --row-parallel-shards (item 12) is ported: the row-parallel weights
+    # are packed in 2 k segments, and the checkpoint keeps them so
+    qparams, _ = _run(quantize.main, ["--cpu", "--tiny", "--fmt", "int4",
+                                      "--row-parallel-shards", "2",
+                                      "--output", str(tmp_path / "q")])[0]
+    assert qparams["layers"][0]["down_proj"].row_shards == 2
+    assert qparams["layers"][0]["q_proj"].row_shards == 1
+    back, _ = checkpoint.load_params(str(tmp_path / "q"), device="cpu")
+    assert back["layers"][1]["o_proj"].row_shards == 2
     # --dataset goes through evals.datasets: where Hugging Face's datasets
     # cannot load the task it raises DatasetUnavailable (the import is made
     # to fail here, so that nothing reaches for the network)

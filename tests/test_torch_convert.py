@@ -94,8 +94,60 @@ def test_unported_format_raises():
 
 
 def test_row_shards_raise():
+    """A JAX weight packed in 2 row shards (its k segments padded on their
+    own) now carries across: it dequantizes to JAX's bits, packs as the
+    port's own ``row_shards=2`` weight, and goes back unchanged. int8p,
+    which takes no row shards in the JAX package, is refused."""
     w = np.random.default_rng(2).standard_normal((16, 2048)).astype(
         np.float32)
     qt = jlin.quantize_tensor(jnp.asarray(w), "nf4", 128, row_shards=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
+    port = convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
+    assert port.row_shards == 2
+    np.testing.assert_array_equal(
+        tlin.dequantize_tensor(port, torch.float32).numpy(),
+        np.asarray(jlin.dequantize_tensor(qt, jnp.float32)))
+    own = tlin.quantize_tensor(torch.from_numpy(w), "nf4", 128,
+                               row_shards=2)
+    for f in ("packed", "scales"):
+        assert torch.equal(getattr(port, f), getattr(own, f)), f
+    back = convert.qt_to_jax(port)
+    for f in ("packed", "scales", "zeros"):
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(qt, f)))
+    with pytest.raises(ValueError, match="row_shards"):
+        tlin.quantize_tensor(torch.from_numpy(w), "int8p", 128,
+                             row_shards=2)
+
+
+# every format the JAX package packs in row shards (int8p takes none):
+# the name asked for, "row" where the row layout keeps it
+ROW_SHARD_FMTS = ["any4:row", "any4t", "nf4:row", "nf4t", "fp4t", "mx4",
+                  "int4:row", "int4p", "w4a8", "int8:row", "int8q", "int8t",
+                  "int8g", "w8a8:row", "w8a8q", "w8a8t", "w8a8g", "any4q8",
+                  "any4q8g", "int8r", "w8a8r", "any4q8r"]
+
+
+@pytest.mark.parametrize("name", ROW_SHARD_FMTS)
+def test_row_sharded_round_trip(name):
+    """Each layout carries k = 2560 in 2 segments of 1280, each padded to
+    2048: the port's weight dequantizes to JAX's and goes back to the same
+    fields, and the port's forward of the unsharded S-segment weight on
+    the full x (``_shard_align_x``) is its dequantized product."""
+    fmt, _, layout = name.partition(":")
+    g = 32 if fmt == "mx4" else 128
+    kw = dict(kmeans_iters=2, init="int") if "any4" in fmt else {}
+    if layout:
+        kw["layout"] = layout
+    qt = _jax_qt(fmt, 16, 2560, g, seed=3, row_shards=2, **kw)
+    assert qt.fmt == fmt and qt.row_shards == 2
+    port = convert.qt_from_jax(jax_to_numpy(qt), device="cpu")
+    np.testing.assert_allclose(
+        tlin.dequantize_tensor(port, torch.float32).numpy(),
+        np.asarray(jlin.dequantize_tensor(qt, jnp.float32)),
+        rtol=1e-6, atol=1e-6)
+    back = convert.qt_to_jax(port)
+    for f in ("packed", "scales"):
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(qt, f)))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 2560)).astype(np.float32))
+    ref = x @ tlin.dequantize_tensor(port, torch.float32).t()
+    assert_close_max(tlin.linear(x, port).float(), ref.numpy(), 2e-2)

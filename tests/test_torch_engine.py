@@ -9,9 +9,9 @@ seed. The dense f32 models must give the same tokens, token for token;
 the any4 model is held by ``_both``'s tie rule (its teacher-forced logits
 within ``QUANT_TIE`` of JAX's, and its tokens equal up to the first
 near-tie). The cases mirror
-``tests/test_serving.py`` without tensor parallelism, which the port does
-not have yet (quantized embeddings and fused projections:
-``tests/test_torch_fuse.py``; MoE layers: ``tests/test_torch_mixtral.py``).
+``tests/test_serving.py`` (quantized embeddings and fused projections:
+``tests/test_torch_fuse.py``; MoE layers: ``tests/test_torch_mixtral.py``;
+the tensor-parallel engine: ``tests/test_torch_parallel.py``).
 """
 import dataclasses
 
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from any4_tpu.models import llama as jllama
 from any4_tpu.quant import api as japi
@@ -27,6 +28,7 @@ from any4_tpu.serving import engine as jeng
 from any4_tpu_torch import convert
 from any4_tpu_torch.models import llama
 from any4_tpu_torch.ops import linear as lin
+from any4_tpu_torch.parallel import tp as tpar
 from any4_tpu_torch.serving import engine as teng
 from any4_tpu_torch.serving import kv_cache as tkv
 from test_torch_convert import jax_to_numpy
@@ -285,10 +287,26 @@ def test_decode_clamps_stale_seq_len(models):
         assert int(changed.sum()) == 2
 
 
-def test_engine_leaves_out_what_is_not_ported(models):
+def test_engine_leaves_out_what_is_not_ported(models, tmp_path):
     jp, jcfg, tp, tcfg = models["f32"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.Engine(tp, tcfg, mesh=object(), param_spec={}, device="cpu")
+    # tensor parallelism (item 12) is served: a one-rank world's TP engine
+    # gives the single engine's tokens (more ranks:
+    # tests/test_torch_parallel.py); mesh without param_spec is refused
+    with pytest.raises(ValueError, match="together"):
+        teng.Engine(tp, tcfg, mesh=object(), device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        mesh = tpar.make_mesh(dp=1, tp=1, device="cpu")
+        local, specs = tpar.shard_params(tp, mesh)
+        prompts = _prompts(2, (5, 11))
+        want, _ = _serve(teng, tp, tcfg, prompts, 4, max_slots=2,
+                         max_ctx=32, page_size=8)
+        got, e = _serve(teng, local, tcfg, prompts, 4, max_slots=2,
+                        max_ctx=32, page_size=8, mesh=mesh, param_spec=specs)
+        assert got == want and e.mesh is mesh
+    finally:
+        dist.destroy_process_group()
     # MoE layers (item 9) are served (tests/test_torch_mixtral.py)
     moe = {**tp, "layers": [{**tp["layers"][0], "experts": {}}]}
     assert teng.Engine(moe, tcfg, device="cpu").params is moe

@@ -105,6 +105,25 @@ def test_linear_fused_m_max_zero_dequantizes(monkeypatch):
     np.testing.assert_array_equal(y.float().numpy(), ref.float().numpy())
 
 
+@pytest.mark.parametrize("fmt", ["any4", "nf4", "int4", "w4a8", "int8",
+                                 "w8a8", "dense"])
+def test_linear_out_dtype_keeps_float32_sums(fmt):
+    """``out_dtype=float32`` gives the sums before the rounding to x's
+    dtype: rounded to bf16 they are the default output, and for the LUT
+    kernels they are the output of float32 x (which the kernel rounds to
+    bf16 itself)."""
+    w = torch.from_numpy(_w(64, 1024))
+    kw = dict(kmeans_iters=2) if fmt == "any4" else {}
+    qt = w if fmt == "dense" else tlin.quantize_tensor(w, fmt, 128, **kw)
+    x = torch.from_numpy(_w(3, 1024, seed=5)).to(torch.bfloat16)
+    y32 = tlin.linear(x, qt, out_dtype=torch.float32)
+    y = tlin.linear(x, qt)
+    assert y32.dtype == torch.float32 and y.dtype == torch.bfloat16
+    assert torch.equal(y32.to(torch.bfloat16), y)
+    if fmt in ("any4", "nf4"):
+        assert torch.equal(y32, tlin.linear(x.float(), qt))
+
+
 def test_dense_linear_matches_jax():
     w = _w(48, 80, seed=6)
     x = _w(5, 80, seed=7)

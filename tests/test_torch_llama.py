@@ -11,7 +11,7 @@ numpy. Bars:
 - both packages quantizing the same weights with the deterministic nf4
   init: LUTs within 1e-4;
 - checkpoints written by either package load in the other and give the
-  same logits.
+  same logits, row-sharded weights (``row_parallel_shards``) included.
 """
 import dataclasses
 
@@ -178,6 +178,37 @@ def test_checkpoint_port_to_jax(any4_pair, tmp_path):
     back, _ = checkpoint.load_params(str(tmp_path), device="cpu")
     np.testing.assert_array_equal(_port_logits(back, tcfg, ids).numpy(),
                                   _port_logits(tq, tcfg, ids).numpy())
+
+
+def test_checkpoint_row_sharded_round_trip(tmp_path):
+    """A model quantized with ``row_parallel_shards=2`` (o_proj and
+    down_proj packed in 2 k segments) is saved by either package with its
+    ``row_shards`` and loads in the other with the same logits; the port's
+    logits are within the kernel bar of JAX's."""
+    jcfg, tcfg = _configs("llama", dtype="float32")
+    dense = jllama.init_params(jcfg, jax.random.PRNGKey(3))
+    jq = japi.quantize_model(dense, fmt="int4", group_size=32,
+                             row_parallel_shards=2)
+    tq = convert.from_jax_params(jax_to_numpy(jq), device="cpu")
+    assert tq["layers"][0]["down_proj"].row_shards == 2
+    assert tq["layers"][0]["q_proj"].row_shards == 1
+    ids = _ids(t=7, seed=9)
+    want = _port_logits(tq, tcfg, ids).numpy()
+    assert_close_max(want, _jax_logits(jq, jcfg, ids), 2e-2)
+    jckpt.save_params(str(tmp_path / "jax"), jq, jcfg)
+    params, _ = checkpoint.load_params(str(tmp_path / "jax"), device="cpu")
+    np.testing.assert_array_equal(_port_logits(params, tcfg, ids).numpy(),
+                                  want)
+    checkpoint.save_params(str(tmp_path / "port"), tq, tcfg)
+    jparams, _ = jckpt.load_params(str(tmp_path / "port"))
+    assert jparams["layers"][1]["o_proj"].row_shards == 2
+    for f in ("packed", "scales", "zeros"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jparams["layers"][1]["o_proj"], f)),
+            np.asarray(getattr(jq["layers"][1]["o_proj"], f)))
+    back, _ = checkpoint.load_params(str(tmp_path / "port"), device="cpu")
+    np.testing.assert_array_equal(_port_logits(back, tcfg, ids).numpy(),
+                                  want)
 
 
 def test_checkpoint_dense_bf16_round_trip(tmp_path):
