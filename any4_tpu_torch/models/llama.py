@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import linear as lin
+from ..tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,28 +251,31 @@ def attention(layer: Dict, cfg: LlamaConfig, x: torch.Tensor,
     if kv_cache is not None:
         kc, vc = kv_cache
         p = 0 if cache_pos is None else int(cache_pos)
-        kc[:, p:p + t] = k.to(kc.dtype)
-        vc[:, p:p + t] = v.to(vc.dtype)
+        with span("any4.kv.write"):
+            kc[:, p:p + t] = k.to(kc.dtype)
+            vc[:, p:p + t] = v.to(vc.dtype)
         k_all, v_all = kc, vc
     else:
         k_all, v_all = k, v
 
-    rep = nq // nkv
-    kx = torch.repeat_interleave(k_all, rep, dim=2)
-    vx = torch.repeat_interleave(v_all, rep, dim=2)
-    if cfg.query_pre_attn_scalar is not None:  # gemma2
-        scale = cfg.query_pre_attn_scalar ** -0.5
-    else:
-        scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("bthd,bshd->bhts", q.float(), kx.float()) * scale
-    if cfg.attn_logit_softcapping is not None:  # gemma2, before the mask
-        cap = cfg.attn_logit_softcapping
-        logits = cap * torch.tanh(logits / cap)
-    if mask is not None:
-        logits = logits + mask
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhts,bshd->bthd", probs, vx.to(x.dtype))
-    out = out.reshape(b, t, nq * hd)
+    with span("any4.attn.prefill"):
+        rep = nq // nkv
+        kx = torch.repeat_interleave(k_all, rep, dim=2)
+        vx = torch.repeat_interleave(v_all, rep, dim=2)
+        if cfg.query_pre_attn_scalar is not None:  # gemma2
+            scale = cfg.query_pre_attn_scalar ** -0.5
+        else:
+            scale = 1.0 / math.sqrt(hd)
+        logits = torch.einsum("bthd,bshd->bhts", q.float(),
+                              kx.float()) * scale
+        if cfg.attn_logit_softcapping is not None:  # gemma2, before the mask
+            cap = cfg.attn_logit_softcapping
+            logits = cap * torch.tanh(logits / cap)
+        if mask is not None:
+            logits = logits + mask
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshd->bthd", probs, vx.to(x.dtype))
+        out = out.reshape(b, t, nq * hd)
     if capture is not None:
         _capture(capture, f"{prefix}o_proj", out)
     out = row_parallel(out, layer["o_proj"], layer.get("o_bias"), tp_group,
@@ -345,28 +349,35 @@ def forward(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
     eps, off = cfg.rms_norm_eps, cfg.rms_norm_offset
     for i, layer in enumerate(params["layers"]):
         cap = dict(capture=capture, prefix=f"layers.{i}.", tp_group=tp_group)
-        h = rms_norm(x, layer["input_layernorm"], eps, off)
-        attn_out, _ = attention(
-            layer, cfg, h, cos, sin,
-            None if kv_caches is None else kv_caches[i],
-            cache_pos, sl_mask if cfg.is_sliding(i) else mask, **cap, **kw)
-        if cfg.sandwich_norms:  # gemma2: norm the attn output, then add
-            attn_out = rms_norm(attn_out, layer["post_attention_layernorm"],
-                                eps, off)
+        with span("any4.model.attn"):
+            h = rms_norm(x, layer["input_layernorm"], eps, off)
+            attn_out, _ = attention(
+                layer, cfg, h, cos, sin,
+                None if kv_caches is None else kv_caches[i],
+                cache_pos, sl_mask if cfg.is_sliding(i) else mask, **cap,
+                **kw)
+            if cfg.sandwich_norms:  # gemma2: norm the attn output, then add
+                attn_out = rms_norm(attn_out,
+                                    layer["post_attention_layernorm"], eps,
+                                    off)
             x = x + attn_out
-            h = rms_norm(x, layer["pre_feedforward_layernorm"], eps, off)
-            m = mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
-            x = x + rms_norm(m, layer["post_feedforward_layernorm"], eps, off)
-        else:
-            x = x + attn_out
-            h = rms_norm(x, layer["post_attention_layernorm"], eps, off)
-            x = x + mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
+        with span("any4.model.ffn"):
+            if cfg.sandwich_norms:
+                h = rms_norm(x, layer["pre_feedforward_layernorm"], eps, off)
+                m = mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
+                x = x + rms_norm(m, layer["post_feedforward_layernorm"], eps,
+                                 off)
+            else:
+                h = rms_norm(x, layer["post_attention_layernorm"], eps, off)
+                x = x + mlp(layer, h, act=cfg.hidden_act, **cap, **kw)
 
-    x = rms_norm(x, params["norm"], eps, off)
-    logits = head(params, x, **kw)
-    if cfg.final_logit_softcapping is not None:  # gemma2
-        cap = cfg.final_logit_softcapping
-        logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
+    with span("any4.model.head"):
+        x = rms_norm(x, params["norm"], eps, off)
+        logits = head(params, x, **kw)
+        if cfg.final_logit_softcapping is not None:  # gemma2
+            cap = cfg.final_logit_softcapping
+            logits = (cap * torch.tanh(logits.float() / cap)).to(
+                logits.dtype)
     return logits, kv_caches
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import linear as lin
+from ..tracing import span
 from . import llama
 
 
@@ -129,49 +130,51 @@ def moe_ffn(layer: Dict, cfg: MixtralConfig, x: torch.Tensor,
             "they are not sharded, and the all-reduce would count every "
             "expert once a rank; use the per-expert layout")
     b, t, d = x.shape
-    topi, gate = route(layer, cfg, x)
+    with span("any4.moe.route"):
+        topi, gate = route(layer, cfg, x)
     E = cfg.num_local_experts
 
-    if "moe_w13" in layer:  # stacked experts (models/fuse.stack_experts)
-        gu = lin.linear(x, layer["moe_w13"], **kw)            # [b, t, E*2f]
-        f = gu.shape[-1] // (2 * E)
-        gu = gu.reshape(b, t, E, 2, f).float()
-        h = torch.nn.functional.silu(gu[..., 0, :]).to(x.dtype) * \
-            gu[..., 1, :].to(x.dtype)                          # [b, t, E, f]
-        # the routing weight of each expert folds into w2's input segments
-        wts = (torch.nn.functional.one_hot(topi, E).float()
-               * gate[..., None]).sum(dim=-2)                  # [b, t, E]
-        hw = (h.float() * wts[..., None]).to(x.dtype)
-        y = lin.linear(hw.reshape(b, t, E * f), layer["moe_w2"], **kw)
-        return y.to(x.dtype)
+    with span("any4.moe.experts"):
+        if "moe_w13" in layer:  # stacked experts (models/fuse.stack_experts)
+            gu = lin.linear(x, layer["moe_w13"], **kw)        # [b, t, E*2f]
+            f = gu.shape[-1] // (2 * E)
+            gu = gu.reshape(b, t, E, 2, f).float()
+            h = torch.nn.functional.silu(gu[..., 0, :]).to(x.dtype) * \
+                gu[..., 1, :].to(x.dtype)                      # [b, t, E, f]
+            # the routing weight of each expert folds into w2's input segments
+            wts = (torch.nn.functional.one_hot(topi, E).float()
+                   * gate[..., None]).sum(dim=-2)              # [b, t, E]
+            hw = (h.float() * wts[..., None]).to(x.dtype)
+            y = lin.linear(hw.reshape(b, t, E * f), layer["moe_w2"], **kw)
+            return y.to(x.dtype)
 
-    if dispatch == "auto":
-        dispatch = ("sparse" if _sparse_pays(b * t, cfg.num_experts_per_tok,
-                                             E) else "dense")
-    if capture is not None:
-        llama._capture(capture, f"{prefix}moe", x)
-        dispatch = "dense"
-    routed = (set(topi.unique().tolist()) if dispatch == "sparse"
-              else range(E))
-
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e, expert in enumerate(layer["experts"]):
-        if e not in routed:
-            continue
-        if "w13" in expert:   # fused gate/up (models/fuse.py)
-            gu = lin.linear(x, expert["w13"], **kw)
-            f2 = gu.shape[-1] // 2
-            g, u = gu[..., :f2], gu[..., f2:]
-        else:
-            g = lin.linear(x, expert["w1"], **kw)
-            u = lin.linear(x, expert["w3"], **kw)
-        h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        if dispatch == "auto":
+            dispatch = ("sparse" if _sparse_pays(
+                b * t, cfg.num_experts_per_tok, E) else "dense")
         if capture is not None:
-            llama._capture(capture, f"{prefix}experts.{e}.w2", h)
-        ye = lin.linear(h, expert["w2"], **kw).float()
-        weight = torch.where(topi == e, gate, 0.0).sum(dim=-1)   # [b, t]
-        out = out + ye * weight[..., None]
-    return llama.tp_all_reduce(out, tp_group).to(x.dtype)
+            llama._capture(capture, f"{prefix}moe", x)
+            dispatch = "dense"
+        routed = (set(topi.unique().tolist()) if dispatch == "sparse"
+                  else range(E))
+
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for e, expert in enumerate(layer["experts"]):
+            if e not in routed:
+                continue
+            if "w13" in expert:   # fused gate/up (models/fuse.py)
+                gu = lin.linear(x, expert["w13"], **kw)
+                f2 = gu.shape[-1] // 2
+                g, u = gu[..., :f2], gu[..., f2:]
+            else:
+                g = lin.linear(x, expert["w1"], **kw)
+                u = lin.linear(x, expert["w3"], **kw)
+            h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+            if capture is not None:
+                llama._capture(capture, f"{prefix}experts.{e}.w2", h)
+            ye = lin.linear(h, expert["w2"], **kw).float()
+            weight = torch.where(topi == e, gate, 0.0).sum(dim=-1)   # [b, t]
+            out = out + ye * weight[..., None]
+        return llama.tp_all_reduce(out, tp_group).to(x.dtype)
 
 
 def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
@@ -199,14 +202,17 @@ def forward(params: Dict, cfg: MixtralConfig, input_ids: torch.Tensor,
     eps = cfg.rms_norm_eps
     for i, layer in enumerate(params["layers"]):
         cap = dict(capture=capture, prefix=f"layers.{i}.", tp_group=tp_group)
-        h = llama.rms_norm(x, layer["input_layernorm"], eps)
-        attn_out, _ = llama.attention(
-            layer, cfg, h, cos, sin,
-            None if kv_caches is None else kv_caches[i], cache_pos, mask,
-            **cap, **kw)
-        x = x + attn_out
-        h = llama.rms_norm(x, layer["post_attention_layernorm"], eps)
-        x = x + moe_ffn(layer, cfg, h, **cap, **kw)
+        with span("any4.model.attn"):
+            h = llama.rms_norm(x, layer["input_layernorm"], eps)
+            attn_out, _ = llama.attention(
+                layer, cfg, h, cos, sin,
+                None if kv_caches is None else kv_caches[i], cache_pos, mask,
+                **cap, **kw)
+            x = x + attn_out
+        with span("any4.model.ffn"):
+            h = llama.rms_norm(x, layer["post_attention_layernorm"], eps)
+            x = x + moe_ffn(layer, cfg, h, **cap, **kw)
 
-    x = llama.rms_norm(x, params["norm"], eps)
-    return llama.head(params, x, **kw), kv_caches
+    with span("any4.model.head"):
+        x = llama.rms_norm(x, params["norm"], eps)
+        return llama.head(params, x, **kw), kv_caches

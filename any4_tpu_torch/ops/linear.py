@@ -50,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..tracing import span
 from . import gemv, packing, quant
 from .formats import get_table
 from .quant import quantize_activations
@@ -465,44 +466,46 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     the kernels' float32 sums (and a dense matmul's, on the card) without
     the rounding to x's dtype.
     """
-    m = x.numel() // x.shape[-1]
-    out_dtype = out_dtype or x.dtype
-    if not isinstance(w, QuantizedTensor):
-        y = _matmul(x, w.to(x.dtype), out_dtype)
-    elif w.fmt in GROUPED_FMTS and m > _XLA_GROUPED_M_MAX:
-        y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
-    elif w.fmt in ACT_INT8_FMTS:
-        y = _act_int8_linear(_shard_align_x(x, w), w, fused_m_max, out_dtype)
-    elif w.fmt == "int8g":
-        y = gemv.quantized_matmul(_shard_align_x(x, w), w.packed, w.scales,
-                                  w.zeros,
-                                  group_size=w.group_size, out_dtype=out_dtype,
-                                  fmt="int8g")
-    elif fused_m_max > 0:
-        kfmt = _kernel_fmt(w.fmt, w.lut)
-        g = _kernel_group(w)
-        # JAX's int8r multiplies bf16 x but sums x as it comes; the kernel
-        # sums bf16 x, so float32 or float16 x gets the difference below
-        fix = w.fmt == "int8r" and x.dtype != torch.bfloat16
-        kernel_dtype = torch.float32 if fix else out_dtype
+    with span("any4.linear"):
+        m = x.numel() // x.shape[-1]
+        out_dtype = out_dtype or x.dtype
+        if not isinstance(w, QuantizedTensor):
+            y = _matmul(x, w.to(x.dtype), out_dtype)
+        elif w.fmt in GROUPED_FMTS and m > _XLA_GROUPED_M_MAX:
+            y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
+        elif w.fmt in ACT_INT8_FMTS:
+            y = _act_int8_linear(_shard_align_x(x, w), w, fused_m_max,
+                                 out_dtype)
+        elif w.fmt == "int8g":
+            y = gemv.quantized_matmul(_shard_align_x(x, w), w.packed,
+                                      w.scales, w.zeros,
+                                      group_size=w.group_size,
+                                      out_dtype=out_dtype, fmt="int8g")
+        elif fused_m_max > 0:
+            kfmt = _kernel_fmt(w.fmt, w.lut)
+            g = _kernel_group(w)
+            # JAX's int8r multiplies bf16 x but sums x as it comes; the kernel
+            # sums bf16 x, so float32 or float16 x gets the difference below
+            fix = w.fmt == "int8r" and x.dtype != torch.bfloat16
+            kernel_dtype = torch.float32 if fix else out_dtype
 
-        def mm(xc):
-            return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
-                                         w.lut, group_size=g,
-                                         out_dtype=kernel_dtype, fmt=kfmt,
-                                         use_gather=use_gather)
+            def mm(xc):
+                return gemv.quantized_matmul(xc, w.packed, w.scales, w.zeros,
+                                             w.lut, group_size=g,
+                                             out_dtype=kernel_dtype, fmt=kfmt,
+                                             use_gather=use_gather)
 
-        y = _chunked(mm, _shard_align_x(x, w), m, fused_m_max, fused_m_max,
-                     w.shape[0])
-        if fix:
-            xf = x.float()
-            dx = (xf - xf.to(torch.bfloat16).float()).sum(-1, keepdim=True)
-            y = (y + dx * w.zeros[0]).to(out_dtype)
-    else:
-        y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return y
+            y = _chunked(mm, _shard_align_x(x, w), m, fused_m_max, fused_m_max,
+                         w.shape[0])
+            if fix:
+                xf = x.float()
+                dx = (xf - xf.to(torch.bfloat16).float()).sum(-1, keepdim=True)
+                y = (y + dx * w.zeros[0]).to(out_dtype)
+        else:
+            y = _matmul(x, dequantize_tensor(w, dtype=x.dtype), out_dtype)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y
 
 
 def _matmul(x, w, out_dtype):

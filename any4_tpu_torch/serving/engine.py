@@ -42,6 +42,7 @@ makes dp independent replicas, each its own tp group.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -52,6 +53,7 @@ import torch.distributed as dist
 from ..models import llama, mixtral
 from ..models.generate import _check_device, _model_forward
 from ..ops import linear as lin
+from ..tracing import span
 from . import kv_cache as kvc
 
 
@@ -63,6 +65,9 @@ class Request:
     eos_token_id: Optional[int] = None
     out_tokens: list = field(default_factory=list)
     done: bool = False
+    # host clock (time.perf_counter) at submit and where its prefill began
+    t_submit: Optional[float] = None
+    t_prefill: Optional[float] = None
 
 
 def _ffn(layer, cfg, h, tp_group=None):
@@ -101,10 +106,11 @@ def _prefill_impl(params, cfg, prompt, true_len, k_pages, v_pages,
         real = pos < true_len
         page_ids = torch.where(real, page_ids, 0)
         offsets = torch.where(real, offsets, 0)
-    for li in range(cfg.num_hidden_layers):
-        kc, vc = caches[li]
-        kvc.write_tokens(k_pages[li], kc, page_ids[None], offsets[None])
-        kvc.write_tokens(v_pages[li], vc, page_ids[None], offsets[None])
+    with span("any4.kv.write"):
+        for li in range(cfg.num_hidden_layers):
+            kc, vc = caches[li]
+            kvc.write_tokens(k_pages[li], kc, page_ids[None], offsets[None])
+            kvc.write_tokens(v_pages[li], vc, page_ids[None], offsets[None])
     return logits[0, true_len - 1]
 
 
@@ -141,42 +147,48 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
     attn = (kvc.contig_attention if kv_layout == "contig"
             else kvc.paged_attention)
     for li, layer in enumerate(params["layers"]):
-        h = llama.rms_norm(x, layer["input_layernorm"], eps, off)
-        q, k, v = llama.qkv(layer, cfg, h)
-        q = llama.apply_rope(q.reshape(b, 1, nq, hd), cos, sin)
-        k = llama.apply_rope(k.reshape(b, 1, nkv, hd), cos, sin)
-        v = v.reshape(b, 1, nkv, hd)
-        kvc.write_tokens(k_pages[li], k, page_ids, offsets)
-        kvc.write_tokens(v_pages[li], v, page_ids, offsets)
-        # the new token was just written at position seq_len, so the
-        # visible length is seq_len + 1
-        out = attn(q[:, 0], k_pages[li], v_pages[li], seq_lens + 1, tables,
-                   scale=attn_scale, softcap=softcap,
-                   window=(cfg.sliding_window if cfg.is_sliding(li)
-                           else None))
-        out = llama.row_parallel(out.to(x.dtype).reshape(b, 1, nq * hd),
-                                 layer["o_proj"], layer.get("o_bias"),
-                                 tp_group)
-        if cfg.sandwich_norms:  # gemma2: norm attn/ffn outputs, then add
-            out = llama.rms_norm(out, layer["post_attention_layernorm"],
-                                 eps, off)
+        with span("any4.model.attn"):
+            h = llama.rms_norm(x, layer["input_layernorm"], eps, off)
+            q, k, v = llama.qkv(layer, cfg, h)
+            q = llama.apply_rope(q.reshape(b, 1, nq, hd), cos, sin)
+            k = llama.apply_rope(k.reshape(b, 1, nkv, hd), cos, sin)
+            v = v.reshape(b, 1, nkv, hd)
+            with span("any4.kv.write"):
+                kvc.write_tokens(k_pages[li], k, page_ids, offsets)
+                kvc.write_tokens(v_pages[li], v, page_ids, offsets)
+            # the new token was just written at position seq_len, so the
+            # visible length is seq_len + 1
+            out = attn(q[:, 0], k_pages[li], v_pages[li], seq_lens + 1,
+                       tables, scale=attn_scale, softcap=softcap,
+                       window=(cfg.sliding_window if cfg.is_sliding(li)
+                               else None))
+            out = llama.row_parallel(out.to(x.dtype).reshape(b, 1, nq * hd),
+                                     layer["o_proj"], layer.get("o_bias"),
+                                     tp_group)
+            if cfg.sandwich_norms:  # gemma2: norm attn/ffn outputs, then add
+                out = llama.rms_norm(out, layer["post_attention_layernorm"],
+                                     eps, off)
             x = x + out
-            h = llama.rms_norm(x, layer["pre_feedforward_layernorm"],
-                               eps, off)
-            m = _ffn(layer, cfg, h, tp_group)
-            x = x + llama.rms_norm(m, layer["post_feedforward_layernorm"],
+        with span("any4.model.ffn"):
+            if cfg.sandwich_norms:
+                h = llama.rms_norm(x, layer["pre_feedforward_layernorm"],
                                    eps, off)
-        else:
-            x = x + out
-            h = llama.rms_norm(x, layer["post_attention_layernorm"], eps,
-                               off)
-            x = x + _ffn(layer, cfg, h, tp_group)
+                m = _ffn(layer, cfg, h, tp_group)
+                x = x + llama.rms_norm(m, layer["post_feedforward_layernorm"],
+                                       eps, off)
+            else:
+                h = llama.rms_norm(x, layer["post_attention_layernorm"], eps,
+                                   off)
+                x = x + _ffn(layer, cfg, h, tp_group)
 
-    logits = llama.head(params, llama.rms_norm(x, params["norm"], eps, off))
-    if cfg.final_logit_softcapping is not None:  # gemma2
-        cap = cfg.final_logit_softcapping
-        logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
-    return logits[:, -1, :]
+    with span("any4.model.head"):
+        logits = llama.head(params, llama.rms_norm(x, params["norm"], eps,
+                                                   off))
+        if cfg.final_logit_softcapping is not None:  # gemma2
+            cap = cfg.final_logit_softcapping
+            logits = (cap * torch.tanh(logits.float() / cap)).to(
+                logits.dtype)
+        return logits[:, -1, :]
 
 
 def _decode_burst_impl(params, cfg, tokens, seq_lens, tables, k_pages,
@@ -301,7 +313,8 @@ class Engine:
                eos_token_id: Optional[int] = None) -> int:
         self._uid += 1
         self.pending.append(Request(self._uid, np.asarray(prompt, np.int32),
-                                    max_new_tokens, eos_token_id))
+                                    max_new_tokens, eos_token_id,
+                                    t_submit=time.perf_counter()))
         return self._uid
 
     def _bucket(self, n: int) -> int:
@@ -331,40 +344,47 @@ class Engine:
         return arr
 
     def _admit(self):
-        newly = []
-        for i in range(self.max_slots):
-            if self.slots[i] is not None or not self.pending:
-                continue
-            req = self.pending.pop(0)
-            if len(req.prompt) >= self.max_ctx:
-                # keep the most recent context (positions restart at 0 for
-                # the truncated prompt); without this an oversized prompt
-                # can never be admitted and blocks the queue head forever
-                req.prompt = req.prompt[-(self.max_ctx - 1):]
-            t = len(req.prompt)
-            if not self.alloc.ensure(i, t + 1, self.page_size):
-                self.pending.insert(0, req)
-                break
-            L = self._bucket(t)
-            padded = np.zeros(L, np.int32)
-            padded[:t] = req.prompt
-            last_logits = _prefill_impl(
-                self.params, self._cfg_run, self._upload(padded[None]),
-                min(t, L), self.cache.k_pages, self.cache.v_pages,
-                self._upload(self.alloc.table[i]), self.page_size,
-                kv_layout=self.kv_layout, tp_group=self.tp_group)
-            newly.append((i, req, self.sample_fn(last_logits[None])))
-            self.slots[i] = req
-            self.seq_lens[i] = t
-        if newly:
-            # one host read for the whole admission wave
-            vals = self._read_tokens(torch.cat([
-                torch.as_tensor(tok, device=self.device).reshape(-1)
-                for _, _, tok in newly]))
-            for (i, req, _), v in zip(newly, vals.tolist()):
-                req.out_tokens.append(int(v))
-                self.tokens[i] = int(v)
-            self._host_dirty = True   # device token/len state is stale
+        if not self.pending:
+            return
+        with span("any4.engine.admit"):
+            newly = []
+            for i in range(self.max_slots):
+                if self.slots[i] is not None or not self.pending:
+                    continue
+                req = self.pending.pop(0)
+                if len(req.prompt) >= self.max_ctx:
+                    # keep the most recent context (positions restart at 0 for
+                    # the truncated prompt); without this an oversized prompt
+                    # can never be admitted and blocks the queue head forever
+                    req.prompt = req.prompt[-(self.max_ctx - 1):]
+                t = len(req.prompt)
+                if not self.alloc.ensure(i, t + 1, self.page_size):
+                    self.pending.insert(0, req)
+                    break
+                L = self._bucket(t)
+                req.t_prefill = time.perf_counter()
+                with span("any4.engine.prefill",
+                          {"uid": req.uid, "len": t, "bucket": L}):
+                    padded = np.zeros(L, np.int32)
+                    padded[:t] = req.prompt
+                    last_logits = _prefill_impl(
+                        self.params, self._cfg_run, self._upload(padded[None]),
+                        min(t, L), self.cache.k_pages, self.cache.v_pages,
+                        self._upload(self.alloc.table[i]), self.page_size,
+                        kv_layout=self.kv_layout, tp_group=self.tp_group)
+                    newly.append((i, req, self.sample_fn(last_logits[None])))
+                self.slots[i] = req
+                self.seq_lens[i] = t
+            if newly:
+                # one host read for the whole admission wave
+                with span("any4.engine.read"):
+                    vals = self._read_tokens(torch.cat([
+                        torch.as_tensor(tok, device=self.device).reshape(-1)
+                        for _, _, tok in newly]))
+                for (i, req, _), v in zip(newly, vals.tolist()):
+                    req.out_tokens.append(int(v))
+                    self.tokens[i] = int(v)
+                self._host_dirty = True   # device token/len state is stale
 
     def _retire(self, i: int):
         req = self.slots[i]
@@ -393,36 +413,42 @@ class Engine:
         if burst > 1 and self._greedy:
             return self._step_burst(burst)
         self._admit()
-        active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return 0
-        # grow page tables for slots about to write position seq_len
-        for i in active:
-            if not self.alloc.ensure(i, int(self.seq_lens[i]) + 2,
-                                     self.page_size):
-                self._retire(i)  # out of pages: finish the sequence
-        active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return 0
-        logits = _decode_impl(
-            self.params, self._cfg_run, self._upload(self.tokens),
-            self._upload(self.seq_lens), self._ctx_table(2),
-            self.cache.k_pages, self.cache.v_pages, self.page_size,
-            kv_layout=self.kv_layout, tp_group=self.tp_group)
+        with span("any4.engine.schedule"):
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            if not active:
+                return 0
+            # grow page tables for slots about to write position seq_len
+            for i in active:
+                if not self.alloc.ensure(i, int(self.seq_lens[i]) + 2,
+                                         self.page_size):
+                    self._retire(i)  # out of pages: finish the sequence
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            if not active:
+                return 0
+            d_tokens = self._upload(self.tokens)
+            d_lens = self._upload(self.seq_lens)
+            table = self._ctx_table(2)
+        with span("any4.engine.decode"):
+            logits = _decode_impl(
+                self.params, self._cfg_run, d_tokens, d_lens, table,
+                self.cache.k_pages, self.cache.v_pages, self.page_size,
+                kv_layout=self.kv_layout, tp_group=self.tp_group)
         self.decode_steps += 1
         self._host_dirty = True   # single-step path keeps host-side state
-        next_tokens = self._read_tokens(
-            torch.as_tensor(self.sample_fn(logits), device=self.device))
-        for i in active:
-            req = self.slots[i]
-            self.seq_lens[i] += 1
-            tok = int(next_tokens[i])
-            req.out_tokens.append(tok)
-            self.tokens[i] = tok
-            if (len(req.out_tokens) >= req.max_new_tokens or
-                    (req.eos_token_id is not None
-                     and tok == req.eos_token_id)):
-                self._retire(i)
+        with span("any4.engine.read"):
+            next_tokens = self._read_tokens(
+                torch.as_tensor(self.sample_fn(logits), device=self.device))
+        with span("any4.engine.absorb"):
+            for i in active:
+                req = self.slots[i]
+                self.seq_lens[i] += 1
+                tok = int(next_tokens[i])
+                req.out_tokens.append(tok)
+                self.tokens[i] = tok
+                if (len(req.out_tokens) >= req.max_new_tokens or
+                        (req.eos_token_id is not None
+                         and tok == req.eos_token_id)):
+                    self._retire(i)
         return len([s for s in self.slots if s is not None])
 
     def _dispatch_burst(self, burst: int, lookahead: int = 0):
@@ -431,37 +457,39 @@ class Engine:
         active. ``lookahead`` reserves page capacity for that many extra
         positions beyond the burst (speculative pipelining)."""
         self._admit()
-        active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return None
-        # shrink the burst until every active slot has page capacity for
-        # all of it; a slot that cannot even fit one more position retires
-        # (out of pages), matching the single-step path
-        n = burst
-        for i in list(active):
-            while n > 1 and not self.alloc.ensure(
-                    i, int(self.seq_lens[i]) + n + lookahead + 1,
-                    self.page_size):
-                n //= 2
-            if not self.alloc.ensure(i, int(self.seq_lens[i]) + 2,
-                                     self.page_size):
-                self._retire(i)  # out of pages: finish the sequence
-        live = [(i, self.slots[i]) for i in range(self.max_slots)
-                if self.slots[i] is not None]
-        if not live:
-            return None
-        n = 1 << (n.bit_length() - 1)        # power-of-two bursts
-        if self._host_dirty or self._d_tokens is None:
-            d_tokens = self._upload(self.tokens)
-            d_lens = self._upload(self.seq_lens)
-        else:
-            # steady state: chain off the previous burst's device carry
-            d_tokens, d_lens = self._d_tokens, self._d_seq_lens
-        toks, last, lens = _decode_burst_impl(
-            self.params, self._cfg_run, d_tokens, d_lens,
-            self._ctx_table(n + lookahead + 1),
-            self.cache.k_pages, self.cache.v_pages, self.page_size, n,
-            kv_layout=self.kv_layout, tp_group=self.tp_group)
+        with span("any4.engine.schedule"):
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            if not active:
+                return None
+            # shrink the burst until every active slot has page capacity for
+            # all of it; a slot that cannot even fit one more position
+            # retires (out of pages), matching the single-step path
+            n = burst
+            for i in list(active):
+                while n > 1 and not self.alloc.ensure(
+                        i, int(self.seq_lens[i]) + n + lookahead + 1,
+                        self.page_size):
+                    n //= 2
+                if not self.alloc.ensure(i, int(self.seq_lens[i]) + 2,
+                                         self.page_size):
+                    self._retire(i)  # out of pages: finish the sequence
+            live = [(i, self.slots[i]) for i in range(self.max_slots)
+                    if self.slots[i] is not None]
+            if not live:
+                return None
+            n = 1 << (n.bit_length() - 1)        # power-of-two bursts
+            if self._host_dirty or self._d_tokens is None:
+                d_tokens = self._upload(self.tokens)
+                d_lens = self._upload(self.seq_lens)
+            else:
+                # steady state: chain off the previous burst's device carry
+                d_tokens, d_lens = self._d_tokens, self._d_seq_lens
+            table = self._ctx_table(n + lookahead + 1)
+        with span("any4.engine.decode"):
+            toks, last, lens = _decode_burst_impl(
+                self.params, self._cfg_run, d_tokens, d_lens, table,
+                self.cache.k_pages, self.cache.v_pages, self.page_size, n,
+                kv_layout=self.kv_layout, tp_group=self.tp_group)
         self.decode_steps += n
         self._d_tokens, self._d_seq_lens = last, lens
         self._host_dirty = False
@@ -472,20 +500,22 @@ class Engine:
         device) and do the bookkeeping. Slots retired since dispatch
         (pipelined mode) are skipped: their speculative tokens are
         discarded."""
-        toks = self._read_tokens(toks)
-        for i, req in live:
-            if self.slots[i] is not req:
-                continue      # retired while this burst was in flight
-            for j in range(n):
-                tok = int(toks[i, j])
-                req.out_tokens.append(tok)
-                self.seq_lens[i] += 1
-                self.tokens[i] = tok
-                if (len(req.out_tokens) >= req.max_new_tokens or
-                        (req.eos_token_id is not None
-                         and tok == req.eos_token_id)):
-                    self._retire(i)
-                    break
+        with span("any4.engine.read"):
+            toks = self._read_tokens(toks)
+        with span("any4.engine.absorb"):
+            for i, req in live:
+                if self.slots[i] is not req:
+                    continue      # retired while this burst was in flight
+                for j in range(n):
+                    tok = int(toks[i, j])
+                    req.out_tokens.append(tok)
+                    self.seq_lens[i] += 1
+                    self.tokens[i] = tok
+                    if (len(req.out_tokens) >= req.max_new_tokens or
+                            (req.eos_token_id is not None
+                             and tok == req.eos_token_id)):
+                        self._retire(i)
+                        break
         return len([s for s in self.slots if s is not None])
 
     def _step_burst(self, burst: int) -> int:

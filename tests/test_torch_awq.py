@@ -35,6 +35,7 @@ from any4_tpu.quant import awq as jawq
 from any4_tpu_torch import calibrate, convert
 from any4_tpu_torch.models import generate, llama, mixtral, opt
 from any4_tpu_torch.quant import api, awq
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 from test_torch_engine import QUANT_TIE
 

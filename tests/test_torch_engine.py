@@ -31,6 +31,7 @@ from any4_tpu_torch.ops import linear as lin
 from any4_tpu_torch.parallel import tp as tpar
 from any4_tpu_torch.serving import engine as teng
 from any4_tpu_torch.serving import kv_cache as tkv
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import jax_to_numpy
 
 GEMMA2 = dict(hidden_act="gelu_pytorch_tanh", rms_norm_offset=1.0,

@@ -32,6 +32,7 @@ from any4_tpu_torch import convert
 from any4_tpu_torch.models import checkpoint, fuse, generate, llama
 from any4_tpu_torch.ops import linear as tlin
 from any4_tpu_torch.quant import api
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 from test_torch_engine import QUANT_TIE, _both, _prompts
 

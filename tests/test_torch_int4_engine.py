@@ -16,6 +16,7 @@ import pytest
 
 from any4_tpu.models import llama as jllama
 from any4_tpu.quant import api as japi
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_engine import QUANT_TIE, _both, _pair, _prompts
 
 WIDTHS = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=2)

@@ -29,6 +29,7 @@ from any4_tpu_torch import convert
 from any4_tpu_torch.models import checkpoint, generate, llama
 from any4_tpu_torch.ops import gemv, linear as tlin
 from any4_tpu_torch.quant import api
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 
 WIDTHS = dict(hidden_size=256, intermediate_size=4096, num_hidden_layers=2)

@@ -28,6 +28,7 @@ from any4_tpu.quant import api as japi
 from any4_tpu_torch import convert
 from any4_tpu_torch.models import checkpoint, generate, llama
 from any4_tpu_torch.quant import api
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 
 GEMMA2 = dict(hidden_act="gelu_pytorch_tanh", rms_norm_offset=1.0,

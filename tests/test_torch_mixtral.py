@@ -34,6 +34,7 @@ from any4_tpu.quant import api as japi
 from any4_tpu_torch import convert
 from any4_tpu_torch.models import fuse, generate, llama, mixtral
 from any4_tpu_torch.serving import engine as teng
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 from test_torch_engine import QUANT_TIE, _both, _prompts, _serve
 

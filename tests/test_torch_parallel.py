@@ -46,6 +46,7 @@ from any4_tpu_torch.ops import linear as lin
 from any4_tpu_torch.parallel import tp
 from any4_tpu_torch.quant import api
 from any4_tpu_torch.serving import engine as teng
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max, jax_to_numpy
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),

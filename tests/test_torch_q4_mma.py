@@ -60,6 +60,7 @@ import torch
 from any4_tpu.ops import linear as jlin
 from any4_tpu.ops.pallas import gemv as jgemv
 from any4_tpu_torch.ops import gemv, linear as tlin, packing
+from test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_convert import assert_close_max
 from test_torch_gemv import _jax_mm, _pair
 
