@@ -71,7 +71,8 @@ A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]``. The tensor-core kernels' split-k scratch and ticket
 counters, and the fused W4A8/W8A8 kernels' quantized x, are kept per device
-and stream (:func:`_split_buffers`, sized by :func:`post_launch_plan`).
+and stream (:func:`_split_buffers`, sized by :func:`post_launch_plan`;
+:func:`stream_buffers` lists a stream's).
 """
 from __future__ import annotations
 
@@ -110,6 +111,14 @@ POST_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_int4_magic",
 LUT_KERNELS = ("q4_lut_post", "q4_lut_fused", "q4_lut_select")
 INT8_X_KERNELS = ("w4a8", "w8a8")
 FLOAT_X_KERNELS = ("w4a8_fused", "w8a8_fused")
+# what one launch of each kernel runs on the device, each by a part of its
+# name in a profiler's trace: post_mma's bodies, a8_mma's, and before the
+# fused twins' their pre-pass
+DEVICE_KERNELS = {name: ("q4_post_mma",) for name in POST_KERNELS
+                  if name not in INT8_X_KERNELS + FLOAT_X_KERNELS}
+DEVICE_KERNELS.update({name: ("a8_mma_",) for name in INT8_X_KERNELS})
+DEVICE_KERNELS.update({name: ("quantize_rows", "a8_mma_")
+                       for name in FLOAT_X_KERNELS})
 # Their blocks: 64 weight rows each (16 in the decode body); k is split
 # until the decode body has about A_DEC_WARPS_PER_SM warps per SM, whatever
 # m is.
@@ -400,6 +409,15 @@ def _split_buffers(dev, stream: int, floats: int, ints: int):
         counters = torch.zeros(ints, dtype=torch.int32, device=dev)
     _SPLIT_BUFS[(dev, stream)] = (scratch, counters)
     return scratch, counters
+
+
+def stream_buffers(stream) -> list:
+    """The split buffers kept for launches on ``stream`` (a
+    ``torch.cuda.Stream``). A CUDA graph captured there holds their
+    addresses, so it keeps these alive: a later launch that outgrows them
+    replaces them here, and must not free what the graph writes."""
+    return [bufs for (_, s), bufs in _SPLIT_BUFS.items()
+            if s == stream.cuda_stream]
 
 
 def _launch_post(name, x, packed, scales, zeros, lut, group_size, out_dtype):

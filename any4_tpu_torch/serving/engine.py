@@ -15,6 +15,16 @@ reads a burst's tokens (:meth:`Engine._absorb_burst`); that is what the JAX
 package's ``scan`` with a device-resident carry buys. ``run(pipeline=True)``
 dispatches the next burst before reading the last one.
 
+On a CUDA engine a decode step is a replay of a CUDA graph
+(:class:`DecodeGraphs`), one per (slot count, page-table bucket) of the
+engine's pools, captured at the key's first decode and taking its greedy
+argmax with it, so the host launches one graph where the forward launched
+hundreds of kernels and ops; the tokens are the eager step's, bit for bit.
+A step runs eagerly instead on the CPU, under tensor parallelism (its gloo
+all-reduces cannot be captured), and for a key not yet captured while
+``torch.profiler`` records (it is captured at its next untraced decode).
+:meth:`Engine._decode` is the one decode path of ``step`` and the bursts.
+
 The decode step uses fused projections (``qkv_proj``/``gateup_proj``,
 :mod:`..models.fuse`) and a quantized ``embed_tokens`` (its rows gathered
 and dequantized, and as a tied head through the quantized kernel) as
@@ -52,8 +62,9 @@ import torch.distributed as dist
 
 from ..models import llama, mixtral
 from ..models.generate import _check_device, _model_forward
+from ..ops import gemv
 from ..ops import linear as lin
-from ..tracing import span
+from ..tracing import recording, span
 from . import kv_cache as kvc
 
 
@@ -191,23 +202,119 @@ def _decode_impl(params, cfg, tokens, seq_lens, tables, k_pages, v_pages,
         return logits[:, -1, :]
 
 
-def _decode_burst_impl(params, cfg, tokens, seq_lens, tables, k_pages,
-                       v_pages, page_size, n_steps, kv_layout="paged",
-                       tp_group=None):
+def _decode_burst_impl(decode, tokens, seq_lens, n_steps):
     """``n_steps`` greedy decode steps for all slots, each feeding its
-    on-device argmax to the next; page tables are fixed for the burst (the
-    scheduler reserves ``n_steps`` positions per slot). Returns
-    ``(tokens [b, n_steps], last [b], lens [b])`` on the device: the final
-    (token, seq_len) carry lets the next burst start without an upload."""
+    on-device argmax to the next; ``decode(tokens, seq_lens)`` is one
+    step's ``(logits, argmax)`` (:meth:`Engine._decode`), over a page table
+    fixed for the burst (the scheduler reserves ``n_steps`` positions per
+    slot). Returns ``(tokens [b, n_steps], last [b], lens [b])`` on the
+    device: the final (token, seq_len) carry lets the next burst start
+    without an upload."""
     out = []
     for _ in range(n_steps):
-        logits = _decode_impl(params, cfg, tokens, seq_lens, tables,
-                              k_pages, v_pages, page_size,
-                              kv_layout=kv_layout, tp_group=tp_group)
-        tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        # a copy: the next replay of a captured step overwrites its output
+        tokens = decode(tokens, seq_lens)[1].clone()
         seq_lens = seq_lens + 1
         out.append(tokens)
     return torch.stack(out, dim=1), tokens, seq_lens
+
+
+def captures_decode(device, tp_group) -> bool:
+    """Does an engine on ``device`` replay its decode steps from CUDA
+    graphs? Not on the CPU, nor under tensor parallelism, whose gloo
+    all-reduces cannot be captured."""
+    return device.type == "cuda" and tp_group is None
+
+
+# the port's launch counters, one dict of kernel names each
+LAUNCH_COUNTERS = (gemv.LAUNCHES, kvc.LAUNCHES)
+
+
+def launch_delta(counters, before):
+    """The launches of each kernel name that ``counters`` (dicts) counted
+    since ``before`` (copies of them), where not 0, one dict a counter."""
+    return [{k: n - b.get(k, 0) for k, n in c.items() if n != b.get(k, 0)}
+            for c, b in zip(counters, before)]
+
+
+def credit_launches(counters, delta):
+    """Add ``delta`` (:func:`launch_delta`) to ``counters``, in place."""
+    for c, d in zip(counters, delta):
+        for k, n in d.items():
+            c[k] += n
+
+
+@dataclass
+class _Graph:
+    """One captured decode step: its static inputs and outputs, the
+    launches a replay makes and the buffers of the kernels' modules whose
+    addresses it holds."""
+    graph: torch.cuda.CUDAGraph
+    tokens: torch.Tensor
+    seq_lens: torch.Tensor
+    table: torch.Tensor
+    table_src: torch.Tensor     # the page table last copied into ``table``
+    logits: torch.Tensor = None
+    argmax: torch.Tensor = None
+    launches: list = None
+    buffers: list = None
+
+
+class DecodeGraphs:
+    """The CUDA graphs of one engine's decode step (:meth:`Engine._decode`),
+    one a key (slot count, page-table bucket).
+
+    A key's graph is captured on a stream of its own, after the step has
+    run there eagerly: that run is the decode's result, and it grows the
+    kernels' per-stream buffers (``gemv.stream_buffers``,
+    ``kv_cache.stream_buffers``) outside the capture. Each graph keeps
+    those buffers alive, so a later capture that regrows them frees nothing
+    an older graph writes. The graphs share one memory pool: they never run
+    at the same time. A replay copies the tokens and lengths into the
+    graph's static inputs, the page table only when ``_ctx_table`` gives
+    another one, and adds the launches counted at capture to the port's
+    counters, since it launches them again."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+
+    def replay(self, key, tokens, seq_lens, table):
+        g = self.graphs[key]
+        g.tokens.copy_(tokens)
+        g.seq_lens.copy_(seq_lens)
+        if g.table_src is not table:
+            g.table.copy_(table)
+            g.table_src = table
+        g.graph.replay()
+        credit_launches(LAUNCH_COUNTERS, g.launches)
+        return g.logits, g.argmax
+
+    def capture(self, key, step, tokens, seq_lens, table):
+        """Run ``step`` on these inputs on the capture stream, then capture
+        it as ``key``'s graph; returns the run's outputs."""
+        g = _Graph(torch.cuda.CUDAGraph(), tokens.clone(), seq_lens.clone(),
+                   table.clone(), table)
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = step(tokens, seq_lens, table)
+            before = [dict(c) for c in LAUNCH_COUNTERS]
+            g.graph.capture_begin(pool=self.pool)
+            try:
+                g.logits, g.argmax = step(g.tokens, g.seq_lens, g.table)
+            finally:
+                # the capture launched nothing: its counts go to replays
+                g.launches = launch_delta(LAUNCH_COUNTERS, before)
+                for c, b in zip(LAUNCH_COUNTERS, before):
+                    c.update(b)
+                g.graph.capture_end()
+        cur.wait_stream(self.stream)
+        g.buffers = (gemv.stream_buffers(self.stream)
+                     + kvc.stream_buffers(self.stream))
+        self.graphs[key] = g
+        return out
 
 
 class Engine:
@@ -280,7 +387,13 @@ class Engine:
         self._d_seq_lens = None
         self._host_dirty = True
         self._tbl_cache = (None, None, None)   # (bucket, version, tensor)
+        # the decode step's CUDA graphs (_decode)
+        self._graphs = (DecodeGraphs(self.device)
+                        if captures_decode(self.device, self.tp_group)
+                        else None)
         self.decode_steps = 0                  # batched steps dispatched
+        # how each of them ran: replayed, captured (and run), or eagerly
+        self.graph_replays = self.graph_captures = self.eager_decodes = 0
 
     def _upload(self, a) -> torch.Tensor:
         """A host array as a tensor on the engine's device. The copy
@@ -307,6 +420,44 @@ class Engine:
             raise RuntimeError("tensor-parallel ranks sampled different "
                                "tokens")
         return mine
+
+    def _decode_eager(self, tokens, seq_lens, table):
+        logits = _decode_impl(
+            self.params, self._cfg_run, tokens, seq_lens, table,
+            self.cache.k_pages, self.cache.v_pages, self.page_size,
+            kv_layout=self.kv_layout, tp_group=self.tp_group)
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _decode(self, tokens, seq_lens, table):
+        """One decode step over every slot (:func:`_decode_impl`), each
+        slot's new K/V written into the pools: ``(logits [b, vocab], argmax
+        [b] int32)``.
+
+        Replayed from the step's CUDA graph of its key (:class:`DecodeGraphs`)
+        on a CUDA engine without a tp group; the key's first decode while no
+        profiler records captures it, and a decode while one does runs
+        eagerly. A replay's outputs are the graph's own, which its next
+        replay overwrites: the caller reads or copies them first."""
+        self.decode_steps += 1
+        key = (tokens.shape[0], table.shape[1])
+        g = self._graphs
+        action = "eager"
+        if g is not None:
+            if key in g.graphs:
+                action = "replay"
+            elif not recording():
+                action = "capture"
+        with span("any4.engine.graph",
+                  {"bucket": table.shape[1], "action": action}):
+            if action == "replay":
+                self.graph_replays += 1
+                return g.replay(key, tokens, seq_lens, table)
+            if action == "capture":
+                self.graph_captures += 1
+                return g.capture(key, self._decode_eager, tokens, seq_lens,
+                                 table)
+            self.eager_decodes += 1
+            return self._decode_eager(tokens, seq_lens, table)
 
     # ----------------------------------------------------------- requests
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -429,15 +580,12 @@ class Engine:
             d_lens = self._upload(self.seq_lens)
             table = self._ctx_table(2)
         with span("any4.engine.decode"):
-            logits = _decode_impl(
-                self.params, self._cfg_run, d_tokens, d_lens, table,
-                self.cache.k_pages, self.cache.v_pages, self.page_size,
-                kv_layout=self.kv_layout, tp_group=self.tp_group)
-        self.decode_steps += 1
+            logits, argmax = self._decode(d_tokens, d_lens, table)
         self._host_dirty = True   # single-step path keeps host-side state
         with span("any4.engine.read"):
             next_tokens = self._read_tokens(
-                torch.as_tensor(self.sample_fn(logits), device=self.device))
+                argmax if self._greedy else torch.as_tensor(
+                    self.sample_fn(logits), device=self.device))
         with span("any4.engine.absorb"):
             for i in active:
                 req = self.slots[i]
@@ -487,10 +635,8 @@ class Engine:
             table = self._ctx_table(n + lookahead + 1)
         with span("any4.engine.decode"):
             toks, last, lens = _decode_burst_impl(
-                self.params, self._cfg_run, d_tokens, d_lens, table,
-                self.cache.k_pages, self.cache.v_pages, self.page_size, n,
-                kv_layout=self.kv_layout, tp_group=self.tp_group)
-        self.decode_steps += n
+                lambda t, lens: self._decode(t, lens, table), d_tokens,
+                d_lens, n)
         self._d_tokens, self._d_seq_lens = last, lens
         self._host_dirty = False
         return toks, n, live

@@ -66,6 +66,9 @@ DENSE_CTX_BYTES = 256 * 1024 * 1024
 LAUNCHES = {"flash_paged_decode": 0, "flash_paged_decode_q8": 0,
             "flash_contig_decode": 0, "flash_contig_decode_q8": 0}
 _SOURCE = "flash_decode.cu"
+# what one launch of each runs on the device, by a part of its name in a
+# profiler's trace: flash_decode.cu's one kernel body
+DEVICE_KERNELS = {name: ("decode_kernel",) for name in LAUNCHES}
 _COUNTERS = {}  # (device, stream) -> int32 zeros for the kernels' tickets
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
@@ -102,8 +105,9 @@ def to_int8(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     [-128, 127] first: the element equal to ``+h`` rounds to 128 and must
     store 127, not -128. ``127.5 / h`` is one division, as in XLA (PyTorch
     computes ``scalar / tensor`` as a reciprocal times the scalar, which
-    rounds twice)."""
-    inv = h.new_tensor(MAX_INT8) / h
+    rounds twice); its numerator is filled on ``h``'s device, with no copy
+    from the host, so a CUDA graph can capture it."""
+    inv = torch.full_like(h, MAX_INT8) / h
     return torch.round(x * inv).clamp_(-128, 127).to(torch.int8)
 
 
@@ -477,6 +481,15 @@ def _counters(dev, stream: int, n: int) -> torch.Tensor:
         buf = _COUNTERS[(dev, stream)] = torch.zeros(n, dtype=torch.int32,
                                                      device=dev)
     return buf
+
+
+def stream_buffers(stream) -> list:
+    """The ticket counters kept for launches on ``stream`` (a
+    ``torch.cuda.Stream``). A CUDA graph captured there holds their
+    addresses, so it keeps these alive: a later launch that outgrows them
+    replaces them here, and must not free what the graph writes."""
+    return [buf for (_, s), buf in _COUNTERS.items()
+            if s == stream.cuda_stream]
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,9 +31,12 @@ the parent):
   whole admission), ``any4.engine.prefill`` (one prompt; ``args`` uid,
   len, bucket), ``any4.engine.schedule`` (page reservations, retirements,
   the page table and the uploads before a decode), ``any4.engine.decode``
-  (the dispatch of one decode step or burst), ``any4.engine.read`` (the
-  host's read of sampled tokens: its wait on the device),
-  ``any4.engine.absorb`` (the bookkeeping after a decode's read);
+  (the dispatch of one decode step or burst), inside it
+  ``any4.engine.graph`` (one step; ``args`` its page-table bucket and
+  action: ``replay`` of the step's CUDA graph, ``capture`` of it after an
+  eager run, or ``eager``; the model's spans open only in an eager step),
+  ``any4.engine.read`` (the host's read of sampled tokens: its wait on the
+  device), ``any4.engine.absorb`` (the bookkeeping after a decode's read);
 - model (the decode step, :func:`.models.llama.forward`,
   :func:`.models.mixtral.forward`): ``any4.model.attn`` (norm through
   ``o_proj`` and the residual, RoPE and the KV writes included),
@@ -50,7 +53,9 @@ the parent):
 Beside the spans, each :class:`.serving.engine.Request` carries two
 stamps on the host's clock (``time.perf_counter``): ``t_submit`` and
 ``t_prefill``, where its prefill began; their difference is the time it
-waited in the queue.
+waited in the queue; and each :class:`.serving.engine.Engine` counts its
+decode steps by action, ``graph_replays``, ``graph_captures`` and
+``eager_decodes``, which add up to ``decode_steps``.
 """
 from __future__ import annotations
 
@@ -61,6 +66,11 @@ import torch.autograd.profiler as _profiler
 
 _OFF = contextlib.nullcontext()
 _EVENT = torch._C._profiler._RecordFunctionFast
+
+
+def recording() -> bool:
+    """Is a profiler recording (the flag :func:`span` checks)?"""
+    return _profiler._is_profiler_enabled
 
 
 def span(name: str, args: dict | None = None):

@@ -94,7 +94,13 @@ Phases, each printing JSON lines:
    a dense float32 cache at 3 positions. Prints tokens per second, ms per
    decode step, prefill ms, peak memory and the device's busy share
    (``torch.profiler`` over 8 steps at 8 active slots), with the attention
-   and the linear kernels' device ms per step.
+   and the linear kernels' device ms per step. Each decode step after a
+   key's first is a replay of the engine's CUDA graph, which credits the
+   launches its capture counted; in the profiled steps (at least one a
+   replay) the port's kernels in the device trace, name by name
+   (``gemv.DEVICE_KERNELS``, ``kv_cache.DEVICE_KERNELS``), are checked
+   equal to the launches the counters gained. Each run prints its decode
+   steps and how many were replays.
 5b. the fused model with a quantized tied head (``main_path_fused_qemb``,
    ``serving_fused_qemb``): phase 4's linears with the table quantized as
    ``quantize_model(..., quantize_embeddings=True)`` quantizes it (any4,
@@ -404,6 +410,7 @@ Without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -2029,8 +2036,9 @@ def fused_qemb_path(qparams, qtable, cfg, unfused, gemv, kvc, teng, llama,
                        f"fused {mode} engine ({steps} steps + {chunks} "
                        f"prefill chunks)")
         runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
-                      "decode_steps": steps, "prefill_chunks": chunks,
-                      "wall_s": wall,
+                      "decode_steps": steps,
+                      "graph_replays": e.graph_replays,
+                      "prefill_chunks": chunks, "wall_s": wall,
                       "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
         del e
     check(out["burst1"] == out["burst8_pipeline"],
@@ -2471,7 +2479,9 @@ def int_serving(teng, gemv, kvc, linear, qparams, cfg, fmt, prompts,
             gemv, linear, fmt, buckets + [SERVE_SLOTS] * steps),
             cfg.num_hidden_layers, f"{fmt} {mode} engine")
         runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
-                      "decode_steps": steps, "prefill_buckets": buckets,
+                      "decode_steps": steps,
+                      "graph_replays": e.graph_replays,
+                      "prefill_buckets": buckets,
                       "wall_s": wall,
                       "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
         del e
@@ -2600,11 +2610,30 @@ def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
         e.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    before = [dict(c) for c in teng.LAUNCH_COUNTERS]
+    replays = e.graph_replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             e.step()
         torch.cuda.synchronize()
+    # the launches counted (a replay credits its capture's) against the
+    # port's kernels in the device trace, by name
+    tables = (teng.gemv.DEVICE_KERNELS, teng.kvc.DEVICE_KERNELS)
+    launched = collections.Counter()
+    for table, d in zip(tables, teng.launch_delta(teng.LAUNCH_COUNTERS,
+                                                  before)):
+        for name, n in d.items():
+            for part in table[name]:
+                launched[part] += n
+    parts = {p for t in tables for ps in t.values() for p in ps}
+    traced = collections.Counter(
+        p for ev in prof.events() if ev.device_type == DeviceType.CUDA
+        for p in parts if p in ev.name)
+    replayed = e.graph_replays - replays
+    check(replayed > 0 and traced == launched,
+          f"profiled steps ({replayed} replays): device kernels "
+          f"{dict(traced)} != launches counted {dict(launched)}")
     per_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:       # kernels, not host ops
@@ -2626,6 +2655,8 @@ def serving_figures(teng, qparams, cfg, prompts, layout, q8, steps=8):
         prefill[f"prompt_{len(p)}_bucket_{L}"] = \
             (time.perf_counter() - t0) * 1e3
     return {"ms_per_decode_step_8_slots": step_ms,
+            "profiled_replays": replayed,
+            "profiled_kernels": dict(traced),
             "decode_tok_s_8_slots": SERVE_SLOTS * 1e3 / step_ms,
             "device_ms_per_step": device_ms,
             "busy_share": device_ms / step_ms, "prefill_ms": prefill,
@@ -2681,6 +2712,7 @@ def serving_phase(qparams, cfg, gemv, kvc, teng, llama, gen_mod, linear):
                   f"!= {per_forward} x ({steps} steps + {chunks} prefill "
                   f"chunks)")
             runs[mode] = {"launches": count, "decode_steps": steps,
+                          "graph_replays": e.graph_replays,
                           "prefill_chunks": chunks, "wall_s": wall,
                           "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
             if mode == "burst1":
@@ -3023,8 +3055,9 @@ def mixtral_serving(qparams, cfg, gemv, kvc, teng, gen_mod, llama, linear):
                        f"Mixtral {mode} engine ({steps} steps + {chunks} "
                        f"prefill chunks)")
         runs[mode] = {"launches": {**gemv.LAUNCHES, **kvc.LAUNCHES},
-                      "decode_steps": steps, "prefill_chunks": chunks,
-                      "wall_s": wall,
+                      "decode_steps": steps,
+                      "graph_replays": e.graph_replays,
+                      "prefill_chunks": chunks, "wall_s": wall,
                       "tok_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall}
         del e
     check(out["burst1"] == out["burst8_pipeline"],

@@ -28,3 +28,8 @@ jax.config.update("jax_enable_x64", False)
 assert platform != "cpu" or jax.default_backend() == "cpu", (
     "tests must run on CPU; a TPU backend was already initialized before "
     "conftest could override the platform")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")

@@ -71,10 +71,11 @@ FORWARD = {("model.attn", None), ("model.ffn", None), ("model.head", None),
 ENGINE = {("engine.admit", None), ("engine.prefill", "engine.admit"),
           ("engine.read", "engine.admit"), ("kv.write", "engine.prefill"),
           ("engine.schedule", None), ("engine.decode", None),
+          ("engine.graph", "engine.decode"),
           ("engine.read", None), ("engine.absorb", None),
           ("kv.write", "model.attn")} | {
     (s, "engine.prefill" if p is None else p) for s, p in FORWARD} | {
-    (s, "engine.decode") for s, p in FORWARD if p is None}
+    (s, "engine.graph") for s, p in FORWARD if p is None}
 
 
 def test_span_is_the_shared_noop_without_a_profiler(monkeypatch):
@@ -130,3 +131,19 @@ def test_tokens_equal_with_tracing_on_and_off(moe, burst):
     off = serve()
     on, events = _profiled(serve, record_shapes=False)
     assert events and on == off
+
+
+@pytest.mark.parametrize("burst", [1, 4])
+def test_each_decode_step_opens_one_graph_span(moe, burst):
+    """On the CPU every decode step runs eagerly: one ``any4.engine.graph``
+    span a step (inside ``any4.engine.decode``, by the tree above), with
+    its page-table bucket and action, and the engine's counts by action add
+    up to its decode steps."""
+    e, _ = _engine(moe, _prompts((5, 9, 3)))
+    _, events = _profiled(lambda: e.run(burst=burst))
+    args = [ev.kwinputs for ev in events if ev.name == "any4.engine.graph"]
+    assert len(args) == e.decode_steps > 0
+    assert {a["action"] for a in args} == {"eager"}
+    assert {a["bucket"] for a in args} <= {1, 2, 4, 8}
+    assert (e.eager_decodes, e.graph_replays, e.graph_captures) == \
+        (e.decode_steps, 0, 0)
