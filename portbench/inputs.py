@@ -7,9 +7,11 @@ Plain PyTorch and NumPy; nothing of the port.
 The quantized linears' fields are drawn by the configuration's format
 (``formats/<format>.py``), not learned. Routers, norms, the embedding and
 the head are dense, as ``quantize_model`` leaves them: norms 1, embedding
-``0.02 N(0, 1)``, router and head ``N(0, 1/d)``, in bf16. Each layer's
-fields come from a generator of their own on the device, so that the
-reference can draw one layer again after the program is gone.
+``0.02 N(0, 1)``, head ``N(0, 1/d)``, in bf16. Each layer's fields come
+from a generator of their own on the device, so that the reference can
+draw one layer again after the program is gone. Which linears and dense
+leaves a layer has, and how they are drawn, is its architecture's
+(``archs/<model_type>.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from . import archs
 
 
 def subseed(seed: int, *tags: int) -> int:
@@ -34,30 +38,10 @@ def hf(config: dict, key: str, default=None):
     return default if v is None else v
 
 
-def head_dim(config: dict) -> int:
-    return hf(config, "head_dim") or (hf(config, "hidden_size")
-                                      // hf(config, "num_attention_heads"))
-
-
-def layer_linears(config: dict) -> List[Tuple[str, int, int]]:
-    """``(name, n, k)`` of one decoder layer's quantized linears, in the
-    order they are drawn: q, k, v, o, then gate, up, down, or for a layer
-    of routed experts each expert's w1, w3, w2 (``experts.<e>.w1``)."""
-    d = hf(config, "hidden_size")
-    f = hf(config, "intermediate_size")
-    hd = head_dim(config)
-    nq = hf(config, "num_attention_heads")
-    nkv = hf(config, "num_key_value_heads", nq)
-    out = [("q_proj", nq * hd, d), ("k_proj", nkv * hd, d),
-           ("v_proj", nkv * hd, d), ("o_proj", d, nq * hd)]
-    experts = hf(config, "num_local_experts")
-    if experts:
-        for e in range(experts):
-            out += [(f"experts.{e}.w1", f, d), (f"experts.{e}.w3", f, d),
-                    (f"experts.{e}.w2", d, f)]
-    else:
-        out += [("gate_proj", f, d), ("up_proj", f, d), ("down_proj", d, f)]
-    return out
+def layer_linears(config: dict, layer: int) -> List[Tuple[str, int, int]]:
+    """``(name, n, k)`` of layer ``layer``'s quantized linears, in the
+    order they are drawn, by the configuration's architecture."""
+    return archs.of(config).linears(config, layer)
 
 
 def quant_format(config: dict):
@@ -68,18 +52,13 @@ def quant_format(config: dict):
 
 def draw_layer(config: dict, seed: int, layer: int, device):
     """Layer ``layer``'s quantized linears' fields (by name, in the
-    format's own type) and, for a layer of routed experts, its dense bf16
-    router ``[E, d]`` (else None)."""
+    format's own type) and its dense bf16 leaves (by name: a router), both
+    from the layer's own generator, the linears first."""
     g = config["quantization"]["group_size"]
     gen = torch.Generator(device=device).manual_seed(subseed(seed, 1, layer))
-    out = quant_format(config).draw(gen, layer_linears(config), g, device)
-    router = None
-    experts = hf(config, "num_local_experts")
-    if experts:
-        d = hf(config, "hidden_size")
-        router = (torch.randn((experts, d), generator=gen, device=device)
-                  / math.sqrt(d)).to(torch.bfloat16)
-    return out, router
+    out = quant_format(config).draw(gen, layer_linears(config, layer), g,
+                                    device)
+    return out, archs.of(config).draw_dense(config, layer, gen, device)
 
 
 def draw_dense(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:

@@ -11,11 +11,13 @@ activations in and out (``2 m (k + n)``), and does ``2 m n k`` flops for
 ``m`` tokens. A layer of routed experts does ``2 m K n k`` flops in each
 expert linear (``K`` experts a token) and reads the weights of every
 expert routed to at least one token: under uniform routing ``E (1 - (1 -
-K/E)^m)`` of its ``E`` experts (7.92 of 8 at m = 16, top 2).
+K/E)^m)`` of its ``E`` experts (7.92 of 8 at m = 16, top 2). Which
+linears, experts and attention a layer has is its architecture's
+(``archs/<model_type>.py``); each layer is counted as it is.
 """
 from __future__ import annotations
 
-from portbench import inputs
+from portbench import archs, inputs
 
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -29,19 +31,29 @@ def _bound(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
-def layer_linear_seconds(config: dict, m: int) -> float:
-    """The least time one layer's quantized linears could take for ``m``
-    tokens: each dense linear bounded alone, a layer's experts as one
-    group."""
+def over_layers(config: dict, per_layer) -> float:
+    """The sum of ``per_layer(layer)`` over the configuration's layers,
+    equal terms added as their count times the term (so a model whose
+    layers are all alike reads ``layers * term``)."""
+    counts = {}
+    for li in range(inputs.hf(config, "num_hidden_layers")):
+        v = per_layer(li)
+        counts[v] = counts.get(v, 0) + 1
+    return sum(n * v for v, n in counts.items())
+
+
+def layer_linear_seconds(config: dict, layer: int, m: int) -> float:
+    """The least time layer ``layer``'s quantized linears could take for
+    ``m`` tokens: each linear bounded alone, its routed experts (the
+    architecture's ``experts``) as one group."""
     if m <= 0:
         return 0.0
     g = config["quantization"]["group_size"]
-    hf = inputs.hf
-    E = hf(config, "num_local_experts") or 0
-    K = hf(config, "num_experts_per_tok") or 0
+    arch = archs.of(config)
+    prefix, E, K = arch.experts(config, layer) or (None, 0, 0)
     total, ex_flops, ex_bytes, ex_act = 0.0, 0.0, 0.0, 0.0
-    for name, n, k in inputs.layer_linears(config):
-        if name.startswith("experts."):
+    for name, n, k in arch.linears(config, layer):
+        if E and name.startswith(prefix):
             ex_flops += 2.0 * m * K * n * k
             ex_bytes += weight_bytes(n, k, g)
             ex_act += 2.0 * m * K * (k + n)
@@ -58,35 +70,37 @@ def layer_linear_seconds(config: dict, m: int) -> float:
 
 
 def step_linear_seconds(config: dict, step) -> float:
-    """The quantized linears' least time in one call: each prefill's
-    prompt at its true length, then its decode rows together."""
-    layers = inputs.hf(config, "num_hidden_layers")
-    s = sum(layer_linear_seconds(config, t) for t in step.prefill)
-    s += layer_linear_seconds(config, len(step.decode_ctx))
-    return layers * s
+    """The quantized linears' least time in one call, layer by layer: each
+    prefill's prompt at its true length, then its decode rows together."""
+    def per_layer(li):
+        s = sum(layer_linear_seconds(config, li, t) for t in step.prefill)
+        return s + layer_linear_seconds(config, li, len(step.decode_ctx))
+    return over_layers(config, per_layer)
 
 
 def token_flops(config: dict) -> float:
     """Flops of one token outside attention's context: every linear (the
-    top ``K`` experts of a routed layer, and its router) and the head."""
+    top ``K`` of a layer's ``E`` routed experts), the layer's dense leaves
+    (a router), and the head."""
+    arch = archs.of(config)
+
+    def per_layer(li):
+        prefix, E, K = arch.experts(config, li) or (None, 0, 0)
+        f = 0.0
+        for name, n, k in arch.linears(config, li):
+            f += 2.0 * n * k * (K / E if E and name.startswith(prefix)
+                                else 1.0)
+        return f + arch.extra_flops(config, li)
     hf = inputs.hf
-    E = hf(config, "num_local_experts") or 0
-    K = hf(config, "num_experts_per_tok") or 0
-    d = hf(config, "hidden_size")
-    per_layer = 0.0
-    for name, n, k in inputs.layer_linears(config):
-        per_layer += 2.0 * n * k * (K / E if name.startswith("experts.")
-                                    else 1.0)
-    per_layer += 2.0 * d * E
-    return (hf(config, "num_hidden_layers") * per_layer
-            + 2.0 * d * hf(config, "vocab_size"))
+    return (over_layers(config, per_layer)
+            + 2.0 * hf(config, "hidden_size") * hf(config, "vocab_size"))
 
 
 def attention_flops(config: dict, ctx: float) -> float:
     """QK and PV of one token over ``ctx`` positions, every layer."""
-    hf = inputs.hf
-    return (4.0 * hf(config, "num_attention_heads") * inputs.head_dim(config)
-            * ctx * hf(config, "num_hidden_layers"))
+    arch = archs.of(config)
+    return over_layers(config,
+                       lambda li: arch.attention_flops(config, li, ctx))
 
 
 def step_flops(config: dict, step) -> float:

@@ -73,9 +73,8 @@ def logit_gap(config: dict, seed: int, device,
     ref = Reference(config, seed, device)
     head = ref.head()
     hs = ref.hidden(seqs)
-    routed = ref.experts is not None
-    margins = ([mm[p0:] for mm, (p0, _) in zip(ref.min_margin, spans)]
-               if routed else None)
+    margins = ([m[p0:] for m, (p0, _) in zip(ref.min_margin, spans)]
+               if ref.min_margin is not None else None)
     cref = Reference(config, seed, device, act="fp8")
     hc = cref.hidden(seqs) if control else [None] * len(hs)
     gaps, cgaps = [], []

@@ -9,10 +9,13 @@
   of the profiler's kernel names that implement that piece of work;
 - a traffic ``kind`` is run by ``drivers/<kind>.py``, and a quantization
   ``format`` is drawn and dequantized by ``formats/<format>.py`` and packed
-  for the port by ``pack/<format>.py``.
+  for the port by ``pack/<format>.py``;
+- a configuration's architecture, its ``model_type``, is drawn, counted
+  and run by the reference through ``archs/<model_type>.py`` and built for
+  the port by ``build/<model_type>.py``.
 
-A later cell, metric, kernel family, traffic kind or format is a new file
-and a new entry; no file here changes for it.
+A later cell, metric, kernel family, traffic kind, format or architecture
+is a new file and a new entry; no file here changes for it.
 """
 from __future__ import annotations
 

@@ -30,20 +30,14 @@ def pytest_configure(config):
 
 
 def shrink(root: str) -> None:
-    """Cut the copy under ``root`` to tiny sizes, in place."""
+    """Cut the copy under ``root`` to tiny sizes, in place: each
+    configuration to its architecture's ``tiny``."""
+    from portbench import archs
     pb = os.path.join(root, "portbench")
     for f in os.listdir(os.path.join(pb, "configs")):
         p = os.path.join(pb, "configs", f)
         c = json.load(open(p))
-        c.update(hidden_size=128, intermediate_size=256,
-                 num_hidden_layers=2, num_attention_heads=4,
-                 num_key_value_heads=2, vocab_size=512)
-        if "num_local_experts" in c:
-            # top 2 of 2: at two layers of width 128 a router near-tie that
-            # bf16 tips moves a position's logits as far as fp8 does, so
-            # the tiny runs route every token to both experts (routing of
-            # more experts: test_reference_routes_as_the_port)
-            c["num_local_experts"] = 2
+        c.update(archs.of(c).tiny(c))
         json.dump(c, open(p, "w"))
     for f in os.listdir(os.path.join(pb, "traffic")):
         p = os.path.join(pb, "traffic", f)

@@ -6,11 +6,12 @@ from portbench import trace
 from portbench.metrics import _arith
 from portbench.record import Run, Step, Trace
 
-DENSE = {"hidden_size": 4096, "intermediate_size": 14336,
+DENSE = {"model_type": "llama", "hidden_size": 4096, "intermediate_size": 14336,
          "num_hidden_layers": 2, "num_attention_heads": 32,
          "num_key_value_heads": 8, "vocab_size": 32768,
          "quantization": {"group_size": 128}}
-MOE = dict(DENSE, num_local_experts=8, num_experts_per_tok=2)
+MOE = dict(DENSE, model_type="mixtral", num_local_experts=8,
+           num_experts_per_tok=2)
 
 
 def test_weight_bytes():
@@ -26,13 +27,13 @@ def test_dense_layer_at_one_token_is_bound_by_bytes():
               (14336, 4096), (14336, 4096), (4096, 14336)]
     want = sum((_arith.weight_bytes(n, k, 128) + 2 * (n + k)) / 3.35e12
                for n, k in shapes)
-    assert math.isclose(_arith.layer_linear_seconds(DENSE, 1), want)
+    assert math.isclose(_arith.layer_linear_seconds(DENSE, 0, 1), want)
 
 
 def test_dense_layer_at_many_tokens_is_bound_by_flops():
     m = 4096
     flops = 2 * m * 4096 * (4096 * 2 + 1024 * 2 + 14336 * 3)
-    assert math.isclose(_arith.layer_linear_seconds(DENSE, m) * 989e12,
+    assert math.isclose(_arith.layer_linear_seconds(DENSE, 1, m) * 989e12,
                         flops, rel_tol=1e-9)
 
 
@@ -48,7 +49,7 @@ def test_experts_routed_under_uniform_routing():
     acts = 2 * m * 2 * 3 * (4096 + 14336)
     moe = max(2 * m * 2 * 3 * 14336 * 4096 / 989e12,
               (routed * expert_w + acts) / 3.35e12)
-    assert math.isclose(_arith.layer_linear_seconds(MOE, m), attn + moe)
+    assert math.isclose(_arith.layer_linear_seconds(MOE, 0, m), attn + moe)
 
 
 def test_token_and_attention_flops():
@@ -81,7 +82,7 @@ def test_roofline_and_idle_share():
                           "decode_kernel<2>": 0.001, "elementwise": 0.1},
                {})
     run = _run(steps, tr)
-    bound = 2 * _arith.layer_linear_seconds(DENSE, 8)
+    bound = 2 * _arith.layer_linear_seconds(DENSE, 0, 8)
     assert math.isclose(_arith.roofline_pct(run), 100 * bound / 0.004)
     assert math.isclose(_arith.idle_pct(run), 75.0)
     assert math.isclose(run.untraced_seconds(), 2.0)

@@ -1,25 +1,47 @@
-"""The plain reference against the port at tiny sizes on the CPU: the
-same dequantized weights from the same drawn fields, and logits within
-bf16's reach of the port's forward, for a Llama-shaped (Mistral) and a
-Mixtral configuration; and the control (fp8 activations) comes out not
-correct where the program comes out correct."""
+"""The plain reference against the port at tiny sizes on the CPU, for every
+configuration of ``BENCHMARK.json`` at its architecture's ``tiny`` sizes:
+the same dequantized weights from the same drawn fields, logits within
+bf16's reach of the port's forward, and a routed layer's feed-forward
+equal to the port's in float32; and the control (fp8 activations) comes
+out not correct where the program comes out correct, in every cell."""
 import dataclasses
 import json
+import os
 import time
 
 import pytest
 import torch
 
-from portbench import inputs, program, run, spec
+from portbench import archs, build, inputs, program, run, spec
 from portbench.reference.model import Reference
 
-from conftest import TINY_LIMITS
+from conftest import REPO, TINY_LIMITS
 
-CONFIGS = ("mistral7b", "mixtral8x7b")
+BENCH = json.load(open(os.path.join(REPO, "BENCHMARK.json")))
+CONFIGS = [c["name"] for c in BENCH["configs"]]
+CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def _config(root, name):
     return json.load(open(f"{root}/portbench/configs/{name}.json"))
+
+
+def _routed_layer(cfg):
+    """The first layer of ``cfg`` with routed experts, or None."""
+    arch = archs.of(cfg)
+    return next((li for li in range(cfg["num_hidden_layers"])
+                 if arch.experts(cfg, li)), None)
+
+
+def _f32_routed():
+    """The configurations whose tiny float32 sizes route some layer."""
+    out = []
+    for name in CONFIGS:
+        cfg = _config(REPO, name)
+        cfg.update(archs.of(cfg).tiny(cfg, f32=True))
+        if _routed_layer(cfg) is not None:
+            out.append(name)
+    return out
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -49,27 +71,33 @@ def test_reference_matches_the_port_forward(tiny_root, name, seed):
     assert float((got[0].float() - want).abs().max()) <= tol
 
 
-def test_reference_routes_as_the_port(tiny_root):
-    """The reference's routed FFN against the port's ``moe_ffn`` on one
-    layer of 4 experts, top 2, both in float32 on the same weights."""
-    from any4_tpu_torch.models import mixtral
-    cfg = dict(_config(tiny_root, "mixtral8x7b"), num_local_experts=4)
-    fields, router = inputs.draw_layer(cfg, 9, 0, "cpu")
+@pytest.mark.parametrize("name", _f32_routed())
+def test_reference_routes_as_the_port(name):
+    """The reference's routed feed-forward against the port's on the first
+    routed layer at the architecture's float32 tiny sizes (2 of 4 experts
+    for Mixtral), both in float32 on the same weights."""
+    cfg = _config(REPO, name)
+    cfg.update(archs.of(cfg).tiny(cfg, f32=True))
+    li = _routed_layer(cfg)
+    fields, dense = inputs.draw_layer(cfg, 9, li, "cpu")
     w = {n: inputs.dequantize(cfg, f) for n, f in fields.items()}
-    layer = {"router": router.float(), "experts": [
-        {k: w[f"experts.{e}.{k}"] for k in ("w1", "w3", "w2")}
-        for e in range(4)]}
+    w.update((n, t.float()) for n, t in dense.items())
+    d = cfg["hidden_size"]
+    port = build.of(cfg)
+    layer = port.layer(cfg, li, {n: w[n] for n in fields},
+                       {n: w[n] for n in dense}, torch.ones(d))
     mc = dataclasses.replace(program.model_config(cfg),
                              dtype=torch.float32)
-    h = torch.randn(1, 64, 128, generator=torch.Generator().manual_seed(0))
-    got = mixtral.moe_ffn(layer, mc, h)[0]
-    want = Reference(cfg, 9, "cpu")._moe(h[0], w, router.float())
+    h = torch.randn(1, 64, d, generator=torch.Generator().manual_seed(0))
+    got = port.ffn(layer, mc, h)[0]
+    ref = Reference(cfg, 9, "cpu")
+    want, margin = archs.of(cfg).ffn(ref, h[0], w, li)
+    assert bool(torch.isfinite(margin).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
 
 
-@pytest.mark.parametrize("cell", ("mixtral8x7b.chat", "mistral7b.ppl2k",
-                                  "mistral7b.rag", "mistral7b.chat"))
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(tiny_root, cell):
     """The fp8-activation control at the same positions, put in the
     program's place and judged by the cell's limits, comes out not correct

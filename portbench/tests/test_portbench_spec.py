@@ -131,11 +131,13 @@ def test_nothing_imports_jax_or_the_jax_package():
 def test_reference_imports_nothing_of_the_port():
     # the reference and the harness modules it imports
     for path in list(_sources(os.path.join(PB, "reference"))) + list(
-            _sources(os.path.join(PB, "formats"))) + [
+            _sources(os.path.join(PB, "formats"))) + list(
+            _sources(os.path.join(PB, "archs"))) + [
             os.path.join(PB, "inputs.py")]:
         for name in _imports(path):
             assert name.split(".")[0] != "any4_tpu_torch", (path, name)
-    code = ("import sys, portbench.reference.compare; print(sorted("
+    code = ("import sys, portbench.reference.compare, portbench.archs.llama, "
+            "portbench.archs.mistral, portbench.archs.mixtral; print(sorted("
             "{m.split('.')[0] for m in sys.modules} & {'any4_tpu_torch', "
             "'any4_tpu', 'jax'}))")
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -254,7 +256,8 @@ def test_a_new_format_is_new_files(tiny_root, tmp_path):
     c["quantization"]["format"] = "any4b"
     json.dump(c, open(os.path.join(pb, "configs", "mistral7b_b.json"), "w"))
     bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
-    bench["configs"].append(dict(bench["configs"][1], name="mistral7b_b",
+    base = next(c for c in bench["configs"] if c["name"] == "mistral7b")
+    bench["configs"].append(dict(base, name="mistral7b_b",
                                  file="portbench/configs/mistral7b_b.json"))
     bench["workloads"].append({"name": "mistral7b_b.ppl2k",
                                "config": "mistral7b_b", "traffic": "ppl2k",
@@ -265,16 +268,163 @@ def test_a_new_format_is_new_files(tiny_root, tmp_path):
     json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
     shutil.copy(os.path.join(pb, "limits", "mistral7b.ppl2k.json"),
                 os.path.join(pb, "limits", "mistral7b_b.ppl2k.json"))
-    code = ("import sys, time; sys.path.insert(0, '.'); "
-            "from portbench import run, spec, formats; "
-            "c = spec.load_cell('mistral7b_b.ppl2k', '.'); "
-            "r = run.run_cell(c, 4, 1.0, False, 'cpu', time.perf_counter()); "
-            "print(r['correct'], formats.load('any4b').__file__)")
+    r = _run_in_copy(root, "mistral7b_b.ppl2k", 4, "formats", "any4b")
+    assert r["file"] == os.path.join(root, "portbench", "formats",
+                                     "any4b.py")
+    assert r["attempted"] == 4 and r["numbers"] == r["base"]
+    assert r["correct"], r["checks"]
+    after = _digests(os.path.join(root, "portbench"))
+    assert {k: after[k] for k in before} == before
+
+
+def test_an_unknown_model_type_is_refused_by_name():
+    import pytest
+    from portbench import archs, build, inputs, program
+    for load in (archs.load, build.load):
+        with pytest.raises(ValueError, match="no "):
+            load("nothing_here")
+    cfg = {"model_type": "nothing_here", "hidden_size": 8,
+           "num_hidden_layers": 1, "quantization": {"group_size": 8}}
+    for call in (lambda: program.model_config(cfg),
+                 lambda: inputs.layer_linears(cfg, 0)):
+        with pytest.raises(ValueError, match="no model_type 'nothing_here'"):
+            call()
+
+
+def test_a_new_architecture_is_new_files(tiny_root, tmp_path):
+    """An architecture is ``archs/<model_type>.py`` and
+    ``build/<model_type>.py``, found by the configuration's
+    ``model_type``: the llama pair copied under another name, with a
+    configuration, a cell and its limits, runs, comes out correct and
+    reads what the cell it was copied from reads."""
+    root = str(tmp_path)
+    shutil.copytree(os.path.join(tiny_root, "portbench"),
+                    os.path.join(root, "portbench"))
+    shutil.copy(os.path.join(tiny_root, "BENCHMARK.json"), root)
+    before = _digests(os.path.join(root, "portbench"))
+    pb = os.path.join(root, "portbench")
+    for d in ("archs", "build"):
+        shutil.copy(os.path.join(pb, d, "llama.py"),
+                    os.path.join(pb, d, "llama_b.py"))
+    c = json.load(open(os.path.join(pb, "configs", "mistral7b.json")))
+    c["model_type"] = "llama_b"
+    json.dump(c, open(os.path.join(pb, "configs", "mistral7b_c.json"), "w"))
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    base = next(c for c in bench["configs"] if c["name"] == "mistral7b")
+    bench["configs"].append(dict(base, name="mistral7b_c",
+                                 file="portbench/configs/mistral7b_c.json"))
+    bench["workloads"].append({"name": "mistral7b_c.ppl2k",
+                               "config": "mistral7b_c", "traffic": "ppl2k",
+                               "chips": 1, "why": "another architecture"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "score_tok_s":
+            m["workloads"].append("mistral7b_c.ppl2k")
+    json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
+    shutil.copy(os.path.join(pb, "limits", "mistral7b.ppl2k.json"),
+                os.path.join(pb, "limits", "mistral7b_c.ppl2k.json"))
+    r = _run_in_copy(root, "mistral7b_c.ppl2k", 3, "archs", "llama_b")
+    assert r["file"] == os.path.join(root, "portbench", "archs",
+                                     "llama_b.py")
+    assert r["attempted"] == 4 and r["numbers"] == r["base"]
+    assert r["correct"], r["checks"]
+    after = _digests(os.path.join(root, "portbench"))
+    assert {k: after[k] for k in before} == before
+
+
+def _pattern_arch():
+    """A toy architecture whose layer 0 is a Llama layer and whose later
+    layers are Mixtral's, as a module of ``archs``."""
+    import types
+    from portbench.archs import llama, mixtral
+    mod = types.ModuleType("portbench.archs.pattern_toy")
+
+    def by_layer(fn):
+        return lambda config, layer, *a: getattr(
+            llama if layer == 0 else mixtral, fn)(config, layer, *a)
+    for fn in ("linears", "experts", "draw_dense", "extra_flops",
+               "attention_flops"):
+        setattr(mod, fn, by_layer(fn))
+    mod.check = llama.check
+    mod.layer = lambda ref, x, w, layer: (
+        llama if layer == 0 else mixtral).layer(ref, x, w, layer)
+    return mod
+
+
+def test_a_layer_pattern_draws_and_counts_each_layer(monkeypatch):
+    """An architecture whose linears differ by layer (a dense layer, then
+    routed ones): each layer is drawn with its own linears and leaves, the
+    arithmetic counts each layer as it is, and the reference routes only
+    where a layer does."""
+    import math
+    import sys
+    import torch
+    from portbench import inputs
+    from portbench.archs import mixtral
+    from portbench.metrics import _arith
+    from portbench.record import Step
+    from portbench.reference.model import Reference
+    monkeypatch.setitem(sys.modules, "portbench.archs.pattern_toy",
+                        _pattern_arch())
+    moe = json.load(open(os.path.join(PB, "configs", "mixtral8x7b.json")))
+    moe["num_hidden_layers"] = 4
+    toy = dict(moe, model_type="pattern_toy")
+    dense = dict(moe, model_type="llama")
+    names = [[n for n, _, _ in inputs.layer_linears(toy, li)]
+             for li in range(4)]
+    assert names[0][4:] == ["gate_proj", "up_proj", "down_proj"]
+    assert names[1] == names[3] and len(names[1]) == 4 + 3 * 8
+    for m in (1, 16, 512):
+        per = [_arith.layer_linear_seconds(toy, li, m) for li in range(4)]
+        assert per[0] == _arith.layer_linear_seconds(dense, 0, m)
+        assert per[1:] == [_arith.layer_linear_seconds(moe, 0, m)] * 3
+        step = Step(0, 1, "decode", decode_ctx=[100] * m)
+        assert math.isclose(_arith.step_linear_seconds(toy, step),
+                            per[0] + 3 * per[1], rel_tol=1e-12)
+    head = 2.0 * 4096 * 32000
+    layer_flops = [(_arith.token_flops(c) - head) / 4 for c in (dense, moe)]
+    assert math.isclose(_arith.token_flops(toy),
+                        layer_flops[0] + 3 * layer_flops[1] + head,
+                        rel_tol=1e-12)
+    tiny = dict(toy, **mixtral.tiny(toy, f32=True))
+    for li in range(2):
+        fields, leaves = inputs.draw_layer(tiny, 5, li, "cpu")
+        assert list(fields) == [n for n, _, _ in
+                                inputs.layer_linears(tiny, li)]
+        assert list(leaves) == ([] if li == 0 else ["router"])
+    ref = Reference(tiny, 5, "cpu")
+    ref.hidden([torch.arange(20)])
+    (margin,) = ref.min_margin
+    assert margin.shape == (20,) and bool(torch.isfinite(margin).all())
+
+
+def _run_in_copy(root, cell, seed, package, module, windows=4):
+    """One run of ``cell`` of the copy under ``root``, in an interpreter
+    that finds the copy's modules first, scoring exactly ``windows``
+    windows: the window's clock is a counter that moves half a second a
+    reading, so the count does not hang on how fast the machine runs.
+    Returns the result with the file of ``<package>/<module>.py`` as the
+    run loaded it, and ``"base"``: the numbers of the cell the copy was
+    made from (``cell`` up to its first ``_``) on the same seed and count."""
+    code = f"""
+import itertools, json, sys, time, types
+sys.path.insert(0, ".")
+from portbench import drive, run, spec
+from portbench.{package} import load
+
+def once(name):
+    tick = itertools.count()
+    drive.time = types.SimpleNamespace(perf_counter=lambda: next(tick) * 0.5)
+    c = spec.load_cell(name, ".")
+    return run.run_cell(c, {seed}, {float(windows)}, False, "cpu",
+                        time.perf_counter(), control=True)
+
+r = once({cell!r})
+r["file"] = load({module!r}).__file__
+r["base"] = once({cell.split("_")[0] + "." + cell.split(".", 1)[1]!r})["numbers"]
+print(json.dumps(r))
+"""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, REPO]))
     p = subprocess.run([sys.executable, "-c", code], cwd=root,
                        capture_output=True, text=True, timeout=300, env=env)
-    assert p.stdout.split() == [
-        "True", os.path.join(root, "portbench", "formats", "any4b.py")], \
-        p.stderr[-2000:]
-    after = _digests(os.path.join(root, "portbench"))
-    assert {k: after[k] for k in before} == before
+    assert p.returncode == 0, p.stderr[-2000:]
+    return json.loads(p.stdout.strip().splitlines()[-1])
